@@ -1,0 +1,109 @@
+// K2 spawn: hand the next work items to empty slots and start their rays.
+//
+// Replaces path_tracer_tpu/ops/wavefront.py spawn (:216-266; the
+// prefix-sum rank becomes one atomicAdd on the item counter),
+// shade_tiled.py spawn_rng (:730, B2), spawn_paths/get_rays_t (:741, :333,
+// B3) and traversal_init_batched (traverse.py:280, root-leaf case
+// included).  A work item id maps to (window g, pixel) = (id / npix,
+// id % npix) with samples [start + g*stride, start + min((g+1)*stride, n));
+// with stride 1 it is one (sample, pixel).  FL_RESAMPLE slots start the
+// next sample of their window in place and keep their radiance sum.  The
+// RNG folds fix the (sample, pixel) set, so which slot takes which item
+// does not change the image beyond float add order.
+//
+// Bound: 6 threefry evaluations (~120 integer ops each) and a few
+// transcendentals per renewed slot; memory traffic is ~100 bytes per slot.
+#include "intersect.cuh"
+#include "threefry.cuh"
+
+__device__ __forceinline__ void spawn_lane(const WaveArgs& a, int i) {
+  const bool resample = a.flag[i] == FL_RESAMPLE;
+  bool can = false;
+  long long id = 0;
+  if (!a.occupied[i] && a.ctr[C_SPAWNED] < a.items_total) {
+    id = (long long)atomicAdd((unsigned long long*)a.ctr + C_SPAWNED, 1ull);
+    can = id < a.items_total;
+  }
+  if (!can && !resample) return;
+  int smp, pix, last;
+  if (can) {
+    if (a.multi) {
+      const long long g = id / a.npix;
+      smp = a.start_sample + (int)(g * a.stride);
+      const long long end = (g + 1) * a.stride < a.n_samples
+                                ? (g + 1) * a.stride : a.n_samples;
+      last = a.start_sample + (int)end - 1;
+    } else {
+      smp = a.start_sample + (int)(id / a.npix);
+      last = smp;
+    }
+    pix = (int)(id % a.npix);
+  } else {
+    smp = a.sample[i] + 1;
+    pix = a.pixel[i];
+    last = a.last[i];
+  }
+  const Key k7 = fold_in(fold_in(fold_in(Key{a.key0, a.key1}, (uint32_t)smp),
+                                 (uint32_t)pix), 7u);
+  float u5[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) u5[k] = uniform_at(k7, (uint32_t)k);
+  if (a.u5_out) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) a.u5_out[5 * i + k] = u5[k];
+  }
+  const float px = (float)(pix % a.width), py = (float)(pix / a.width);
+  const float sx = px + u5[0] - 0.5f, sy = py + u5[1] - 0.5f;
+  float sm[3], o[3], d[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) sm[k] = a.pixel00[k] + sx * a.du[k] + sy * a.dv[k];
+  const float r = sqrtf(u5[2]);
+  const float phi = TWO_PI_F * u5[3];
+  const float kx = r * cosf(phi), ky = r * sinf(phi);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = a.defocus_angle <= 0.0f
+               ? a.cam_origin[k]
+               : a.cam_origin[k] + kx * a.defocus_u[k] + ky * a.defocus_v[k];
+    d[k] = sm[k] - o[k];
+  }
+  const float ninv =
+      1.0f / sqrtf(fmaxp(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 1e-16f));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    d[k] = d[k] * ninv;
+    a.origin[3 * i + k] = o[k];
+    a.direction[3 * i + k] = d[k];
+    if (!resample) a.color[3 * i + k] = 0.0f;
+    a.throughput[3 * i + k] = 1.0f;
+  }
+  a.time[i] = u5[4];
+  a.depth[i] = 0;
+  a.iters[i] = 0;
+  a.alive[i] = true;
+  trav_init(a, i, o[0], o[1], o[2], d[0], d[1], d[2], u5[4], a.t_min);
+  a.phase[i] = PH_MAIN;
+  a.pixel[i] = pix;
+  a.sample[i] = smp;
+  a.last[i] = last;
+  a.flag[i] = FL_NONE;
+  if (can) {
+    a.occupied[i] = true;
+    atomicAdd((unsigned long long*)a.ctr + C_N_OCC, 1ull);
+  }
+}
+
+#ifndef PTT_HOST_EMULATION
+__global__ void spawn_kernel(WaveArgs a) {
+  if (a.ctr[C_DO_CTRL] == 0) return;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.R) spawn_lane(a, i);
+}
+
+extern "C" int ptt_launch_spawn(const WaveArgs* a, void* stream) {
+  const int block = 128;
+  const int grid = (a->R + block - 1) / block;
+  spawn_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+#endif
