@@ -4,21 +4,36 @@
 
 Phases (each prints its own line; any failure exits non-zero):
 
-1. device   — require CUDA; print the card's name and power limit.
-2. build    — compile the four CUDA kernels (one nvcc per source, in
-              parallel) and print the build seconds and ptxas resources.
-3. kernels  — at the full configuration's shapes (vol2_final_scene, 800x450,
-              depth 10, 32768 slots, 32 steps per wave) hold each kernel
-              against its plain-torch twin on the same wave state, and time
-              both (CUDA events, median of 25 launches).
-4. main     — render vol2_final_scene(sphere_cluster=1000) at 800x450,
-              10 spp, depth 10 through Renderer(engine="wavefront") after a
-              warm-up batch; print wall time, Mrays/s, waves and host reads,
-              three frame walls, and per-kernel device time of another
-              frame (torch.profiler).
-5. agree    — kernel path vs twin path on the card at 160x90, 2 spp: the
-              graded image agreement of tools/bench_ab.py.
-6. the JSON kernel table, then the JSON result line.
+1. device     — require CUDA; print the card's name and power limit.
+2. build      — compile the five CUDA kernels (one nvcc per source, all
+                started together) and print the build seconds and ptxas
+                resources.
+3. kernels    — at the full configuration's shapes (vol2_final_scene,
+                800x450, depth 10, 32768 slots, 32 steps per wave) hold each
+                wavefront kernel against its plain-torch twin on the same
+                wave state; hold K5 (megakernel) against its twin on one
+                800x450 sample, per pixel; hold K3 (shade) against its twin
+                on a mid-flight wave state of mesh_perlin_sss at 400x225,
+                and K5 against its twin on one 400x225 sample of it: both
+                run the SSS walk there; time each (CUDA events, median of
+                25 launches).
+4. main       — render vol2_final_scene(sphere_cluster=1000) at 800x450,
+                10 spp, depth 10 through Renderer(engine="wavefront") after a
+                warm-up; print wall time, Mrays/s, waves and host reads,
+                three frame walls, and per-kernel device time of another
+                frame (torch.profiler) with the device idle share.
+5. main-mega  — the same frame through Renderer(engine="megakernel").
+6. main-sss   — mesh_perlin_sss at 400x225, 64 spp, depth 12, through both
+                engines, with the SSS walk counter.
+7. agree      — kernel paths vs twin paths on the card at 160x90, 2 spp: the
+                graded image agreement of tools/bench_ab.py and exact
+                counters, for the wavefront on vol2_final and
+                mesh_perlin_sss and the megakernel on both; and the
+                megakernel's image against the wavefront kernels' image.
+8. the JSON kernel table, then the JSON result line.
+
+Each main phase sets the launch counts to 0 just before it renders and
+reads them just after; the table's ``launches`` come from those runs.
 """
 from __future__ import annotations
 
@@ -45,7 +60,12 @@ KERNELS = {
               "path_tracer_tpu/ops/shade_tiled.py:773"),
     "retire": ("path_tracer_tpu_torch/csrc/retire.cu",
                "path_tracer_tpu/ops/wavefront.py:268"),
+    "megakernel": ("path_tracer_tpu_torch/csrc/megakernel.cu",
+                   "path_tracer_tpu/ops/integrator.py:253"),
 }
+WAVE_KERNELS = ("trace_step", "spawn", "shade", "retire")
+BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce (threefry at 110)
+WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
 
 
 def phase(name, msg):
@@ -77,6 +97,76 @@ def cuda_ms(fn, reps=25, setup=None):
     return statistics.median(times)
 
 
+def frame_phase(tag, make, W, H, spp, depth, names, kernels):
+    """Warm up, then render one frame with the launch counts set to 0 just
+    before and read just after; two more frames for the spread and one
+    under torch.profiler for per-kernel device time.  Returns a record."""
+    make().render(spp=1)                                   # warm-up
+    r = make()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(spp=spp, batch=spp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    st = r.stats
+    mr_ub = W * H * spp * depth / wall / 1e6
+    mr_meas = st.rays / wall / 1e6
+    phase(tag, f"{W}x{H} {spp} spp depth {depth}: wall {wall:.4f} s, "
+          f"{1000 * wall / spp:.2f} ms/sample, upper-bound {mr_ub:.3f} "
+          f"Mrays/s, measured {mr_meas:.3f} Mrays/s ({st.rays} segments), "
+          f"walk steps {st.walk_steps}, waves {st.waves}, ctrls {st.ctrls}, "
+          f"host reads {st.host_reads}, launches {launches}")
+    assert np.isfinite(img).all(), "non-finite pixels"
+    assert float(img.mean()) > 0.0, "black image"
+    if st.pixel_paths is not None:            # the wavefront counts per pixel
+        assert (st.pixel_paths == spp).all(), "per-pixel path count != spp"
+    assert st.paths == W * H * spp, f"paths {st.paths} != {W * H * spp}"
+    missing = [n for n in names if launches[n] == 0]
+    assert not missing, f"kernels not launched on this path: {missing}"
+    walls = [wall]
+    for _ in range(2):                          # spread of the frame time
+        rr_ = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rr_.render(spp=spp, batch=spp)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    phase(tag, "frame wall s over 3 frames: " + ", ".join(
+        f"{w:.4f}" for w in walls) + f" (median {statistics.median(walls):.4f})")
+    # Per-kernel device time of one frame: torch.profiler (CUPTI) sums the
+    # device time of each kernel by name.
+    from torch.profiler import ProfilerActivity, profile
+    r2 = make()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r2.render(spp=spp, batch=spp)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    totals, counts = {}, {}
+    for ev in prof.key_averages():
+        for n in names:
+            if ev.key.startswith(f"{n}_kernel"):
+                totals[n] = totals.get(n, 0.0) + ev.device_time_total / 1e3
+                counts[n] = counts.get(n, 0) + ev.count
+    assert all(totals.get(n, 0.0) > 0.0 for n in names), \
+        f"profiler saw no device time for some kernel: {totals}"
+    busy = sum(totals.values())
+    idle = 1 - busy / (1e3 * prof_wall)
+    phase(tag, "per-kernel device ms over one frame (torch.profiler): "
+          + ", ".join(f"{n}={totals.get(n, 0.0):.2f} ({counts.get(n, 0)} "
+                      f"launches)" for n in names)
+          + f"; kernels {busy:.2f} ms of {1e3 * prof_wall:.2f} ms wall under "
+          f"the profiler (device idle share {idle:.3f})")
+    return dict(r=r, img=img, wall=wall, walls=walls, mrays_ub=mr_ub,
+                mrays_measured=mr_meas, rays=st.rays, walk_steps=st.walk_steps,
+                waves=st.waves, ctrls=st.ctrls, host_reads=st.host_reads,
+                launches=launches, kernel_totals_ms=totals,
+                profiled_wall_ms=1e3 * prof_wall, idle_share=idle)
+
+
 def main() -> int:
     # --- 1. device ---
     if not torch.cuda.is_available():
@@ -92,12 +182,15 @@ def main() -> int:
     os.makedirs(RUN_DIR, exist_ok=True)
 
     import path_tracer_tpu_torch as ptt
-    from path_tracer_tpu_torch.ops import kernels, wavefront as wf
+    from path_tracer_tpu_torch.ops import integrator, kernels, wavefront as wf
     from path_tracer_tpu_torch.ops import shade_tiled, traverse
     from path_tracer_tpu_torch.ops.shade import SceneFlags
-    from path_tracer_tpu_torch.ops.types import (C_DO_CTRL, C_N_OCC,
-                                                 C_TRAV_STEPS, FL_FINISHED,
-                                                 FL_RESAMPLE, PH_EXIT,
+    from path_tracer_tpu_torch.ops.types import (C_DEPTH_SUM, C_DO_CTRL,
+                                                 C_DONE, C_N_OCC, C_RAYS,
+                                                 C_STACK_OVF, C_TRAV_STEPS,
+                                                 C_WALK_STEPS, FL_FINISHED,
+                                                 FL_RESAMPLE, MAT_SSS_SIMPLE,
+                                                 MAT_SSS_VOLUMETRIC, PH_EXIT,
                                                  RenderConfig)
     from path_tracer_tpu_torch.render.renderer import Renderer
     from path_tracer_tpu_torch.utils import rng
@@ -291,106 +384,245 @@ def main() -> int:
     del ws, snap, k_ws, p_ws, k3, p3, k4, p4, k2, p2, work
     torch.cuda.empty_cache()
 
+    def mega_pair(meng, w, h):
+        """K5 and its twin on sample 0 from a zero frame: the share of pixels
+        with equal iters and depth, the graded colour rule, the counters and
+        depth histogram (exact: both sides round alike, --fmad=false, the same
+        libdevice functions); then K5's time."""
+        zero = torch.zeros((h, w, 3), device=dev)
+        mk, mp = meng.init_state(zero), meng.init_state(zero)
+        integrator.megakernel(meng, mk, 0)
+        pms = cuda_ms(lambda: integrator.megakernel_plain(meng, mp, 0), reps=1)
+        same = (mk.iters == mp.iters) & (mk.depth == mp.depth)
+        frac = float(same.float().mean())
+        img_ok, outl, clean = graded_agreement(mk.color.cpu().numpy(),
+                                               mp.color.cpu().numpy())
+        err = float((mk.color - mp.color)[same].abs().max())
+        ctr_ok = (torch.equal(mk.ctr, mp.ctr)
+                  and torch.equal(mk.depth_hist, mp.depth_hist)
+                  and int(mk.ctr[C_DONE]) == w * h
+                  and int(mk.ctr[C_STACK_OVF]) == 0)
+        out = dict(ok=frac >= 0.999 and img_ok and ctr_ok, frac=frac,
+                   outliers=outl, clean_mean=clean, err=err, ctr_ok=ctr_ok,
+                   plain_ms=pms, **{n: int(mk.ctr[i]) for n, i in (
+                       ("paths", C_DONE), ("rays", C_RAYS),
+                       ("depth_sum", C_DEPTH_SUM), ("trav_steps", C_TRAV_STEPS),
+                       ("walk_steps", C_WALK_STEPS))})
+        out["ms"] = cuda_ms(lambda: integrator.megakernel(meng, mk, 0))
+        return out
+
+    def mega_line(tag, m):
+        return (f"megakernel: {tag} one sample, iters/depth match "
+                f"{m['frac']:.6f} of pixels, colour outliers {m['outliers']:.5f}"
+                f" clean mean {m['clean_mean']:.2e} max abs err {m['err']:.2e}, "
+                f"counters/hist exact {m['ctr_ok']} (paths {m['paths']}, rays "
+                f"{m['rays']}, depth_sum {m['depth_sum']}, traversal steps "
+                f"{m['trav_steps']}, walk steps {m['walk_steps']}), "
+                f"{m['ms']:.3f} ms (twin {m['plain_ms']:.1f} ms)")
+
+    # K5 megakernel: one 800x450 sample against its twin, pixel by pixel
+    meng = integrator.MegaEngine(scene, flags, bvh, cam_a, cfg, key)
+    m = mega_pair(meng, W, H)
+    # Bytes: the node rows and shade rows once; per pixel its colour, iters
+    # and depth written and its frame entry read and written.  Operations:
+    # ~220 per traversal step, one bounce per loop trip (as K3's count),
+    # the camera ray (8 threefry) per pixel and the SSS walk trips.
+    prim_bytes = meng.tabs.prim.numel() * 4
+    byts = node_bytes + prim_bytes + W * H * (12 + 4 + 4 + 24)
+    ops = (m["trav_steps"] * 220 + m["rays"] * BOUNCE_OPS
+           + m["walk_steps"] * WALK_TRIP_OPS + W * H * (8 * 110 + 60))
+    results["megakernel"] = dict(ok=m["ok"], err=m["err"], ms=m["ms"],
+                                 plain_ms=m["plain_ms"], bytes=byts, ops=ops,
+                                 library_ms=None)
+    phase("kernels", mega_line("vol2_final 800x450", m)
+          + f" {'PASS' if m['ok'] else 'FAIL'}; bound inputs: node bytes "
+          f"{node_bytes}, shade-row bytes {prim_bytes}, total bytes {byts}, "
+          f"fp32 ops {ops}")
+    del meng
+
+    # K3 on a mid-flight wave state of mesh_perlin_sss: the SSS walk
+    QW, QH, QSPP, QDEPTH = 400, 225, 64, 12
+    world_q, cam_q = ptt.scenes.mesh_perlin_sss()
+    cam_q.aspect_ratio, cam_q.img_width = QW / QH, QW
+    cam_q.samples_per_pixel, cam_q.max_depth = QSPP, QDEPTH
+    sc_q = ptt.compile_scene(world_q, device=dev)
+    fl_q = SceneFlags.from_scene(sc_q)
+    assert fl_q.has_sss and fl_q.has_noise
+    bv_q = ptt.build_from_scene(sc_q)
+    ca_q = cam_q.initialize(device=dev)
+    cf_q = RenderConfig(width=QW, height=QH, samples_per_pixel=QSPP,
+                        max_depth=QDEPTH)
+    big = bv_q.nodes.shape[0] >= 256
+    qeng = wf.WaveEngine(sc_q, fl_q, bv_q, ca_q, cf_q, 0, QSPP, key,
+                         queue_size=32768 if big else 8192,
+                         steps_per_wave=32 if big else 12, ctrl_den=8)
+    qws = qeng.init_state(torch.zeros((QH, QW, 3), device=dev))
+    for _ in range(24):                       # a mid-flight pool
+        for op in wf.KERNELS:
+            op(qeng, qws)
+    kernels.launch("trace_step", qeng, qws)
+    torch.cuda.synchronize()
+    snap = qws.clone()
+    snap.ctr[C_DO_CTRL] = 1
+    ready = snap.occupied & (snap.cur == traverse._DONE)
+    hit_mat = shade_tiled._prim_rows(qeng.tabs, snap.best_pt, snap.best_pi)[0]
+    mtype = qeng.tabs.mat[hit_mat.long(), 0].long()
+    hit = ready & (snap.best_pt >= 0)
+    n_sv = int((hit & (mtype == MAT_SSS_VOLUMETRIC)).sum())
+    n_ss = int((hit & (mtype == MAT_SSS_SIMPLE)).sum())
+    k3, p3 = snap.clone(), snap.clone()
+    kernels.launch("shade", qeng, k3)
+    shade_tiled.shade_plain(qeng, p3)
+    torch.cuda.synchronize()
+    same = (k3.alive == p3.alive) & (k3.depth == p3.depth) & (k3.flag == p3.flag)
+    frac = float(same[ready].float().mean())
+    rest = ready & same
+    err_q = max(float((getattr(k3, f) - getattr(p3, f))[rest].abs().max())
+                for f in ("origin", "direction", "color", "throughput"))
+    walk_k = int(k3.ctr[C_WALK_STEPS] - snap.ctr[C_WALK_STEPS])
+    walk_p = int(p3.ctr[C_WALK_STEPS] - snap.ctr[C_WALK_STEPS])
+    ok_q = (frac >= 0.999 and n_sv > 0 and n_ss > 0 and walk_k == walk_p > 0
+            and all(torch.allclose(getattr(k3, f)[rest], getattr(p3, f)[rest],
+                                   rtol=1e-4, atol=1e-4)
+                    for f in ("origin", "direction", "color", "throughput")))
+    work = snap.clone()
+    ms_q = cuda_ms(lambda: kernels.launch("shade", qeng, work),
+                   setup=lambda: restore(work, snap))
+    pms_q = cuda_ms(lambda: shade_tiled.shade_plain(qeng, work), reps=5,
+                    setup=lambda: restore(work, snap))
+    res = results["shade"]
+    res.update(ok=res["ok"] and ok_q, err=max(res["err"], err_q),
+               sss=dict(ok=ok_q, ms=ms_q, plain_ms=pms_q, ready=int(ready.sum()),
+                        sss_volumetric=n_sv, sss_simple=n_ss, walk_steps=walk_k))
+    phase("kernels", f"shade on mesh_perlin_sss 400x225 mid-flight: "
+          f"{int(ready.sum())} ready lanes, {n_sv} SSS-volumetric and {n_ss} "
+          f"SSS-simple, alive/depth/flag match {frac:.6f}, float max abs err "
+          f"{err_q:.2e}, walk steps {walk_k} (twin {walk_p}), {ms_q:.3f} ms "
+          f"(twin {pms_q:.2f} ms) {'PASS' if ok_q else 'FAIL'}")
+    del qws, snap, k3, p3, work
+    torch.cuda.empty_cache()
+
+    # K5 on one 400x225 sample of mesh_perlin_sss, where it runs the walk
+    mq = mega_pair(integrator.MegaEngine(sc_q, fl_q, bv_q, ca_q, cf_q, key),
+                   QW, QH)
+    ok_mq = mq["ok"] and mq["walk_steps"] > 0
+    res = results["megakernel"]
+    res.update(ok=res["ok"] and ok_mq, err=max(res["err"], mq["err"]),
+               sss=dict(mq, ok=ok_mq))
+    phase("kernels", mega_line("mesh_perlin_sss 400x225", mq)
+          + f" {'PASS' if ok_mq else 'FAIL'}")
+    torch.cuda.empty_cache()
+
     # --- 4. the main path through the public entry points ---
-    r = Renderer(world, cam, engine="wavefront", device=dev)
-    Renderer(world, cam, engine="wavefront", device=dev).render(spp=1)  # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    img = r.render(spp=SPP, batch=SPP)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    st = r.stats
-    mr_ub = W * H * SPP * DEPTH / wall / 1e6
-    mr_meas = st.rays / wall / 1e6
-    phase("main", f"vol2_final 800x450 {SPP} spp depth {DEPTH}: wall "
-          f"{wall:.3f} s, {1000 * wall / SPP:.1f} ms/sample, upper-bound "
-          f"{mr_ub:.3f} Mrays/s, measured {mr_meas:.3f} Mrays/s "
-          f"({st.rays} segments), waves {st.waves}, ctrls {st.ctrls}, "
-          f"host reads {st.host_reads}, launches {launches}")
-    assert np.isfinite(img).all(), "non-finite pixels"
-    assert float(img.mean()) > 0.0, "black image"
-    assert (st.pixel_paths == SPP).all(), "per-pixel path count != spp"
-    assert st.paths == W * H * SPP
-    missing = [n for n, c in launches.items() if c == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
+    rec = {}
+    rec["main"] = frame_phase(
+        "main", lambda: Renderer(world, cam, engine="wavefront", device=dev),
+        W, H, SPP, DEPTH, WAVE_KERNELS, kernels)
     png = os.path.join(RUN_DIR, "vol2_final_800x450_10spp.png")
-    r.write_image(png)
-    phase("main", f"image mean {float(img.mean()):.5f}, written to {png}")
+    rec["main"].pop("r").write_image(png)
+    phase("main", f"image mean {float(rec['main'].pop('img').mean()):.5f}, "
+          f"written to {png}")
 
-    walls = [wall]
-    for _ in range(2):                          # spread of the frame time
-        rr_ = Renderer(world, cam, engine="wavefront", device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rr_.render(spp=SPP, batch=SPP)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    phase("main", "frame wall s over 3 frames: " + ", ".join(
-        f"{w:.4f}" for w in walls) + f" (median {statistics.median(walls):.4f})")
+    # --- 5. the megakernel on the same frame ---
+    rec["main-mega"] = frame_phase(
+        "main-mega",
+        lambda: Renderer(world, cam, engine="megakernel", device=dev),
+        W, H, SPP, DEPTH, ("megakernel",), kernels)
+    png = os.path.join(RUN_DIR, "vol2_final_800x450_10spp_mega.png")
+    rec["main-mega"].pop("r").write_image(png)
+    phase("main-mega", f"image mean "
+          f"{float(rec['main-mega'].pop('img').mean()):.5f}, written to {png}")
 
-    # Per-kernel device time of one frame: torch.profiler (CUPTI) sums the
-    # device time of each kernel by name.
-    from torch.profiler import ProfilerActivity, profile
-    r2 = Renderer(world, cam, engine="wavefront", device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r2.render(spp=SPP, batch=SPP)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    totals, counts = {}, {}
-    for ev in prof.key_averages():
-        for n in KERNELS:
-            if ev.key.startswith(f"{n}_kernel"):
-                totals[n] = totals.get(n, 0.0) + ev.device_time_total / 1e3
-                counts[n] = counts.get(n, 0) + ev.count
-    assert all(totals.get(n, 0.0) > 0.0 for n in KERNELS), \
-        f"profiler saw no device time for some kernel: {totals}"
-    busy = sum(totals.values())
-    phase("main", "per-kernel device ms over one frame (torch.profiler): "
-          + ", ".join(f"{n}={totals.get(n, 0.0):.2f} ({counts.get(n, 0)} "
-                      f"launches)" for n in KERNELS)
-          + f"; kernels {busy:.2f} ms of {1e3 * prof_wall:.2f} ms wall under "
-          f"the profiler (device idle share {1 - busy / (1e3 * prof_wall):.3f})")
+    # --- 6. mesh_perlin_sss through both engines ---
+    for engine, names in (("wavefront", WAVE_KERNELS),
+                          ("megakernel", ("megakernel",))):
+        tag = f"main-sss {engine}"
+        rec[tag] = frame_phase(
+            tag, lambda e=engine: Renderer(world_q, cam_q, engine=e, device=dev),
+            QW, QH, QSPP, QDEPTH, names, kernels)
+        assert rec[tag]["walk_steps"] > 0, "no SSS walk steps"
+        rec[tag].pop("r")
+        rec[tag].pop("img")
 
-    # --- 5. whole-image agreement, kernels vs twins on the card ---
-    world_s, cam_s = ptt.scenes.vol2_final_scene(sphere_cluster=1000)
+    # --- 7. whole-image agreement, kernels vs twins on the card ---
     ws_, hs_ = 160, 90
-    cam_s.aspect_ratio, cam_s.img_width = ws_ / hs_, ws_
-    sc_s = ptt.compile_scene(world_s, device=dev)
-    bv_s = ptt.build_from_scene(sc_s)
-    ca_s = cam_s.initialize(device=dev)
-    cf_s = RenderConfig(width=ws_, height=hs_, samples_per_pixel=2,
-                        max_depth=DEPTH)
-    fl_s = SceneFlags.from_scene(sc_s)
-    imgs, counts = {}, {}
-    for plain in (False, True):
-        imgs[plain], sts = wf.render_batch(
-            sc_s, fl_s, bv_s, ca_s, cf_s, torch.zeros((hs_, ws_, 3), device=dev),
-            0, 2, key, queue_size=32768, steps_per_wave=32, with_stats=True,
-            plain=plain)
-        counts[plain] = {k: int(sts[k]) for k in ("paths", "spawned", "rays",
-                                                  "stack_overflows")}
-        counts[plain]["depth_hist"] = sts["depth_hist"].tolist()
-        counts[plain]["pixel_paths_all_2"] = bool((sts["pixel_paths"] == 2).all())
-        phase("agree", f"{'twin' if plain else 'kernels'}: {counts[plain]}")
-    img_ok, outl, clean = graded_agreement(imgs[False].cpu().numpy(),
-                                           imgs[True].cpu().numpy())
-    # The (sample, pixel) set is fixed by the RNG folds and both sides round
-    # alike (--fmad=false), so the counters must match exactly.
-    counters_ok = (counts[False] == counts[True]
-                   and counts[False]["paths"] == ws_ * hs_ * 2
-                   and counts[False]["pixel_paths_all_2"]
-                   and counts[False]["stack_overflows"] == 0)
-    agree = img_ok and counters_ok
-    phase("agree", f"160x90 2 spp: paths/spawned/rays/depth_hist equal, "
-          f"per-pixel paths == 2 and no stack overflow: {counters_ok}; "
-          f"outlier fraction {outl:.5f}, clean-pixel mean diff {clean:.2e} "
-          f"-> {'PASS' if agree else 'FAIL'}")
+    zero_s = torch.zeros((hs_, ws_, 3), device=dev)
 
-    # --- 6. the kernel table ---
+    def small(name, **kw):
+        world_s, cam_s = getattr(ptt.scenes, name)(**kw)
+        cam_s.aspect_ratio, cam_s.img_width = ws_ / hs_, ws_
+        sc_s = ptt.compile_scene(world_s, device=dev)
+        return (sc_s, SceneFlags.from_scene(sc_s), ptt.build_from_scene(sc_s),
+                cam_s.initialize(device=dev))
+
+    def wave_counts(sts):
+        c = {k: int(sts[k]) for k in ("paths", "spawned", "rays", "walk_steps",
+                                      "stack_overflows")}
+        c["depth_hist"] = sts["depth_hist"].tolist()
+        c["pixel_paths_all_2"] = bool((sts["pixel_paths"] == 2).all())
+        return c
+
+    def mega_counts(sts):
+        c = {k: int(sts[k]) for k in ("paths", "rays", "depth_sum",
+                                      "walk_steps", "trav_steps",
+                                      "stack_overflows")}
+        c["depth_hist"] = sts["depth_hist"].tolist()
+        return c
+
+    agree = True
+    for name, kw, depth in (("vol2_final_scene", {"sphere_cluster": 1000}, DEPTH),
+                            ("mesh_perlin_sss", {}, QDEPTH)):
+        sc_s, fl_s, bv_s, ca_s = small(name, **kw)
+        cf_s = RenderConfig(width=ws_, height=hs_, samples_per_pixel=2,
+                            max_depth=depth)
+        imgs, counts = {}, {}
+        for plain in (False, True):
+            imgs[plain], sts = wf.render_batch(
+                sc_s, fl_s, bv_s, ca_s, cf_s, zero_s, 0, 2, key,
+                queue_size=32768, steps_per_wave=32, with_stats=True,
+                plain=plain)
+            counts[plain] = wave_counts(sts)
+            phase("agree", f"{name} wavefront {'twin' if plain else 'kernels'}: "
+                  f"{counts[plain]}")
+        img_ok, outl, clean = graded_agreement(imgs[False].cpu().numpy(),
+                                               imgs[True].cpu().numpy())
+        # The (sample, pixel) set is fixed by the RNG folds and both sides
+        # round alike (--fmad=false), so the counters must match exactly.
+        counters_ok = (counts[False] == counts[True]
+                       and counts[False]["paths"] == ws_ * hs_ * 2
+                       and counts[False]["pixel_paths_all_2"]
+                       and counts[False]["stack_overflows"] == 0)
+        ok_w = img_ok and counters_ok
+        phase("agree", f"{name} wavefront 160x90 2 spp: paths/spawned/rays/"
+              f"walk/depth_hist equal, per-pixel paths == 2 and no stack "
+              f"overflow: {counters_ok}; outlier fraction {outl:.5f}, "
+              f"clean-pixel mean diff {clean:.2e} -> {'PASS' if ok_w else 'FAIL'}")
+        megs, mcounts = {}, {}
+        for plain in (False, True):
+            megs[plain], sts = integrator.render_batch(
+                sc_s, fl_s, bv_s, ca_s, cf_s, zero_s, 0, 2, key,
+                with_stats=True, plain=plain)
+            mcounts[plain] = mega_counts(sts)
+            phase("agree", f"{name} megakernel {'twin' if plain else 'K5'}: "
+                  f"{mcounts[plain]}")
+        m_ok, m_outl, m_clean = graded_agreement(megs[False].cpu().numpy(),
+                                                 megs[True].cpu().numpy())
+        m_ok = (m_ok and mcounts[False] == mcounts[True]
+                and mcounts[False]["paths"] == ws_ * hs_ * 2
+                and mcounts[False]["stack_overflows"] == 0)
+        e_ok, e_outl, e_clean = graded_agreement(
+            megs[False].cpu().numpy() / 2, imgs[False].cpu().numpy() / 2)
+        e_ok = e_ok and mcounts[False]["rays"] == counts[False]["rays"]
+        phase("agree", f"{name} megakernel 160x90 2 spp: K5 vs twin counters "
+              f"equal, outliers {m_outl:.5f}, clean mean {m_clean:.2e} -> "
+              f"{'PASS' if m_ok else 'FAIL'}; K5 image vs K1-K4 image "
+              f"(engine oracle) outliers {e_outl:.5f}, clean mean "
+              f"{e_clean:.2e}, rays equal -> {'PASS' if e_ok else 'FAIL'}")
+        agree = agree and ok_w and m_ok and e_ok
+
+    # --- 8. the kernel table ---
+    launches = dict(rec["main"]["launches"])
+    launches["megakernel"] = rec["main-mega"]["launches"]["megakernel"]
     table = []
     for n, (srcf, repl) in KERNELS.items():
         res = results[n]
@@ -404,12 +636,11 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": res["library_ms"], "pass": bool(res["ok"])})
     with open(os.path.join(RUN_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "wall_s": wall, "walls_s": walls,
-                   "mrays_ub": mr_ub,
-                   "mrays_measured": mr_meas, "rays": st.rays,
-                   "waves": st.waves, "ctrls": st.ctrls,
-                   "host_reads": st.host_reads, "kernel_totals_ms": totals,
-                   "kernels": table}, f, indent=1)
+        json.dump({"card": card, "frames": rec,
+                   "shade_sss": results["shade"]["sss"],
+                   "megakernel_sss": results["megakernel"]["sss"],
+                   "kernels": table},
+                  f, indent=1)
     failed = [t["name"] for t in table if not t["pass"]]
     print(json.dumps({"kernels": table}), flush=True)
     if failed or not agree:

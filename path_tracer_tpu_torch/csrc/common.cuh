@@ -1,5 +1,5 @@
-// Shared definitions of the wavefront kernels (K1 trace_step, K2 spawn,
-// K3 shade, K4 retire): the argument block every launcher takes, the
+// Shared definitions of the kernels (K1 trace_step, K2 spawn, K3 shade,
+// K4 retire, K5 megakernel): the argument block every launcher takes, the
 // constants mirrored from path_tracer_tpu_torch/ops/types.py, and float
 // helpers with JAX's semantics (NaN-propagating min/max).
 //
@@ -34,6 +34,9 @@
 #define MAT_METAL 1
 #define MAT_DIELECTRIC 2
 #define MAT_EMISSIVE 3
+#define MAT_ISOTROPIC 4
+#define MAT_SSS_SIMPLE 5
+#define MAT_SSS_VOLUMETRIC 6
 #define TEX_CHECKER 1
 #define TEX_IMAGE 2
 #define TEX_NOISE 3
@@ -54,6 +57,7 @@
 #define C_TICKET 13
 #define C_STACK_OVF 14
 #define C_WAVE_MAX 15
+#define C_WALK_STEPS 16
 
 // Everything a wave kernel reads or writes.  Mirrored field for field by
 // ops/kernels.py:WaveArgs (ctypes); ptt_wave_args_layout() below exports
@@ -82,7 +86,7 @@ struct WaveArgs {
   int prim_mask, has_medium, has_noise, has_image;
   int has_noise_emission, has_noise_medium, has_image_emission,
       has_image_medium;
-  int width, max_depth, iters_cap, rr_min_depth, use_rr;
+  int width, max_depth, iters_cap, rr_min_depth, use_rr, sss_steps;
   int npix, stride, multi, start_sample, n_samples;
   unsigned int key0, key1;
   float rr_max_prob, t_min, t_max;
@@ -106,7 +110,7 @@ struct WaveArgs {
   X(prim_mask) X(has_medium) X(has_noise) X(has_image)                       \
   X(has_noise_emission) X(has_noise_medium) X(has_image_emission)            \
   X(has_image_medium) X(width) X(max_depth) X(iters_cap) X(rr_min_depth)     \
-  X(use_rr) X(npix) X(stride) X(multi) X(start_sample) X(n_samples) X(key0)  \
+  X(use_rr) X(sss_steps) X(npix) X(stride) X(multi) X(start_sample) X(n_samples) X(key0)  \
   X(key1) X(rr_max_prob) X(t_min) X(t_max) X(cam_origin) X(pixel00) X(du)    \
   X(dv) X(defocus_u) X(defocus_v) X(defocus_angle) X(bg_color) X(bg_type)
 

@@ -1,8 +1,8 @@
-// CPU build of the four wavefront kernels' per-slot code, for tests.
+// CPU build of the kernels' per-slot code, for tests.
 //
 // The CUDA sources keep each kernel's per-slot work in a __device__
-// function (trace_lane, shade_lane, retire_lane, spawn_lane) and only the
-// grid plumbing in the __global__ wrapper.  Compiled by a host C++ compiler
+// function (trace_lane, shade_lane, retire_lane, spawn_lane, mega_pixel)
+// and only the grid plumbing in the __global__ wrapper.  Compiled by a host C++ compiler
 // with PTT_HOST_EMULATION defined, the same per-slot code runs here in a
 // loop over slots, so the CPU test suite holds the kernel sources — not only
 // their plain-torch twins — against the JAX package's engine.
@@ -13,6 +13,7 @@
 #include <string.h>
 #define __device__
 #define __forceinline__ inline
+#define __noinline__
 #define __global__
 template <class T>
 static T atomicAdd(T* p, T v) {
@@ -24,6 +25,7 @@ static T atomicAdd(T* p, T v) {
 #include "shade.cu"
 #include "retire.cu"
 #include "spawn.cu"
+#include "megakernel.cu"
 
 extern "C" void emu_trace_step(WaveArgs* a) {
   if (!wave_is_live(*a)) {
@@ -57,4 +59,20 @@ extern "C" void emu_retire(WaveArgs* a) {
 extern "C" void emu_spawn(WaveArgs* a) {
   if (a->ctr[C_DO_CTRL] == 0) return;
   for (int i = 0; i < a->R; ++i) spawn_lane(*a, i);
+}
+
+extern "C" void emu_megakernel(WaveArgs* a) {
+  for (int pix = 0; pix < a->npix; ++pix) {
+    int stack[PTT_MEGA_STACK];
+    MegaCount c{0, 0, 0};
+    mega_pixel(*a, pix, stack, c);
+    const int dc = clampi(a->depth[pix], 0, a->max_depth);
+    a->depth_hist[dc] += 1;
+    a->ctr[C_DONE] += 1;
+    a->ctr[C_RAYS] += a->iters[pix];
+    a->ctr[C_DEPTH_SUM] += dc;
+    a->ctr[C_TRAV_STEPS] += c.trav_steps;
+    a->ctr[C_WALK_STEPS] += c.walk_trips;
+    a->ctr[C_STACK_OVF] += c.ovf;
+  }
 }

@@ -1,7 +1,6 @@
 // Ray-primitive tests of the traversal hot path, term for term as
 // path_tracer_tpu/ops/intersect.py hit_aabb_s (:166) and hit_prim_row_s
-// (:184), plus the traversal start (traversal_init_batched,
-// ops/traverse.py:280) shared by spawn and shade.
+// (:184).
 #pragma once
 
 #include "common.cuh"
@@ -83,33 +82,4 @@ __device__ __forceinline__ bool hit_prim_row(const float* r, int prim_mask,
   t = (c0 * qvx + c1 * qvy + c2 * qvz) * inv_det;
   return !par && (uu >= 0.0f) && (vv >= 0.0f) && (uu + vv <= 1.0f) &&
          (t > t_min) && (t < t_max);
-}
-
-// Start a closest-hit query for slot i from (o, d, time) at t_min (the
-// single-prim root-leaf case resolves at once).  The stack is not cleared:
-// entries above sp are never read.
-__device__ __forceinline__ void trav_init(const WaveArgs& a, int i, float ox,
-                                          float oy, float oz, float dx,
-                                          float dy, float dz, float time,
-                                          float t_min) {
-  float best_t = a.t_max;
-  int best_pt = -1, best_pi = -1, cur = a.root;
-  if (a.root < 0) {
-    const int uid = clampi(-a.root - 1, 0, a.n_prims - 1);
-    const float* row = a.prims + (size_t)uid * PTT_PRIM_ROW;
-    const float rr = dx * dx + dy * dy + dz * dz;
-    float lt;
-    if (hit_prim_row(row, a.prim_mask, ox, oy, oz, dx, dy, dz, rr, time,
-                     t_min, best_t, lt) && lt < best_t) {
-      best_t = lt;
-      best_pt = (int)row[0];
-      best_pi = (int)row[1];
-    }
-    cur = PTT_DONE;
-  }
-  a.cur[i] = cur;
-  a.sp[i] = 0;
-  a.best_t[i] = best_t;
-  a.best_pt[i] = best_pt;
-  a.best_pi[i] = best_pi;
 }

@@ -3,8 +3,8 @@
 // Replaces path_tracer_tpu/ops/wavefront.py spawn (:216-266; the
 // prefix-sum rank becomes one atomicAdd on the item counter),
 // shade_tiled.py spawn_rng (:730, B2), spawn_paths/get_rays_t (:741, :333,
-// B3) and traversal_init_batched (traverse.py:280, root-leaf case
-// included).  A work item id maps to (window g, pixel) = (id / npix,
+// B3; camera.cuh) and traversal_init_batched (traverse.py:280, root-leaf
+// case included; traverse.cuh).  A work item id maps to (window g, pixel) = (id / npix,
 // id % npix) with samples [start + g*stride, start + min((g+1)*stride, n));
 // with stride 1 it is one (sample, pixel).  FL_RESAMPLE slots start the
 // next sample of their window in place and keep their radiance sum.  The
@@ -13,8 +13,8 @@
 //
 // Bound: 6 threefry evaluations (~120 integer ops each) and a few
 // transcendentals per renewed slot; memory traffic is ~100 bytes per slot.
-#include "intersect.cuh"
-#include "threefry.cuh"
+#include "camera.cuh"
+#include "traverse.cuh"
 
 __device__ __forceinline__ void spawn_lane(const WaveArgs& a, int i) {
   const bool resample = a.flag[i] == FL_RESAMPLE;
@@ -43,45 +43,24 @@ __device__ __forceinline__ void spawn_lane(const WaveArgs& a, int i) {
     pix = a.pixel[i];
     last = a.last[i];
   }
-  const Key k7 = fold_in(fold_in(fold_in(Key{a.key0, a.key1}, (uint32_t)smp),
-                                 (uint32_t)pix), 7u);
-  float u5[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) u5[k] = uniform_at(k7, (uint32_t)k);
+  float o[3], d[3], time, u5[5];
+  primary_ray(a, path_key(a, smp, pix), pix, o, d, time, u5);
   if (a.u5_out) {
 #pragma unroll
     for (int k = 0; k < 5; ++k) a.u5_out[5 * i + k] = u5[k];
   }
-  const float px = (float)(pix % a.width), py = (float)(pix / a.width);
-  const float sx = px + u5[0] - 0.5f, sy = py + u5[1] - 0.5f;
-  float sm[3], o[3], d[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) sm[k] = a.pixel00[k] + sx * a.du[k] + sy * a.dv[k];
-  const float r = sqrtf(u5[2]);
-  const float phi = TWO_PI_F * u5[3];
-  const float kx = r * cosf(phi), ky = r * sinf(phi);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    o[k] = a.defocus_angle <= 0.0f
-               ? a.cam_origin[k]
-               : a.cam_origin[k] + kx * a.defocus_u[k] + ky * a.defocus_v[k];
-    d[k] = sm[k] - o[k];
-  }
-  const float ninv =
-      1.0f / sqrtf(fmaxp(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], 1e-16f));
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    d[k] = d[k] * ninv;
     a.origin[3 * i + k] = o[k];
     a.direction[3 * i + k] = d[k];
     if (!resample) a.color[3 * i + k] = 0.0f;
     a.throughput[3 * i + k] = 1.0f;
   }
-  a.time[i] = u5[4];
+  a.time[i] = time;
   a.depth[i] = 0;
   a.iters[i] = 0;
   a.alive[i] = true;
-  trav_init(a, i, o[0], o[1], o[2], d[0], d[1], d[2], u5[4], a.t_min);
+  trav_init(a, i, o[0], o[1], o[2], d[0], d[1], d[2], time, a.t_min);
   a.phase[i] = PH_MAIN;
   a.pixel[i] = pix;
   a.sample[i] = smp;

@@ -3,12 +3,10 @@
 // Replaces path_tracer_tpu/ops/traverse.py _step_tiled (:334) driven by
 // traversal_steps_batched (:408), plus the wave's control predicate
 // (ops/wavefront.py:451-462).  One thread per slot walks its query up to
-// `steps` steps or until done: per step one 96-float node row, four slab
-// tests, inline tests of leaf children from their embedded 16-float rows,
-// a 5-comparator front-to-back sort, push of the far interior children and
-// descent into the nearest.  The stack lives in device memory (R x sd ints,
-// L1/L2-resident); a push at a full stack is dropped exactly as in the JAX
-// step and counted in ctr[C_STACK_OVF], which the renderer requires to be 0.
+// `steps` steps of traverse.cuh or until done.  The stack lives in device
+// memory (R x sd ints, L1/L2-resident); a push at a full stack is dropped
+// exactly as in the JAX step and counted in ctr[C_STACK_OVF], which the
+// renderer requires to be 0.
 //
 // Bound: the node-row gathers.  Each step reads one 384-byte row per lane;
 // rows are shared across lanes and stay in the 50 MB L2 (the vol2_final BVH
@@ -20,7 +18,7 @@
 // The last block to finish (atomic ticket) evaluates the control predicate
 // from the block-reduced counts and writes ctr[C_DO_CTRL], which K3/K4/K2
 // read in the same wave.
-#include "intersect.cuh"
+#include "traverse.cuh"
 
 __device__ __forceinline__ void trace_lane(const WaveArgs& a, int i,
                                            int& ready, int& walk,
@@ -29,69 +27,17 @@ __device__ __forceinline__ void trace_lane(const WaveArgs& a, int i,
   if (!a.occupied[i]) return;
   int cur = a.cur[i];
   if (cur != PTT_DONE) {
-    const float ox = a.origin[3 * i], oy = a.origin[3 * i + 1],
-                oz = a.origin[3 * i + 2];
-    const float dx = a.direction[3 * i], dy = a.direction[3 * i + 1],
-                dz = a.direction[3 * i + 2];
-    const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
-    const float rr = dx * dx + dy * dy + dz * dz;
-    const float time = a.time[i];
-    const float t_min =
-        a.phase[i] == PH_EXIT ? a.hit_t[i] + 1e-4f : a.t_min;
+    const TravRay r = trav_ray(
+        a.origin[3 * i], a.origin[3 * i + 1], a.origin[3 * i + 2],
+        a.direction[3 * i], a.direction[3 * i + 1], a.direction[3 * i + 2],
+        a.time[i], a.phase[i] == PH_EXIT ? a.hit_t[i] + 1e-4f : a.t_min);
     int sp = a.sp[i];
     float best_t = a.best_t[i];
     int best_pt = a.best_pt[i], best_pi = a.best_pi[i];
     int* stack = a.stack + (size_t)i * a.sd;
     while (cur != PTT_DONE && steps_done < a.steps) {
       ++steps_done;
-      const float* row = a.nodes + (size_t)cur * PTT_NODE_ROW;
-      float ct[4];
-      int cp[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int ptr = (int)row[PTT_PTR_OFF + c];
-        float tn;
-        bool hi = hit_aabb(row + 6 * c, ox, oy, oz, ivx, ivy, ivz, t_min,
-                           best_t, tn);
-        hi = hi && ptr < PTT_EMPTY_SLOT;
-        const bool is_leaf = ptr < 0;
-        if (hi && is_leaf) {
-          const float* pr = row + PTT_PAYLOAD + PTT_PRIM_ROW * c;
-          float lt;
-          if (hit_prim_row(pr, a.prim_mask, ox, oy, oz, dx, dy, dz, rr, time,
-                           t_min, best_t, lt) && lt < best_t) {
-            best_t = lt;
-            best_pt = (int)pr[0];
-            best_pi = (int)pr[1];
-          }
-        }
-        ct[c] = (hi && !is_leaf) ? tn : PTT_INF;
-        cp[c] = ptr;
-      }
-      const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
-#pragma unroll
-      for (int k = 0; k < 5; ++k) {
-        const int x = net[k][0], y = net[k][1];
-        if (ct[x] > ct[y]) {
-          const float tt = ct[x]; ct[x] = ct[y]; ct[y] = tt;
-          const int pp = cp[x]; cp[x] = cp[y]; cp[y] = pp;
-        }
-      }
-#pragma unroll
-      for (int k = 3; k >= 1; --k) {
-        if (ct[k] < PTT_INF) {
-          if (sp < a.sd) stack[sp] = cp[k]; else ++ovf;
-          sp = sp + 1 < a.sd ? sp + 1 : a.sd;
-        }
-      }
-      if (ct[0] < PTT_INF) {
-        cur = cp[0];
-      } else if (sp > 0) {
-        cur = stack[sp - 1];
-        --sp;
-      } else {
-        cur = PTT_DONE;
-      }
+      trav_step(a, r, cur, stack, sp, best_t, best_pt, best_pi, ovf);
     }
     a.cur[i] = cur;
     a.sp[i] = sp;

@@ -1,0 +1,124 @@
+// BVH4 closest-hit traversal shared by K1 (trace_step, the suspended walk of
+// the wavefront) and K5 (megakernel, the per-ray walk to completion).
+//
+// One step, term for term as path_tracer_tpu/ops/traverse.py
+// traversal_step (:183) / _step_tiled (:334): one 96-float node row, four
+// slab tests, inline tests of leaf children from their embedded 16-float
+// rows, a 5-comparator front-to-back sort, push of the far interior
+// children and descent into the nearest.  A push at a full stack is dropped
+// exactly as in the JAX step and counted.  The query start
+// (traversal_init, :164 / :280) resolves the single-prim root-leaf case.
+#pragma once
+
+#include "intersect.cuh"
+
+// Per-query constants of one ray.
+struct TravRay {
+  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, rr, time, t_min;
+};
+
+__device__ __forceinline__ TravRay trav_ray(float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float time, float t_min) {
+  return TravRay{ox, oy, oz, dx, dy, dz, 1.0f / dx, 1.0f / dy, 1.0f / dz,
+                 dx * dx + dy * dy + dz * dz, time, t_min};
+}
+
+// One step from node `cur`; `stack` holds `sd` entries.
+__device__ __forceinline__ void trav_step(const WaveArgs& a, const TravRay& r,
+                                          int& cur, int* stack, int& sp,
+                                          float& best_t, int& best_pt,
+                                          int& best_pi, int& ovf) {
+  const float* row = a.nodes + (size_t)cur * PTT_NODE_ROW;
+  float ct[4];
+  int cp[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int ptr = (int)row[PTT_PTR_OFF + c];
+    float tn;
+    bool hi = hit_aabb(row + 6 * c, r.ox, r.oy, r.oz, r.ivx, r.ivy, r.ivz,
+                       r.t_min, best_t, tn);
+    hi = hi && ptr < PTT_EMPTY_SLOT;
+    const bool is_leaf = ptr < 0;
+    if (hi && is_leaf) {
+      const float* pr = row + PTT_PAYLOAD + PTT_PRIM_ROW * c;
+      float lt;
+      if (hit_prim_row(pr, a.prim_mask, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                       r.rr, r.time, r.t_min, best_t, lt) && lt < best_t) {
+        best_t = lt;
+        best_pt = (int)pr[0];
+        best_pi = (int)pr[1];
+      }
+    }
+    ct[c] = (hi && !is_leaf) ? tn : PTT_INF;
+    cp[c] = ptr;
+  }
+  const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int x = net[k][0], y = net[k][1];
+    if (ct[x] > ct[y]) {
+      const float tt = ct[x]; ct[x] = ct[y]; ct[y] = tt;
+      const int pp = cp[x]; cp[x] = cp[y]; cp[y] = pp;
+    }
+  }
+#pragma unroll
+  for (int k = 3; k >= 1; --k) {
+    if (ct[k] < PTT_INF) {
+      if (sp < a.sd) stack[sp] = cp[k]; else ++ovf;
+      sp = sp + 1 < a.sd ? sp + 1 : a.sd;
+    }
+  }
+  if (ct[0] < PTT_INF) {
+    cur = cp[0];
+  } else if (sp > 0) {
+    cur = stack[sp - 1];
+    --sp;
+  } else {
+    cur = PTT_DONE;
+  }
+}
+
+// Start a closest-hit query from (o, d, time) at t_min: the first node, or
+// PTT_DONE with the root leaf already tested.
+__device__ __forceinline__ void trav_start(const WaveArgs& a, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float time,
+                                           float t_min, int& cur,
+                                           float& best_t, int& best_pt,
+                                           int& best_pi) {
+  best_t = a.t_max;
+  best_pt = -1;
+  best_pi = -1;
+  cur = a.root;
+  if (a.root < 0) {
+    const int uid = clampi(-a.root - 1, 0, a.n_prims - 1);
+    const float* row = a.prims + (size_t)uid * PTT_PRIM_ROW;
+    const float rr = dx * dx + dy * dy + dz * dz;
+    float lt;
+    if (hit_prim_row(row, a.prim_mask, ox, oy, oz, dx, dy, dz, rr, time,
+                     t_min, best_t, lt) && lt < best_t) {
+      best_t = lt;
+      best_pt = (int)row[0];
+      best_pi = (int)row[1];
+    }
+    cur = PTT_DONE;
+  }
+}
+
+// trav_start for wavefront slot i (K2, K3).  The stack is not cleared:
+// entries above sp are never read.
+__device__ __forceinline__ void trav_init(const WaveArgs& a, int i, float ox,
+                                          float oy, float oz, float dx,
+                                          float dy, float dz, float time,
+                                          float t_min) {
+  int cur, best_pt, best_pi;
+  float best_t;
+  trav_start(a, ox, oy, oz, dx, dy, dz, time, t_min, cur, best_t, best_pt,
+             best_pi);
+  a.cur[i] = cur;
+  a.sp[i] = 0;
+  a.best_t[i] = best_t;
+  a.best_pt[i] = best_pt;
+  a.best_pi[i] = best_pi;
+}

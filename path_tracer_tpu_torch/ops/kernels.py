@@ -1,8 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 Each kernel source (``trace_step.cu``, ``spawn.cu``, ``shade.cu``,
-``retire.cu``) is compiled by its own ``nvcc`` for ``sm_90a``, all four
-started together, into a shared library with a plain C interface under the
+``retire.cu``, ``megakernel.cu``) is compiled by its own ``nvcc`` for
+``sm_90a``, all five started together, into a shared library with a plain C interface under the
 git-ignored ``build/torch_ext/`` (file names carry a hash of the sources, so
 an edit rebuilds).  The libraries are opened with ``ctypes``; device
 pointers come from ``tensor.data_ptr()`` and the stream from PyTorch's
@@ -24,7 +24,7 @@ import time
 
 import torch
 
-NAMES = ("trace_step", "spawn", "shade", "retire")
+NAMES = ("trace_step", "spawn", "shade", "retire", "megakernel")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -60,7 +60,7 @@ class WaveArgs(ctypes.Structure):
             "prim_mask", "has_medium", "has_noise", "has_image",
             "has_noise_emission", "has_noise_medium", "has_image_emission",
             "has_image_medium", "width", "max_depth", "iters_cap",
-            "rr_min_depth", "use_rr", "npix", "stride", "multi",
+            "rr_min_depth", "use_rr", "sss_steps", "npix", "stride", "multi",
             "start_sample", "n_samples")]
         + [("key0", ctypes.c_uint), ("key1", ctypes.c_uint)]
         + [(n, _F) for n in ("rr_max_prob", "t_min", "t_max")]
@@ -157,13 +157,14 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def make_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
-    """Fill the argument block for (engine, wave state); checks devices."""
-    dev = ws.cur.device
+    """Fill the argument block for (engine, state); checks devices."""
+    dev = ws.ctr.device
     if dev.type != "cuda":
         raise ValueError("the CUDA kernels take CUDA tensors")
-    for t in (ws.origin, ws.stack, ws.accum, eng.bvh.nodes, eng.tabs.prim):
+    for t in (*(getattr(ws, f.name) for f in dataclasses.fields(ws)),
+              eng.bvh.nodes, eng.tabs.prim):
         if t.device != dev:
-            raise ValueError("engine tables and wave state are on different devices")
+            raise ValueError("engine tables and state are on different devices")
     if eng.bvh.branching != 4:
         raise ValueError("the CUDA traversal kernel takes BVH4 rows")
     return fill_args(eng, ws, u5_out)
@@ -201,6 +202,7 @@ def fill_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
         setattr(a, f, int(getattr(fl, f)))
     a.width, a.max_depth, a.iters_cap = cfg.width, cfg.max_depth, cfg.iters
     a.rr_min_depth, a.use_rr = cfg.rr_min_depth, int(cfg.use_russian_roulette)
+    a.sss_steps = cfg.sss_max_steps
     a.npix, a.stride, a.multi = eng.npix, eng.stride, int(eng.multi)
     a.start_sample, a.n_samples = eng.start_sample, eng.n_samples
     k = [int(x) for x in eng.key.cpu()]
@@ -226,7 +228,7 @@ def launch(name: str, eng, ws, args: WaveArgs | None = None) -> None:
             cache = (eng, make_args(eng, ws))
             ws._kernel_args = cache
         args = cache[1]
-    stream = torch.cuda.current_stream(ws.cur.device).cuda_stream
+    stream = torch.cuda.current_stream(ws.ctr.device).cuda_stream
     err = _LIBS[name][1](ctypes.byref(args), _P(stream))
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed with error {err}")
@@ -261,9 +263,11 @@ def host_emulation_lib():
 def host_emulation_ops():
     """The kernels' per-slot code compiled for the CPU (tests only).
 
-    Returns four ops with the signature of the kernel wrappers
-    (``op(engine, wave_state)``) that run on CPU wave states, in the order
-    of :data:`~.wavefront.KERNELS`.
+    Returns ``(wave_ops, megakernel_op)``: four ops with the signature of
+    the wave kernel wrappers (``op(engine, wave_state)``), in the order of
+    :data:`~.wavefront.KERNELS`, and one with the signature of
+    :func:`~.integrator.megakernel` (``op(engine, mega_state, sample)``),
+    all running on CPU states.
     """
     lib = host_emulation_lib()
 
@@ -271,12 +275,15 @@ def host_emulation_ops():
         fn = getattr(lib, f"emu_{name}")
         fn.argtypes = [ctypes.POINTER(WaveArgs)]
 
-        def op(eng, ws):
+        def op(eng, ws, sample=None):
             cache = getattr(ws, "_emu_args", None)
             if cache is None or cache[0] is not eng:
                 cache = (eng, fill_args(eng, ws))
                 ws._emu_args = cache
+            if sample is not None:
+                cache[1].start_sample = int(sample)
             fn(ctypes.byref(cache[1]))
         return op
 
-    return tuple(make(n) for n in ("trace_step", "shade", "retire", "spawn"))
+    return (tuple(make(n) for n in ("trace_step", "shade", "retire", "spawn")),
+            make("megakernel"))

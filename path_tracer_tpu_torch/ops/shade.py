@@ -1,12 +1,15 @@
-"""Scene capability flags + batched texture evaluation.
+"""Scene capability flags, texture evaluation, per-lane emission and scatter.
 
-Port of ``SceneFlags`` (``ops/shade.py:41-92``), ``_atlas_rows`` (:107) and
-``eval_texture_batched`` (:188) of the JAX package: solid, checker, image
-atlas (nearest texel, clamped UV, V flipped) and Perlin marble.  The JAX
-function compacts the expensive families into small buffers because masked
-TPU lanes pay full width; here every family is a plain masked gather — the
-results on the selected lanes are the same.  The CUDA shade kernel carries
-this math in ``csrc/texture.cuh``.
+Port of ``SceneFlags`` (``ops/shade.py:41-92``), ``sample_image`` (:95),
+``_atlas_rows`` (:107), ``eval_texture`` (:120), ``eval_texture_batched``
+(:188), ``emitted`` (:439) and ``scatter`` (:450) of the JAX package: solid,
+checker, image atlas (nearest texel, clamped UV, V flipped) and Perlin
+marble.  The JAX function compacts the expensive families into small
+buffers because masked TPU lanes pay full width; here every family is a
+plain masked gather — the results on the selected lanes are the same.  The
+per-lane functions keep the JAX signatures over a batch of lanes and share
+the component math of :mod:`.shade_tiled`.  The CUDA kernels carry this
+math in ``csrc/texture.cuh`` and ``csrc/bounce.cuh``.
 """
 from __future__ import annotations
 
@@ -71,6 +74,18 @@ def _atlas_rows(scene: SceneArrays, ii, y, x):
     return flat[((ii * H + y) * W + x).long()]
 
 
+def sample_image(scene: SceneArrays, img_idx, u, v):
+    """Nearest-texel image lookup: clamp UV, flip V → (N, 3)."""
+    ii = torch.clamp(img_idx, 0, scene.img_data.shape[0] - 1)
+    hw = scene.img_hw[ii.long()]
+    h, w = hw[:, 0], hw[:, 1]
+    x = torch.minimum(torch.clamp(
+        (torch.clamp(u, 0.0, 1.0) * w).to(torch.int32), min=0), w - 1)
+    y = torch.minimum(torch.clamp(
+        ((1.0 - torch.clamp(v, 0.0, 1.0)) * h).to(torch.int32), min=0), h - 1)
+    return _atlas_rows(scene, ii, y, x)
+
+
 def eval_texture_batched(scene: SceneArrays, flags: SceneFlags, tex_idx,
                          u, v, p, allow_noise: bool = True,
                          allow_image: bool = True):
@@ -90,16 +105,7 @@ def eval_texture_batched(scene: SceneArrays, flags: SceneFlags, tex_idx,
     out = torch.where(is_ck[:, None], torch.where(even[:, None], c1, c2), out)
 
     if flags.has_image and allow_image:
-        img_idx = scene.tex_img[ti]
-        ii = torch.clamp(img_idx, 0, scene.img_data.shape[0] - 1)
-        hw = scene.img_hw[ii.long()]
-        h, w = hw[:, 0], hw[:, 1]
-        x = torch.minimum(torch.clamp(
-            (torch.clamp(u, 0.0, 1.0) * w).to(torch.int32), min=0), w - 1)
-        y = torch.minimum(torch.clamp(
-            ((1.0 - torch.clamp(v, 0.0, 1.0)) * h).to(torch.int32), min=0),
-            h - 1)
-        tex = _atlas_rows(scene, ii, y, x)
+        tex = sample_image(scene, scene.tex_img[ti], u, v)
         out = torch.where((ttype == TEX_IMAGE)[:, None], tex, out)
 
     if flags.has_noise and allow_noise:
@@ -109,3 +115,47 @@ def eval_texture_batched(scene: SceneArrays, flags: SceneFlags, tex_idx,
         out = torch.where((ttype == TEX_NOISE)[:, None],
                           marble[:, None].expand(-1, 3), out)
     return out
+
+
+# The per-lane texture dispatch of JAX is the batched one over N lanes.
+eval_texture = eval_texture_batched
+
+
+def emitted(scene: SceneArrays, flags: SceneFlags, mat_idx, u, v, p):
+    """Emission of the hit material (zero unless emissive) → (N, 3)."""
+    mi = torch.clamp(mat_idx, 0, scene.mat_type.shape[0] - 1).long()
+    is_emissive = scene.mat_type[mi] == MAT_EMISSIVE
+    tex = eval_texture(scene, flags, scene.mat_tex[mi], u, v, p,
+                       allow_noise=flags.has_noise_emission,
+                       allow_image=flags.has_image_emission)
+    return torch.where(is_emissive[:, None], tex, torch.zeros_like(tex))
+
+
+def scatter(scene: SceneArrays, flags: SceneFlags, cfg_sss_steps: int,
+            hit_mat, hit_p, hit_n, hit_front, hit_u, hit_v, ray_dir, key,
+            albedo=None):
+    """Sample the BSDF / phase function for N hits with keys ``key`` (N, 2).
+
+    Returns ``(scattered, new_origin, new_direction, attenuation)`` like the
+    JAX per-lane ``scatter``: the draws are ``uniform(key, (8,))`` and, for
+    the SSS walk, ``uniform(fold_in(key, 1), (steps, 6))``.
+    """
+    from . import shade_tiled as st
+    from ..utils import rng
+
+    mat = st.mat_table(scene)
+    if albedo is None:
+        mi = torch.clamp(hit_mat, 0, mat.shape[0] - 1).long()
+        albedo = eval_texture(scene, flags, scene.mat_tex[mi], hit_u, hit_v,
+                              hit_p)
+    comps = lambda x: tuple(x.unbind(-1))  # noqa: E731
+    rec = st.HitT(hit=None, t=None, p=comps(hit_p), n=comps(hit_n),
+                  front=hit_front, u=hit_u, v=hit_v, mat=hit_mat, medium=None)
+    tabs = st.ShadeTables(prim=None, mat=mat, med=None, tex=None, n_sph=0,
+                          n_qd=0)
+    sss_keys = rng.fold_in(key, 1) if flags.has_sss else None
+    scattered, o, d, att, _mrow, _ws = st.scatter_t(
+        scene, flags, cfg_sss_steps, tabs, rec, *comps(ray_dir),
+        rng.uniform(key, (8,)).unbind(-1), sss_keys, comps(albedo))
+    return (scattered, torch.stack(o, -1), torch.stack(d, -1),
+            torch.stack(att, -1))

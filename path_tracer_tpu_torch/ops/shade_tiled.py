@@ -4,14 +4,16 @@ Port of ``path_tracer_tpu/ops/shade_tiled.py`` without its TPU layout
 (the ``(R/128, 128)`` lane grid and component-major transposes): every
 function works on flat ``(R,)`` tensors, with 3-vectors as component
 triples, and follows the JAX function's operation order so the two packages
-integrate the same sample set.  The SSS families (``scatter_t``'s
-``has_sss`` block, ROADMAP B6) are not ported: a scene that needs them
-raises ``NotImplementedError``.
+integrate the same sample set.  The SSS-volumetric random walk (B6) runs on
+the SSS lanes only; the JAX rung ladder and compaction around it are TPU
+cost workarounds and are not ported.  Every walking lane draws its own
+``uniform(fold_in(k_scatter, 1), (steps, 6))`` stream, as both JAX walks do.
 
 :func:`shade` is kernel K3 (``csrc/shade.cu``): the control step's volume
-phase transition (B9), the bounce (B2 ``wave_rng``, B4, B5) and the restart
-of continuing paths, on every slot whose query finished.
-:func:`shade_plain` is its plain-torch twin.
+phase transition (B9), the bounce (B2 ``wave_rng``, B4, B5, B6) and the
+restart of continuing paths, on every slot whose query finished.
+:func:`shade_plain` is its plain-torch twin.  The megakernel's bounce
+(``integrator.bounce_shade``) is :func:`bounce_shade_t` with the same draws.
 """
 from __future__ import annotations
 
@@ -25,10 +27,12 @@ from ..utils.rng import TWO_PI
 from ..utils.vec import rsqrt32, sqrt32
 from . import kernels
 from . import shade as shade_mod
-from .integrator import PathState
+from .camera import background_t, get_rays_t
 from .traverse import _DONE, traversal_init_batched
-from .types import (C_DO_CTRL, FL_FINISHED, MAT_DIELECTRIC, MAT_EMISSIVE,
-                    MAT_LAMBERTIAN, MAT_METAL, PH_EXIT, PH_MAIN, SceneArrays)
+from .types import (C_DO_CTRL, C_WALK_STEPS, FL_FINISHED, MAT_DIELECTRIC,
+                    MAT_EMISSIVE, MAT_LAMBERTIAN, MAT_METAL, MAT_SSS_SIMPLE,
+                    MAT_SSS_VOLUMETRIC, PH_EXIT, PH_MAIN, PathState,
+                    SceneArrays)
 
 F32 = torch.float32
 
@@ -56,16 +60,23 @@ def make_tables(scene: SceneArrays) -> ShadeTables:
                     col(scene.qd_d)], 1)
     tr = torch.cat([col(scene.tr_mat), col(scene.tr_medium), scene.tr_v0,
                     scene.tr_e1, scene.tr_e2, scene.tr_n, z(nt, 4)], 1)
-    mat = torch.stack([scene.mat_type.to(F32), scene.mat_tex.to(F32),
-                       scene.mat_fuzz, scene.mat_ir, scene.mat_g,
-                       scene.mat_sigma_s, scene.mat_sigma_a,
-                       scene.mat_scatter_dist], 1)
-    med = torch.stack([scene.med_density, scene.med_tex.to(F32)], 1)
     tex = torch.cat([col(scene.tex_type), scene.tex_c1, scene.tex_c2,
                      col(scene.tex_scale), col(scene.tex_img)], 1)
     return ShadeTables(prim=torch.cat([sph, qd, tr], 0).contiguous(),
-                       mat=mat.contiguous(), med=med.contiguous(),
+                       mat=mat_table(scene), med=med_table(scene),
                        tex=tex.contiguous(), n_sph=ns, n_qd=nq)
+
+
+def mat_table(scene: SceneArrays) -> torch.Tensor:
+    return torch.stack([scene.mat_type.to(F32), scene.mat_tex.to(F32),
+                        scene.mat_fuzz, scene.mat_ir, scene.mat_g,
+                        scene.mat_sigma_s, scene.mat_sigma_a,
+                        scene.mat_scatter_dist], 1).contiguous()
+
+
+def med_table(scene: SceneArrays) -> torch.Tensor:
+    return torch.stack([scene.med_density, scene.med_tex.to(F32)],
+                       1).contiguous()
 
 
 def _prim_rows(tabs: ShadeTables, ptype, pidx):
@@ -259,30 +270,75 @@ def _near_zero_t(x, y, z):
     return (torch.abs(x) < 1e-8) & (torch.abs(y) < 1e-8) & (torch.abs(z) < 1e-8)
 
 
-def get_rays_t(cam, px, py, u5):
-    """Primary rays (origin, direction, time) from 5 uniforms per lane."""
-    sx = px + u5[0] - 0.5
-    sy = py + u5[1] - 0.5
-    smx = cam.pixel00[0] + sx * cam.du[0] + sy * cam.dv[0]
-    smy = cam.pixel00[1] + sx * cam.du[1] + sy * cam.dv[1]
-    smz = cam.pixel00[2] + sx * cam.du[2] + sy * cam.dv[2]
-    r = sqrt32(u5[2])
-    phi = TWO_PI * u5[3]
-    kx = r * torch.cos(phi)
-    ky = r * torch.sin(phi)
-    no_dof = cam.defocus_angle <= 0.0
-    o = [torch.where(no_dof, cam.origin[k],
-                     cam.origin[k] + kx * cam.defocus_u[k] + ky * cam.defocus_v[k])
-         for k in range(3)]
-    return tuple(o), (smx - o[0], smy - o[1], smz - o[2]), u5[4]
+def _sample_hg_t(u, g):
+    small = torch.abs(g) < 1e-3
+    safe_g = torch.where(small, 1e-3, g)
+    sq = (1.0 - safe_g * safe_g) / (1.0 - safe_g + 2.0 * safe_g * u)
+    cos_hg = (1.0 + safe_g * safe_g - sq * sq) / (2.0 * safe_g)
+    cos_iso = 1.0 - 2.0 * u
+    return torch.clamp(torch.where(small, cos_iso, cos_hg), -1.0, 1.0)
 
 
-def background_t(cam, dx, dy, dz):
-    n = torch.clamp(sqrt32(dx * dx + dy * dy + dz * dz), min=1e-12)
-    a = 0.5 * (dy / n + 1.0)
-    is_grad = cam.bg_type == 1
-    return tuple(torch.where(is_grad, (1.0 - a) + a * c, cam.bg_color[k])
-                 for k, c in enumerate((0.5, 0.7, 1.0)))
+def _direction_from_cos_t(u_phi, cos_theta, ax, ay, az):
+    sin_theta = sqrt32(torch.clamp(1.0 - cos_theta * cos_theta, 1e-12, 1.0))
+    phi = TWO_PI * u_phi
+    (ux, uy, uz), (vx, vy, vz), (wx, wy, wz) = _onb_t(ax, ay, az)
+    sc = sin_theta * torch.cos(phi)
+    ss = sin_theta * torch.sin(phi)
+    return (sc * ux + ss * vx + cos_theta * wx,
+            sc * uy + ss * vy + cos_theta * wy,
+            sc * uz + ss * vz + cos_theta * wz)
+
+
+def sss_walk(keys, steps: int, h, n, ui, alb, sigma_t, sigma_a, g):
+    """The SSS-volumetric Henyey–Greenstein walk (B6) for N lanes.
+
+    ``keys`` (N, 2) are the walk keys; ``h`` (hit point), ``n`` (shading
+    normal), ``ui`` (unit incoming direction) and ``alb`` are component
+    triples.  Trip ``i`` reads uniforms ``[i, 0..5]`` of
+    ``uniform(key, (steps, 6))``.  A lane stops walking once it exits
+    (status 1) or is absorbed (status 2); the loop ends when no lane walks,
+    since the remaining trips of the JAX walk change nothing.  Returns
+    ``(throughput, status, exit point, exit direction, walking trips)``.
+    """
+    W = torch.where
+    us = rng.uniform(keys, (steps, 6))
+    hx, hy, hz = h
+    nx, ny, nz = n
+    pos = [hx - nx * 1e-3, hy - ny * 1e-3, hz - nz * 1e-3]
+    wd = list(ui)
+    th = [torch.ones_like(hx) for _ in range(3)]
+    status = torch.zeros(hx.shape, dtype=torch.int32, device=hx.device)
+    op, od = list(h), list(n)
+    nst = torch.zeros(hx.shape, dtype=torch.int32, device=hx.device)
+    for i in range(steps):
+        walking = status == 0
+        if not bool(walking.any()):
+            break
+        uu = us[:, i].unbind(-1)
+        t = -torch.log(torch.clamp(uu[0], min=1e-10)) / sigma_t
+        p2 = [pos[k] + wd[k] * t for k in range(3)]
+        ex, ey, ez = p2[0] - hx, p2[1] - hy, p2[2] - hz
+        dist = sqrt32(ex * ex + ey * ey + ez * ez)
+        exit_prob = 1.0 - torch.exp(-dist * 0.5)
+        do_exit = walking & (uu[1] < exit_prob)
+        evx, evy, evz = _unit_vector_t(uu[2], uu[3])
+        ed = [nx + evx, ny + evy, nz + evz]
+        edeg = _near_zero_t(*ed)
+        ed = [W(edeg, n[k], ed[k]) for k in range(3)]
+        do_absorb = walking & ~do_exit & (uu[4] < sigma_a / sigma_t)
+        cos_hg = _sample_hg_t(uu[5], g)
+        nd = _direction_from_cos_t(uu[2], cos_hg, *wd)
+        status = W(do_exit, 1, W(do_absorb, 2, status)).to(torch.int32)
+        keep = walking & ~do_exit & ~do_absorb
+        for k in range(3):
+            op[k] = W(do_exit, p2[k], op[k])
+            od[k] = W(do_exit, ed[k], od[k])
+            wd[k] = W(keep, nd[k], wd[k])
+            pos[k] = W(keep, p2[k], pos[k])
+            th[k] = W(keep, th[k] * alb[k], th[k])
+        nst = nst + walking.to(torch.int32)
+    return th, status, op, od, nst
 
 
 def _eval_tex_t(scene, flags, tex_idx, u, v, px, py, pz, allow_noise,
@@ -293,12 +349,16 @@ def _eval_tex_t(scene, flags, tex_idx, u, v, px, py, pz, allow_noise,
     return out[:, 0], out[:, 1], out[:, 2]
 
 
-def scatter_t(scene, flags, tabs: ShadeTables, rec: HitT, dx, dy, dz, u8,
-              albedo):
-    """Lambertian / metal / dielectric / isotropic / emissive scatter."""
-    if flags.has_sss:
-        raise NotImplementedError(
-            "subsurface scattering (ROADMAP.md B6) is not ported yet")
+def scatter_t(scene, flags, sss_steps: int, tabs: ShadeTables, rec: HitT,
+              dx, dy, dz, u8, sss_keys, albedo, live=None):
+    """Scatter for every family: lambertian, metal, dielectric, isotropic,
+    emissive, SSS-simple and the SSS-volumetric walk.
+
+    ``sss_keys`` (R, 2) are the walk keys (used when ``flags.has_sss``);
+    ``live`` marks the lanes the caller keeps: only they walk and count.
+    Returns ``(scattered, origin, direction, attenuation, mat row,
+    walk_steps)`` with vectors as component triples.
+    """
     W = torch.where
     mi = torch.clamp(rec.mat, 0, tabs.mat.shape[0] - 1)
     mrow = _rows(tabs.mat, mi)
@@ -347,9 +407,49 @@ def scatter_t(scene, flags, tabs: ShadeTables, rec: HitT, dx, dy, dz, u8,
     def sel(a, b, c, d):
         return W(is_lam, a, W(is_met, b, W(is_die, c, d)))
 
-    dirs = (sel(lx, mx, gx, ix), sel(ly, my, gy, iy), sel(lz, mz, gz, iz))
-    att = (W(is_die, 1.0, ax), W(is_die, 1.0, ay), W(is_die, 1.0, az))
-    return ~is_emit, (hpx, hpy, hpz), dirs, att, mrow
+    dirs = [sel(lx, mx, gx, ix), sel(ly, my, gy, iy), sel(lz, mz, gz, iz)]
+    att = [W(is_die, 1.0, ax), W(is_die, 1.0, ay), W(is_die, 1.0, az)]
+    orig = [hpx, hpy, hpz]
+    scattered = ~is_emit
+    walk_steps = torch.zeros((), dtype=torch.int64, device=hpx.device)
+    if flags.has_sss:
+        n = (nx, ny, nz)
+        is_ss = mtype == MAT_SSS_SIMPLE
+        is_sv = mtype == MAT_SSS_VOLUMETRIC
+        # SSS-simple: half the exits displaced by scatter_dist * u8[4].
+        displace = u8[7] >= 0.5
+        amp = mrow[7] * u8[4]
+        sdir = [n[k] + f for k, f in enumerate((fx, fy, fz))]
+        sdeg = _near_zero_t(*sdir)
+        for k, ik in enumerate((ix, iy, iz)):
+            orig[k] = W(is_ss, W(displace, orig[k] + ik * amp, orig[k]),
+                        orig[k])
+            dirs[k] = W(is_ss, W(sdeg, n[k], sdir[k]), dirs[k])
+        # SSS-volumetric: the walk, on the kept volumetric lanes only.
+        sigma_t = torch.clamp(mrow[5] + mrow[6], min=1e-6)
+        walk = is_sv if live is None else is_sv & live
+        th = [torch.ones_like(hpx) for _ in range(3)]
+        status = torch.zeros_like(mtype)
+        op, od = [hpx, hpy, hpz], list(n)
+        idx = walk.nonzero()[:, 0]
+        if idx.numel():
+            sub = lambda xs: [x[idx] for x in xs]  # noqa: E731
+            w_th, w_st, w_op, w_od, nst = sss_walk(
+                sss_keys[idx], sss_steps, sub(rec.p), sub(n),
+                sub((uix, uiy, uiz)), sub(albedo), sigma_t[idx],
+                mrow[6][idx], mrow[4][idx])
+            status = status.index_put((idx,), w_st)
+            for k in range(3):
+                th[k] = th[k].index_put((idx,), w_th[k])
+                op[k] = op[k].index_put((idx,), w_op[k])
+                od[k] = od[k].index_put((idx,), w_od[k])
+            walk_steps = nst.sum(dtype=torch.int64)
+        for k in range(3):
+            orig[k] = W(is_sv, op[k], orig[k])
+            dirs[k] = W(is_sv, od[k], dirs[k])
+            att[k] = W(is_sv, th[k] * albedo[k], att[k])
+        scattered = W(is_sv, status == 1, scattered)
+    return scattered, tuple(orig), tuple(dirs), tuple(att), mrow, walk_steps
 
 
 def emitted_t(scene, flags, mrow, u, v, px, py, pz):
@@ -362,10 +462,16 @@ def emitted_t(scene, flags, mrow, u, v, px, py, pz):
             torch.where(is_em, eb, zero))
 
 
-def wave_rng(base_key, smp, pix, iters, has_sss: bool = False,
-             sss_steps: int = 32):
+def wave_rng(base_key, smp, pix, iters, has_sss: bool = False):
     """Per-lane bounce uniforms: fold base → sample → pixel → iters → stream."""
     key_it = rng.fold_in(rng.fold_in(rng.fold_in(base_key, smp), pix), iters)
+    return bounce_rng(key_it, has_sss)
+
+
+def bounce_rng(key_it, has_sss: bool = False):
+    """The draws of one bounce from its key ``fold_in(key_p, iters)``:
+    ``u8`` (scatter), ``umed``, ``uiso`` (medium), ``urr`` (roulette) and,
+    for SSS scenes, the walk key ``fold_in(k_scatter, 1)``."""
     ks = rng.fold_in(key_it, 0)
     km = rng.fold_in(key_it, 1)
     kr = rng.fold_in(key_it, 2)
@@ -403,10 +509,39 @@ def spawn_paths(cam, cfg, base_key, smp, pix_g) -> PathState:
         alive=torch.ones((R,), dtype=torch.bool, device=dev))
 
 
+def medium_sample_t(scene, flags, cfg, med_tab, ox, oy, oz, dx, dy, dz,
+                    t1, t2, medium, region_ok, umed):
+    """Constant-medium free flight over the chord [t1, t2]
+    (``integrator._medium_sample``) → (scatter?, t_scatter, albedo)."""
+    mi = torch.clamp(medium, 0, med_tab.shape[0] - 1)
+    medrow = _rows(med_tab, mi)
+    density = medrow[0]
+    t1c = torch.clamp(torch.clamp(t1, min=cfg.t_min), min=0.0)
+    t2c = torch.clamp(t2, max=cfg.t_max)
+    ray_len = sqrt32(dx * dx + dy * dy + dz * dz)
+    distance_inside = (t2c - t1c) * ray_len
+    hit_distance = -torch.log(torch.clamp(umed, min=1e-10)) / density
+    scatter_in = region_ok & (t1c < t2c) & (hit_distance < distance_inside)
+    t_scatter = t1c + hit_distance / ray_len
+    zeros = torch.zeros_like(ox)
+    albedo = _eval_tex_t(scene, flags, medrow[1].to(torch.int32), zeros,
+                         zeros, ox + t_scatter * dx, oy + t_scatter * dy,
+                         oz + t_scatter * dz,
+                         allow_noise=flags.has_noise_medium,
+                         allow_image=flags.has_image_medium)
+    return scatter_in, t_scatter, albedo
+
+
 def bounce_shade_t(scene, flags, cam, cfg, tabs: ShadeTables, path: PathState,
                    found, ptype, pidx, exit_found, t_exit, exit_is_medium,
-                   rngs) -> PathState:
-    """One bounce for every lane (emission, medium free flight, scatter, RR)."""
+                   rngs, live=None, aux: bool = False):
+    """One bounce for every lane (emission, medium free flight, scatter, RR).
+
+    ``rngs`` is the :func:`bounce_rng` dict.  ``live`` marks the lanes the
+    caller keeps (only they run the SSS walk; outputs elsewhere are
+    unspecified).  With ``aux`` also returns ``{"walk_steps": n}``, the
+    walking trips of kept SSS-volumetric lanes.
+    """
     W = torch.where
     ox, oy, oz = path.origin.unbind(-1)
     dx, dy, dz = path.direction.unbind(-1)
@@ -434,24 +569,9 @@ def bounce_shade_t(scene, flags, cam, cfg, tabs: ShadeTables, path: PathState,
         t1 = W(entering, t_hit, 0.0)
         t2 = W(entering, t_exit, t_hit)
         region_ok = W(entering, exit_found, exiting)
-        mi = torch.clamp(rec.medium, 0, tabs.med.shape[0] - 1)
-        medrow = _rows(tabs.med, mi)
-        density = medrow[0]
-        t1c = torch.clamp(torch.clamp(t1, min=cfg.t_min), min=0.0)
-        t2c = torch.clamp(t2, max=cfg.t_max)
-        ray_len = sqrt32(dx * dx + dy * dy + dz * dz)
-        distance_inside = (t2c - t1c) * ray_len
-        hit_distance = -torch.log(torch.clamp(umed, min=1e-10)) / density
-        med_scatter = (region_ok & (t1c < t2c)
-                       & (hit_distance < distance_inside))
-        t_scatter = t1c + hit_distance / ray_len
-        psx = ox + t_scatter * dx
-        psy = oy + t_scatter * dy
-        psz = oz + t_scatter * dz
-        med_albedo = _eval_tex_t(scene, flags, medrow[1].to(torch.int32),
-                                 zeros, zeros, psx, psy, psz,
-                                 allow_noise=flags.has_noise_medium,
-                                 allow_image=flags.has_image_medium)
+        med_scatter, t_scatter, med_albedo = medium_sample_t(
+            scene, flags, cfg, tabs.med, ox, oy, oz, dx, dy, dz, t1, t2,
+            rec.medium, region_ok, umed)
         med_scatter = in_medium & med_scatter
         stop_short = entering & exit_found & ~exit_is_medium
         hop_t = W(exiting, t_hit, t_exit)
@@ -473,8 +593,9 @@ def bounce_shade_t(scene, flags, cam, cfg, tabs: ShadeTables, path: PathState,
         _rows(tabs.mat, torch.clamp(rec.mat, 0, tabs.mat.shape[0] - 1))[1]
         .to(torch.int32),
         rec.u, rec.v, *rec.p, allow_noise=True)
-    scat_ok, s_o, s_d, s_at, mrow = scatter_t(scene, flags, tabs, rec,
-                                              dx, dy, dz, u8, albedo)
+    scat_ok, s_o, s_d, s_at, mrow, walk_steps = scatter_t(
+        scene, flags, cfg.sss_max_steps, tabs, rec, dx, dy, dz, u8,
+        rngs.get("sss_key"), albedo, live=live)
     emit = emitted_t(scene, flags, mrow, rec.u, rec.v, *rec.p)
 
     surf_f = W(surface, 1.0, 0.0)
@@ -507,11 +628,12 @@ def bounce_shade_t(scene, flags, cam, cfg, tabs: ShadeTables, path: PathState,
         thr = [t * boost for t in thr]
         alive = alive & ~killed
 
-    return PathState(origin=torch.stack(next_o, -1),
-                     direction=torch.stack(next_d, -1), time=path.time,
-                     color=torch.stack(color, -1),
-                     throughput=torch.stack(thr, -1), depth=depth,
-                     iters=(path.iters + 1).to(torch.int32), alive=alive)
+    out = PathState(origin=torch.stack(next_o, -1),
+                    direction=torch.stack(next_d, -1), time=path.time,
+                    color=torch.stack(color, -1),
+                    throughput=torch.stack(thr, -1), depth=depth,
+                    iters=(path.iters + 1).to(torch.int32), alive=alive)
+    return (out, {"walk_steps": walk_steps}) if aux else out
 
 
 # ---------------------------------------------------------------------------
@@ -568,12 +690,14 @@ def shade_plain(eng, ws) -> None:
         t_exit = torch.zeros_like(ws.best_t)
         exit_is_medium = torch.zeros_like(ready)
 
-    rngs = wave_rng(eng.key, ws.sample, ws.pixel, ws.iters)
+    rngs = wave_rng(eng.key, ws.sample, ws.pixel, ws.iters, flags.has_sss)
     path = PathState(ws.origin, ws.direction, ws.time, ws.color,
                      ws.throughput, ws.depth, ws.iters, ws.alive)
-    shaded = bounce_shade_t(eng.scene, flags, eng.cam, cfg, tabs, path,
-                            found.clone(), r_pt.clone(), r_pi.clone(),
-                            exit_found, t_exit, exit_is_medium, rngs)
+    shaded, sh_aux = bounce_shade_t(
+        eng.scene, flags, eng.cam, cfg, tabs, path, found.clone(),
+        r_pt.clone(), r_pi.clone(), exit_found, t_exit, exit_is_medium, rngs,
+        live=ready, aux=True)
+    ws.ctr[C_WALK_STEPS] += sh_aux["walk_steps"]
     for name, v in zip(PathState._fields, shaded):
         cur = getattr(ws, name)
         m = ready[:, None] if cur.ndim == 2 else ready

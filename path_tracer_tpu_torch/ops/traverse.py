@@ -1,10 +1,15 @@
-"""Suspended BVH4 closest-hit traversal (batched) + brute-force oracle + K1.
+"""BVH4 closest-hit traversal, hit refinement, brute-force oracle, K1.
 
-Port of the batched form of ``path_tracer_tpu/ops/traverse.py``
+Port of ``path_tracer_tpu/ops/traverse.py``: the batched suspended walk
 (``traversal_init_batched`` :280, ``_step_tiled`` :334,
-``traversal_steps_batched`` :408, ``traversal_done`` :508,
-``first_hit_brute`` :584).  State is a :class:`TravState` of flat ``(R,)``
-tensors plus an ``(R, SD)`` stack.
+``traversal_steps_batched`` :408, ``traversal_done`` :508), the per-ray
+walk to completion (``_traverse_impl`` :512, ``traverse_bvh`` :526; JAX's
+per-ray ``traversal_init``/``traversal_step``/``traversal_steps`` are the
+batched functions here, applied to a batch of rays), the full hit record
+(``intersect_prim`` :73, ``refine_hit`` :558) and ``first_hit_brute``
+(:584).  State is a :class:`TravState` of flat ``(R,)`` tensors plus an
+``(R, SD)`` stack.  ``traverse_bvh`` runs without autograd; its zero-grad
+``autograd.Function`` comes with the differentiable engine (ROADMAP A.10).
 
 :func:`trace_step` is kernel K1 (``csrc/trace_step.cu``): one launch walks
 every occupied wavefront slot up to ``steps_per_wave`` steps and evaluates
@@ -24,6 +29,7 @@ from .types import (BVH_EMPTY_SLOT, C_CTRLS, C_DO_CTRL, C_EXEC_STEPS, C_N_OCC,
                     C_OCC_SUM, C_SPAWNED, C_TRAV_STEPS, C_WAVES, PH_EXIT,
                     PRIM_QUAD, PRIM_ROW, PRIM_SPHERE, PRIM_TRIANGLE, PackedBVH,
                     SceneArrays, bvh_layout)
+from ..utils import vec
 
 INF = isect.INF
 _SORT_NET = {
@@ -35,6 +41,7 @@ _SORT_NET = {
         (2, 4), (3, 5), (3, 4)),
 }
 _DONE = -(2 ** 30)
+INNER_STEPS = 8   # steps per check of the per-ray walk (traverse.py:124)
 
 
 class TravState(NamedTuple):
@@ -166,6 +173,100 @@ def traversal_steps_batched(bvh: PackedBVH, s: TravState, ro, rd, time,
 
 def traversal_done(s: TravState):
     return s.cur == _DONE
+
+
+def _traverse_impl(bvh: PackedBVH, ro, rd, time, t_min, t_max,
+                   stack_depth: int, active=None):
+    """Walk every ray to completion → (hit, prim_type, prim_idx, t, steps).
+
+    ``active`` (optional (R,) bool) starts only those queries; the others
+    return no hit.  ``steps`` counts the walking-lane steps.
+    """
+    s = traversal_init_batched(bvh, ro, rd, time, t_min, t_max, stack_depth)
+    if active is not None:
+        s = s._replace(cur=torch.where(active, s.cur, _DONE),
+                       best_pt=torch.where(active, s.best_pt, -1),
+                       best_pi=torch.where(active, s.best_pi, -1))
+    steps = 0
+    while True:
+        s, n, executed = traversal_steps_batched(bvh, s, ro, rd, time, t_min,
+                                                 INNER_STEPS, count_steps=True)
+        steps += n
+        if executed < INNER_STEPS:
+            break
+    return s.best_pt >= 0, s.best_pt, s.best_pi, s.best_t, steps
+
+
+@torch.no_grad()
+def traverse_bvh(bvh: PackedBVH, ro, rd, time, t_min, t_max,
+                 stack_depth: int = 48):
+    """Closest-hit query per ray → ``(hit, prim_type, prim_idx, t)``."""
+    return _traverse_impl(bvh, ro, rd, time, t_min, t_max, stack_depth)[:4]
+
+
+class Hit(NamedTuple):
+    """Hit record (``traverse.Hit``): vectors are (N, 3)."""
+
+    hit: torch.Tensor
+    t: torch.Tensor
+    p: torch.Tensor
+    normal: torch.Tensor      # shading normal (flipped toward the ray)
+    front_face: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    mat: torch.Tensor         # int32 material index
+    medium: torch.Tensor      # int32 constant-medium index or -1
+    prim_type: torch.Tensor
+    prim_idx: torch.Tensor
+
+
+def _prim_index(scene: SceneArrays, pidx):
+    """Per-family clamped indices of ``pidx`` (sphere, quad, triangle)."""
+    cl = lambda n: torch.clamp(pidx, 0, n - 1).long()  # noqa: E731
+    return (cl(scene.sph_rad.shape[0]), cl(scene.qd_d.shape[0]),
+            cl(scene.tr_mat.shape[0]))
+
+
+def intersect_prim(scene: SceneArrays, ptype, pidx, ro, rd, time, t_min,
+                   t_max):
+    """Full-record intersection of primitive (type, index) per ray; all
+    three families computed and selected by type → (hit, t, p, n, u, v)."""
+    si, qi, ti = _prim_index(scene, pidx)
+    hs = isect.hit_sphere(scene.sph_c0[si], scene.sph_c1[si],
+                          scene.sph_rad[si], ro, rd, time, t_min, t_max)
+    hq = isect.hit_quad(scene.qd_q[qi], scene.qd_u[qi], scene.qd_v[qi],
+                        scene.qd_n[qi], scene.qd_w[qi], scene.qd_d[qi],
+                        ro, rd, t_min, t_max)
+    ht = isect.hit_triangle(scene.tr_v0[ti], scene.tr_e1[ti],
+                            scene.tr_e2[ti], scene.tr_n[ti], ro, rd, t_min,
+                            t_max)
+    is_s, is_q = ptype == PRIM_SPHERE, ptype == PRIM_QUAD
+
+    def sel(a, b, c):
+        if a.ndim > is_s.ndim:
+            return torch.where(is_s[:, None], a, torch.where(is_q[:, None], b, c))
+        return torch.where(is_s, a, torch.where(is_q, b, c))
+
+    hit = sel(hs[0], hq[0], ht[0]) & (ptype >= 0)
+    return (hit,) + tuple(sel(hs[k], hq[k], ht[k]) for k in range(1, 6))
+
+
+def refine_hit(scene: SceneArrays, ptype, pidx, ro, rd, time, t_min) -> Hit:
+    """Full hit record for known primitives (the shading side of a hit)."""
+    hit, t, p, n_out, u, v = intersect_prim(scene, ptype, pidx, ro, rd, time,
+                                            t_min, INF)
+    front = vec.vdot(rd, n_out) < 0.0
+    normal = torch.where(front, 1.0, -1.0)[:, None] * n_out
+    si, qi, ti = _prim_index(scene, pidx)
+    is_s, is_q = ptype == PRIM_SPHERE, ptype == PRIM_QUAD
+    mat = torch.where(is_s, scene.sph_mat[si],
+                      torch.where(is_q, scene.qd_mat[qi], scene.tr_mat[ti]))
+    medium = torch.where(is_s, scene.sph_medium[si],
+                         torch.where(is_q, scene.qd_medium[qi],
+                                     scene.tr_medium[ti]))
+    return Hit(hit=hit & (ptype >= 0), t=t, p=p, normal=normal,
+               front_face=front, u=u, v=v, mat=mat.to(torch.int32),
+               medium=medium.to(torch.int32), prim_type=ptype, prim_idx=pidx)
 
 
 # ---------------------------------------------------------------------------

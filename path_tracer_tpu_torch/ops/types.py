@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -180,6 +181,19 @@ class RenderConfig:
         return self.max_iters if self.max_iters is not None else self.max_depth + 8
 
 
+class PathState(NamedTuple):
+    """Per-path state of both engines (``PathState``, ``ops/integrator.py``)."""
+
+    origin: Tensor       # (R, 3)
+    direction: Tensor    # (R, 3)
+    time: Tensor         # (R,)
+    color: Tensor        # (R, 3) accumulated radiance
+    throughput: Tensor   # (R, 3)
+    depth: Tensor        # (R,) int32 scatter bounces taken
+    iters: Tensor        # (R,) int32 loop trips (incl. passthrough)
+    alive: Tensor        # (R,) bool
+
+
 def pad_to(n: int, minimum: int = 8) -> int:
     """Next power-of-two bucket ≥ n (and ≥ minimum)."""
     m = max(int(n), minimum)
@@ -213,4 +227,5 @@ C_DO_CTRL = 12     # this wave runs the control kernels
 C_TICKET = 13      # last-block ticket of trace_step
 C_STACK_OVF = 14   # pushes dropped at a full stack (must stay 0)
 C_WAVE_MAX = 15    # per-wave scratch: longest lane walk (trace_step)
-N_COUNTERS = 16
+C_WALK_STEPS = 16  # SSS-volumetric walking trips of kept lanes (B6)
+N_COUNTERS = 17

@@ -38,8 +38,8 @@ from .shade_tiled import make_tables, shade, shade_plain, spawn_paths
 from .traverse import _DONE, trace_step, trace_step_plain, traversal_init_batched
 from .types import (C_CTRLS, C_DEPTH_SUM, C_DO_CTRL, C_DONE, C_EXEC_STEPS,
                     C_N_OCC, C_OCC_SUM, C_RAYS, C_SPAWNED, C_STACK_OVF,
-                    C_TRAV_STEPS, C_WAVES, FL_FINISHED, FL_NONE, FL_RESAMPLE,
-                    N_COUNTERS, PH_MAIN, RenderConfig)
+                    C_TRAV_STEPS, C_WALK_STEPS, C_WAVES, FL_FINISHED,
+                    FL_NONE, FL_RESAMPLE, N_COUNTERS, PH_MAIN, RenderConfig)
 
 
 @dataclass
@@ -88,9 +88,6 @@ class WaveEngine:
                  start_sample: int, n_samples: int, base_key,
                  queue_size: int, steps_per_wave: int, ctrl_den: int,
                  sample_stride: int | None = None):
-        if flags.has_sss:
-            raise NotImplementedError(
-                "subsurface scattering (ROADMAP.md B6) is not ported yet")
         self.scene, self.flags, self.bvh, self.cam, self.cfg = (
             scene, flags, bvh, cam, cfg)
         self.device = scene.sph_c0.device
@@ -305,7 +302,7 @@ def _stats(ws: WaveState, eng: WaveEngine) -> dict:
             "depth_sum": ctr[C_DEPTH_SUM], "waves": ctr[C_WAVES],
             "ctrls": ctr[C_CTRLS], "occ_sum": ctr[C_OCC_SUM],
             "trav_steps": ctr[C_TRAV_STEPS], "exec_steps": ctr[C_EXEC_STEPS],
-            "walk_steps": torch.zeros((), device=ctr.device),
+            "walk_steps": ctr[C_WALK_STEPS],
             "depth_hist": ws.depth_hist, "slots": eng.R,
             "spawned": torch.clamp(ctr[C_SPAWNED], max=eng.items_total),
             "total": eng.total, "pixel_paths": ws.pix_paths,

@@ -1,8 +1,7 @@
 """RendererFactory: the reference-compatible construction seam.
 
 Port of ``path_tracer_tpu/render/factory.py``: 'taichi' and 'gpu' map to
-the wavefront engine; 'cpu' and 'megakernel' map to the megakernel engine,
-which is not ported yet and raises ``NotImplementedError``.
+the wavefront engine; 'cpu' and 'megakernel' map to the megakernel engine.
 """
 from __future__ import annotations
 

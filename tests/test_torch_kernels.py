@@ -1,4 +1,4 @@
-"""The four CUDA kernels of the wavefront engine.
+"""The CUDA kernels of the wavefront engine (and the launch of all five).
 
 * On any machine: the kernels' per-slot code (``csrc/*.cu``), compiled for
   the CPU through ``csrc/host_emulation.cpp``, drives the wave loop in place
@@ -63,7 +63,7 @@ def _run(setup, stride, ops=None, plain=False):
 def test_kernel_sources_on_cpu_match_twins(name, stride, width):
     if shutil.which("g++") is None and shutil.which("c++") is None:
         pytest.skip("no host C++ compiler")
-    ops = kernels.host_emulation_ops()
+    ops, _ = kernels.host_emulation_ops()
     setup = _setup(name, width, "cpu")
     eng, a = _run(setup, stride, plain=True)
     _, b = _run(setup, stride, ops=ops)
@@ -118,7 +118,8 @@ def test_kernels_match_twins_on_card(cuda_device, name, stride):
     setup = _setup(name, 64, cuda_device)
     kernels.reset_launches()
     _, a = _run(setup, stride)
-    assert all(v > 0 for v in kernels.LAUNCHES.values())
+    assert all(kernels.LAUNCHES[n] > 0
+               for n in ("trace_step", "spawn", "shade", "retire"))
     _, b = _run(setup, stride, plain=True)
     assert torch.equal(a.pix_paths, b.pix_paths)
     assert int(a.ctr[1]) == int(b.ctr[1])
@@ -132,6 +133,8 @@ def test_kernel_wrappers_launch_on_card(cuda_device):
     world, cam = ptt.scenes.cornell_box()
     cam.img_width = 32
     kernels.reset_launches()
-    img = ptt.Renderer(world, cam, device=cuda_device).render(spp=2)
-    assert np.isfinite(img).all() and img.mean() > 0
+    for engine in ("wavefront", "megakernel"):
+        img = ptt.Renderer(world, cam, engine=engine,
+                           device=cuda_device).render(spp=2)
+        assert np.isfinite(img).all() and img.mean() > 0
     assert all(v > 0 for v in kernels.LAUNCHES.values())
