@@ -25,15 +25,29 @@ Phases (each prints its own line; any failure exits non-zero):
 5. main-mega  — the same frame through Renderer(engine="megakernel").
 6. main-sss   — mesh_perlin_sss at 400x225, 64 spp, depth 12, through both
                 engines, with the SSS walk counter.
+                Then K6 (adjoint) against its plain version at 160x90,
+                2 spp, on cornell_box (tex_c1), the texture-demo scene
+                (img_data), vol2_final_scene (image texture, marble,
+                media) and mesh_perlin_sss (the SSS exponent).
 7. agree      — kernel paths vs twin paths on the card at 160x90, 2 spp: the
                 graded image agreement of tools/bench_ab.py and exact
                 counters, for the wavefront on vol2_final and
                 mesh_perlin_sss and the megakernel on both; and the
                 megakernel's image against the wavefront kernels' image.
-8. the JSON kernel table, then the JSON result line.
+8. train      — make_train_step (unbiased, K1-K4 forward, K6 backward) on
+                cornell_box at 800x800 (tex_c1 rows 1 and 2 perturbed as
+                tools/train_demo.py does; 4 spp, depth 6) and on the
+                texture-demo scene at 800x800 (img_data; 8 spp, depth 5):
+                three steps each with loss, forward and backward ms (CUDA
+                events around each forward render and around the K6
+                backward), step wall and K6 launches; then K6 against its
+                plain version on one 800x800 cornell_box sample.
+9. the JSON kernel table, then the JSON result line.
 
-Each main phase sets the launch counts to 0 just before it renders and
-reads them just after; the table's ``launches`` come from those runs.
+Each main phase sets the launch counts to 0 just before it runs and reads
+them just after; the table's ``launches`` come from those runs.  The build
+phase also holds K3 and K5 at their recorded ptxas resources
+(``PTXAS_EXPECT``): K6's recorder must compile to nothing in them.
 """
 from __future__ import annotations
 
@@ -62,10 +76,15 @@ KERNELS = {
                "path_tracer_tpu/ops/wavefront.py:268"),
     "megakernel": ("path_tracer_tpu_torch/csrc/megakernel.cu",
                    "path_tracer_tpu/ops/integrator.py:253"),
+    "adjoint": ("path_tracer_tpu_torch/csrc/adjoint.cu",
+                "path_tracer_tpu/ops/wavefront.py:520"),
 }
 WAVE_KERNELS = ("trace_step", "spawn", "shade", "retire")
 BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce (threefry at 110)
 WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
+SWEEP_OPS = 60                 # K6's reverse sweep, per tape entry
+# (registers, stack frame bytes) of K3 and K5 as recorded in PERF.md (Findings)
+PTXAS_EXPECT = {"shade": (110, 104), "megakernel": (112, 368)}
 
 
 def phase(name, msg):
@@ -95,6 +114,23 @@ def cuda_ms(fn, reps=25, setup=None):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def ptxas_resources(log, name):
+    """(registers, stack frame bytes) of ``<name>_kernel`` in a ptxas -v log."""
+    regs = frame = None
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if f"{name}_kernel" not in line:
+            continue
+        if "Function properties" in line and i + 1 < len(lines):
+            frame = int(lines[i + 1].split("bytes stack frame")[0].split()[-1])
+        if "Compiling entry function" in line:
+            for nxt in lines[i + 1:]:
+                if "Used" in nxt and "registers" in nxt:
+                    regs = int(nxt.split("Used")[1].split("registers")[0])
+                    break
+    return regs, frame
 
 
 def frame_phase(tag, make, W, H, spp, depth, names, kernels):
@@ -182,7 +218,10 @@ def main() -> int:
     os.makedirs(RUN_DIR, exist_ok=True)
 
     import path_tracer_tpu_torch as ptt
-    from path_tracer_tpu_torch.ops import integrator, kernels, wavefront as wf
+    from path_tracer_tpu_torch.ops import adjoint, integrator, kernels
+    from path_tracer_tpu_torch.ops import wavefront as wf
+    from path_tracer_tpu_torch.parallel import (calibrate_n_waves,
+                                                make_train_step)
     from path_tracer_tpu_torch.ops import shade_tiled, traverse
     from path_tracer_tpu_torch.ops.shade import SceneFlags
     from path_tracer_tpu_torch.ops.types import (C_DEPTH_SUM, C_DO_CTRL,
@@ -204,6 +243,14 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 phase("build", f"{n}: {line.strip()}")
+    for n, want in PTXAS_EXPECT.items():
+        if n not in kernels.BUILD_LOG:
+            phase("build", f"{n}: built earlier in this process, not checked")
+            continue
+        got = ptxas_resources(kernels.BUILD_LOG[n], n)
+        phase("build", f"{n}: (registers, stack frame) {got}, recorded {want} "
+              f"{'PASS' if got == want else 'FAIL'}")
+        assert got == want, f"{n} ptxas resources changed: {got} != {want}"
 
     # --- 3. kernel vs twin at the full configuration's shapes ---
     dev = torch.device("cuda")
@@ -513,6 +560,99 @@ def main() -> int:
           + f" {'PASS' if ok_mq else 'FAIL'}")
     torch.cuda.empty_cache()
 
+    # K6 adjoint against its plain version (autograd of the twin's replay)
+    def prepare(world_, cam_, w, h, spp, depth):
+        cam_.aspect_ratio, cam_.img_width = w / h, w
+        sc_ = ptt.compile_scene(world_, device=dev)
+        fl_ = SceneFlags.from_scene(sc_)
+        cf_ = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           max_depth=depth)
+        return sc_, fl_, ptt.build_from_scene(sc_), cam_.initialize(device=dev), cf_
+
+    def adjoint_pair(sc_, fl_, bv_, ca_, cf_, samples, seed):
+        """K6 and its plain version over ``samples`` with one random delta:
+        relative L2 error and max abs error of the gradient vector, the
+        buffers, K6's ms for one launch (median of 25), the plain ms for all
+        samples, and K5's counters and ms on the first sample (the bound's
+        input, and the replay's cost alone)."""
+        aeng = integrator.MegaEngine(sc_, fl_, bv_, ca_, cf_, key)
+        npx = aeng.npix
+        ams = aeng.init_state(torch.zeros((npx, 3), device=dev))
+        delta = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (npx, 3)).astype(np.float32)).to(dev)
+        gk, gp = adjoint.grad_buffers(sc_), adjoint.grad_buffers(sc_)
+        for s_ in samples:
+            adjoint.adjoint(aeng, ams, s_, delta, *gk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s_ in samples:
+            adjoint.adjoint_plain(aeng, ams, s_, delta, *gp)
+        torch.cuda.synchronize()
+        pms = 1e3 * (time.perf_counter() - t0)
+        vk = torch.cat([g.flatten() for g in gk])
+        vp = torch.cat([g.flatten() for g in gp])
+        rel = float((vk - vp).norm() / vp.norm().clamp(min=1e-30))
+        err = float((vk - vp).abs().max())
+        scratch = adjoint.grad_buffers(sc_)
+        ms = cuda_ms(lambda: adjoint.adjoint(aeng, ams, samples[0], delta,
+                                             *scratch))
+        mst = aeng.init_state(torch.zeros((npx, 3), device=dev))
+        integrator.megakernel(aeng, mst, samples[0])
+        torch.cuda.synchronize()
+        ctr = {n: int(mst.ctr[i]) for n, i in (
+            ("rays", C_RAYS), ("trav_steps", C_TRAV_STEPS),
+            ("walk_steps", C_WALK_STEPS))}
+        k5_ms = cuda_ms(lambda: integrator.megakernel(aeng, mst, samples[0]))
+        # Bytes: node and shade rows once, delta read, the gradient buffers
+        # read and written once.  Operations: K5's replay of the sample plus
+        # the sweep (one tape entry per loop trip).
+        g_bytes = sum(g.numel() for g in gk) * 4
+        byts = (bv_.nodes.numel() + aeng.tabs.prim.numel()) * 4 + npx * 12 \
+            + 2 * g_bytes
+        ops = (ctr["trav_steps"] * 220 + ctr["rays"] * (BOUNCE_OPS + SWEEP_OPS)
+               + ctr["walk_steps"] * WALK_TRIP_OPS + npx * (8 * 110 + 60))
+        return dict(rel=rel, err=err, ms=ms, plain_ms=pms, bytes=byts, ops=ops,
+                    k5_ms=k5_ms, g=gk, **ctr)
+
+    def bound_ms(byts, ops):
+        return max(byts / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S) * 1e3
+
+    adj_ok = True
+    adj_rows = {}
+    for label, build_fn, depth in (
+            ("cornell_box", ptt.scenes.cornell_box, 6),
+            ("texture_demo", ptt.scenes.texture_demo, 5),
+            ("vol2_final_scene",
+             lambda: ptt.scenes.vol2_final_scene(sphere_cluster=1000), DEPTH),
+            ("mesh_perlin_sss", ptt.scenes.mesh_perlin_sss, QDEPTH)):
+        sc_, fl_, bv_, ca_, cf_ = prepare(*build_fn(), 160, 90, 2, depth)
+        r = adjoint_pair(sc_, fl_, bv_, ca_, cf_, (0, 1), 1)
+        g = adjoint.leaf_grads(sc_, *r.pop("g"))
+        mat_t = sc_.mat_type.cpu().numpy()
+        sss_tex = sc_.mat_tex.cpu().numpy()[mat_t == MAT_SSS_VOLUMETRIC]
+        covered = {
+            "cornell_box": bool(g["tex_c1"].abs().sum() > 0),
+            "texture_demo": bool(g["img_data"].abs().sum() > 0),
+            "vol2_final_scene": bool(g["img_data"].abs().sum() > 0
+                                     and g["tex_c1"].abs().sum() > 0),
+            "mesh_perlin_sss": bool(len(sss_tex) and r["walk_steps"] > 0
+                                    and g["tex_c1"][sss_tex].abs().sum() > 0),
+        }[label]
+        finite = all(bool(torch.isfinite(x).all()) for x in g.values())
+        ok = r["rel"] <= 1e-3 and covered and finite
+        adj_ok = adj_ok and ok
+        adj_rows[label] = dict(r, ok=ok, covered=covered,
+                               bound_ms=bound_ms(r["bytes"], r["ops"]))
+        phase("kernels", f"adjoint: {label} 160x90 2 spp depth {depth}: K6 vs "
+              f"plain rel L2 {r['rel']:.2e} max abs {r['err']:.2e}, leaves "
+              f"covered {covered}, finite {finite}, {r['ms']:.3f} ms per "
+              f"launch (bound {adj_rows[label]['bound_ms']:.5f} ms; rays "
+              f"{r['rays']}, traversal steps {r['trav_steps']}, walk steps "
+              f"{r['walk_steps']}), K5 on the same sample {r['k5_ms']:.3f} "
+              f"ms, plain {r['plain_ms']:.1f} ms for 2 samples "
+              f"{'PASS' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+
     # --- 4. the main path through the public entry points ---
     rec = {}
     rec["main"] = frame_phase(
@@ -620,9 +760,136 @@ def main() -> int:
               f"{e_clean:.2e}, rays equal -> {'PASS' if e_ok else 'FAIL'}")
         agree = agree and ok_w and m_ok and e_ok
 
-    # --- 8. the kernel table ---
+    # --- 8. the train step at full size ---
+    def timed(fn, bucket):
+        """``fn`` with its CUDA-event time appended to ``bucket``."""
+        def wrapped(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            bucket.append((e0, e1))
+            return out
+        return wrapped
+
+    def train_phase(tag, world_, cam_, w, h, spp, depth, leaf, init, lr):
+        """Three make_train_step steps after a warm-up; the launch counts
+        are set to 0 just before the three and read just after."""
+        sc_, fl_, bv_, ca_, cf_ = prepare(world_, cam_, w, h, spp, depth)
+        zero_ = torch.zeros((h, w, 3), device=dev)
+        target = wf.render_batch(sc_, fl_, bv_, ca_, cf_, zero_, 0, 32,
+                                 rng.key(10_000, device=dev),
+                                 queue_size=32768, steps_per_wave=32) / 32
+        n_waves = calibrate_n_waves(sc_, fl_, bv_, ca_, cf_, key, spp=spp,
+                                    queue_size=32768, steps_per_wave=32)
+        step = make_train_step(fl_, cf_, None, spp=spp, lr=lr,
+                               queue_size=32768, steps_per_wave=32,
+                               n_waves=n_waves, unbiased=True)
+        params = {leaf: init(getattr(sc_, leaf))}
+        step(params, sc_, bv_, ca_, rng.fold_in(key, 99), target)  # warm-up
+        fwd, bwd = [], []
+        real_rb, real_vjp = wf.render_batch, adjoint.kernel_vjp
+        wf.render_batch = timed(real_rb, fwd)
+        adjoint.kernel_vjp = timed(real_vjp, bwd)
+        rows = []
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            for i in range(3):
+                fwd.clear()
+                bwd.clear()
+                t0 = time.perf_counter()
+                params, loss, grads, aux = step(params, sc_, bv_, ca_,
+                                                rng.fold_in(key, i), target)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                f_ms = sum(a.elapsed_time(b) for a, b in fwd)
+                b_ms = sum(a.elapsed_time(b) for a, b in bwd)
+                g = grads[leaf]
+                rows.append(dict(loss=float(loss), fwd_ms=f_ms, bwd_ms=b_ms,
+                                 wall_s=wall, renders=len(fwd),
+                                 paths_done=aux["paths_done"],
+                                 paths_total=aux["paths_total"],
+                                 grad_finite=bool(torch.isfinite(g).all()),
+                                 grad=g))
+            launches_ = dict(kernels.LAUNCHES)
+        finally:
+            wf.render_batch, adjoint.kernel_vjp = real_rb, real_vjp
+        for i, r in enumerate(rows):
+            phase(tag, f"step {i}: loss {r['loss']:.6g}, forward "
+                  f"{r['fwd_ms']:.2f} ms ({r['renders']} renders), backward "
+                  f"(K6) {r['bwd_ms']:.2f} ms, step wall {r['wall_s']:.4f} s, "
+                  f"paths {r['paths_done']}/{r['paths_total']}, grad finite "
+                  f"{r['grad_finite']}")
+        phase(tag, f"launches over 3 steps: {launches_}")
+        return sc_, fl_, bv_, ca_, cf_, rows, launches_
+
+    train_rec = {}
+    train_ok = True
+    world_c, cam_c = ptt.scenes.cornell_box()
+
+    def perturb_rows(c1):
+        c1 = c1.clone()
+        c1[1] = torch.tensor([0.4, 0.4, 0.4], device=dev)   # red wall
+        c1[2] = 0.5 * c1[2]                                 # light x0.5
+        return c1
+
+    sc_c, fl_c, bv_c, ca_c, cf_c, rows, tl = train_phase(
+        "train", world_c, cam_c, 800, 800, 4, 6, "tex_c1", perturb_rows, 0.08)
+    for r in rows:
+        g = r.pop("grad")
+        r["grad_rows_nonzero"] = bool((g[1].abs() > 0).all()
+                                      and (g[2].abs() > 0).all())
+        ok = (r["paths_done"] == r["paths_total"] == 2 * 800 * 800 * 4
+              and r["grad_finite"] and r["grad_rows_nonzero"])
+        train_ok = train_ok and ok
+    k6_per_step = tl["adjoint"] / 3
+    train_ok = train_ok and tl["adjoint"] == 3 * 4 and all(
+        tl[n] > 0 for n in WAVE_KERNELS)
+    phase("train", f"cornell_box 800x800: paths_done == paths_total, finite "
+          f"gradients non-zero on rows 1 and 2, K6 launches per step "
+          f"{k6_per_step:g} (4 expected) -> {'PASS' if train_ok else 'FAIL'}")
+    train_rec["cornell_box"] = dict(rows=rows, launches=tl)
+
+    world_t, cam_t = ptt.scenes.texture_demo()
+    sc_t, _, _, _, _, rows_t, tl_t = train_phase(
+        "train-texture", world_t, cam_t, 800, 800, 8, 5, "img_data",
+        lambda x: torch.full_like(x, 0.5), 0.02)
+    ok_t = tl_t["adjoint"] == 3 * 8
+    for r in rows_t:
+        g = r.pop("grad")
+        r["texels_nonzero"] = float((g.abs().sum(-1) > 0).float().mean())
+        ok_t = ok_t and (r["paths_done"] == r["paths_total"]
+                         == 2 * 800 * 800 * 8 and r["grad_finite"]
+                         and r["texels_nonzero"] > 0.5)
+    phase("train-texture", f"texture_demo 800x800 img_data "
+          f"{tuple(sc_t.img_data.shape)}: texels with a gradient "
+          f"{[r['texels_nonzero'] for r in rows_t]}, K6 launches per step "
+          f"{tl_t['adjoint'] / 3:g} -> {'PASS' if ok_t else 'FAIL'}")
+    train_ok = train_ok and ok_t
+    train_rec["texture_demo"] = dict(rows=rows_t, launches=tl_t)
+
+    # K6 on one 800x800 cornell_box sample against its plain version
+    r6 = adjoint_pair(sc_c, fl_c, bv_c, ca_c, cf_c, (0,), 2)
+    r6.pop("g")
+    ok6 = r6["rel"] <= 1e-3 and adj_ok
+    results["adjoint"] = dict(ok=ok6, err=r6["err"], ms=r6["ms"],
+                              plain_ms=r6["plain_ms"], bytes=r6["bytes"],
+                              ops=r6["ops"], library_ms=None,
+                              small=adj_rows, full=r6)
+    phase("kernels", f"adjoint: cornell_box 800x800 one sample: K6 vs plain "
+          f"rel L2 {r6['rel']:.2e} max abs {r6['err']:.2e}, {r6['ms']:.3f} ms "
+          f"(bound {bound_ms(r6['bytes'], r6['ops']):.5f} ms, bytes "
+          f"{r6['bytes']}, fp32 ops {r6['ops']}; rays {r6['rays']}, traversal "
+          f"steps {r6['trav_steps']}), K5 on the same sample "
+          f"{r6['k5_ms']:.3f} ms, plain {r6['plain_ms']:.1f} ms "
+          f"{'PASS' if ok6 else 'FAIL'}")
+
+    # --- 9. the kernel table ---
     launches = dict(rec["main"]["launches"])
     launches["megakernel"] = rec["main-mega"]["launches"]["megakernel"]
+    launches["adjoint"] = train_rec["cornell_box"]["launches"]["adjoint"]
     table = []
     for n, (srcf, repl) in KERNELS.items():
         res = results[n]
@@ -639,12 +906,15 @@ def main() -> int:
         json.dump({"card": card, "frames": rec,
                    "shade_sss": results["shade"]["sss"],
                    "megakernel_sss": results["megakernel"]["sss"],
-                   "kernels": table},
-                  f, indent=1)
+                   "adjoint": {k: results["adjoint"][k]
+                               for k in ("small", "full")},
+                   "train": train_rec, "kernels": table},
+                  f, indent=1, default=str)
     failed = [t["name"] for t in table if not t["pass"]]
     print(json.dumps({"kernels": table}), flush=True)
-    if failed or not agree:
-        print(f"chip_smoke: FAILED {failed} agree={agree}", file=sys.stderr)
+    if failed or not agree or not train_ok:
+        print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok}",
+              file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

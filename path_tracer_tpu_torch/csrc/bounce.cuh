@@ -10,6 +10,12 @@
 // operation order of the plain-torch twin (ops/shade_tiled.py).  Each lane
 // evaluates only the family it needs, where the TPU code evaluates every
 // family on every lane; the selected values are the same.
+//
+// bounce() takes a compile-time recorder (K6, adjoint.cu) that is told each
+// linear colour event of the trip: the throughput before it, the emission or
+// background term, the attenuation's texture colour with its leaf address
+// and exponent, and the roulette boost.  K3 and K5 pass none (NoTape): every
+// recorder call sits under `if constexpr` and compiles to nothing there.
 #pragma once
 
 #include "camera.cuh"
@@ -28,6 +34,11 @@ struct PathRegs {
   float time;
   int depth, iters;
   bool alive;
+};
+
+// The recorder K3 and K5 use: records nothing.
+struct NoTape {
+  static constexpr bool kOn = false;
 };
 
 // Shade-table row of (ptype, pidx): [mat, medium, a, b, c, n, w, d].
@@ -129,11 +140,14 @@ __device__ __forceinline__ Hit refine_hit(const WaveArgs& a, int ptype,
 // for a hit entering a medium, whose volume-exit query gave (exit_found,
 // t_exit, exit_is_medium).  kit = fold_in(key_p, iters).  Updates p (next
 // segment, radiance, throughput, depth, iters + 1, alive) and returns the
-// SSS walk's walking trips.
+// SSS walk's walking trips.  `tape`, when Rec::kOn, records the trip's
+// colour events (see the note at the top).
+template <class Rec = NoTape>
 __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
                                       bool found, int r_pt, int r_pi,
                                       bool exit_found, float t_exit,
-                                      bool exit_is_medium, Key kit) {
+                                      bool exit_is_medium, Key kit,
+                                      Rec* tape = nullptr) {
   const float ox = p.o[0], oy = p.o[1], oz = p.o[2];
   const float dx = p.d[0], dy = p.d[1], dz = p.d[2];
   const float time = p.time;
@@ -143,6 +157,7 @@ __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
   float* thr = p.thr;
   const float* dirc = p.d;
   int walk_trips = 0;
+  if constexpr (Rec::kOn) tape->begin(thr);
 
   Hit rec;
   if (r_pt >= 0) {
@@ -179,6 +194,13 @@ __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
                                 ox + t_scatter * dx, oy + t_scatter * dy,
                                 oz + t_scatter * dz, a.has_noise_medium,
                                 a.has_image_medium);
+      if constexpr (Rec::kOn) {
+        tape->albedo(texture_src(a, (int)a.med_tab[2 * mi + 1], 0.0f, 0.0f,
+                                ox + t_scatter * dx, oy + t_scatter * dy,
+                                oz + t_scatter * dz, a.has_noise_medium,
+                                a.has_image_medium),
+                    med_albedo);
+      }
     }
     const bool stop_short = entering && exit_found && !exit_is_medium;
     const float hop_t = exiting ? t_hit : t_exit;
@@ -251,6 +273,11 @@ __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
       const Col alb = eval_texture(a, (int)mrow[1], rec.u, rec.v, rec.px,
                                    rec.py, rec.pz, true, true);
       s_at[0] = alb.r; s_at[1] = alb.g; s_at[2] = alb.b;
+      if constexpr (Rec::kOn) {
+        tape->albedo(texture_src(a, (int)mrow[1], rec.u, rec.v, rec.px, rec.py,
+                                rec.pz, true, true),
+                    alb);
+      }
     }
     const float n[3] = {nx, ny, nz};
     if (mtype == MAT_SSS_SIMPLE) {
@@ -280,10 +307,17 @@ __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
       }
       scat_ok = w.status == 1;
       walk_trips = w.trips;
+      // colour^(n+1): n kept trips and the exit trip's final factor.
+      if constexpr (Rec::kOn) tape->exponent(w.trips);
     }
     if (mtype == MAT_EMISSIVE) {
       emit = eval_texture(a, (int)mrow[1], rec.u, rec.v, rec.px, rec.py,
                           rec.pz, a.has_noise_emission, a.has_image_emission);
+      if constexpr (Rec::kOn) {
+        tape->emission_src(texture_src(a, (int)mrow[1], rec.u, rec.v, rec.px,
+                                      rec.py, rec.pz, a.has_noise_emission,
+                                      a.has_image_emission));
+      }
     }
   }
 
@@ -293,15 +327,23 @@ __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
     col[0] = col[0] + surf_f * thr[0] * emit.r;
     col[1] = col[1] + surf_f * thr[1] * emit.g;
     col[2] = col[2] + surf_f * thr[2] * emit.b;
+    if constexpr (Rec::kOn) {
+      const float e[3] = {surf_f * emit.r, surf_f * emit.g, surf_f * emit.b};
+      tape->emission(e);
+    }
   } else {
     float bg[3];
     background(a, dx, dy, dz, bg);
 #pragma unroll
     for (int k = 0; k < 3; ++k) col[k] = col[k] + thr[k] * bg[k];
+    if constexpr (Rec::kOn) tape->emission(bg);
   }
 
   // --- next segment ---
   const bool scattered = med_scatter || (surface && scat_ok);
+  if constexpr (Rec::kOn) {
+    if (!scattered) tape->not_scattered();
+  }
   const float orig[3] = {ox, oy, oz};
   float n_o[3], n_d[3], at[3];
   if (med_scatter) {
@@ -336,7 +378,9 @@ __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
 #pragma unroll
     for (int k = 0; k < 3; ++k) thr[k] = thr[k] * boost;
     alive = alive && !killed;
+    if constexpr (Rec::kOn) tape->boost(boost);
   }
+  if constexpr (Rec::kOn) tape->end();
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     p.o[k] = next_o[k];

@@ -1,5 +1,5 @@
 // Shared definitions of the kernels (K1 trace_step, K2 spawn, K3 shade,
-// K4 retire, K5 megakernel): the argument block every launcher takes, the
+// K4 retire, K5 megakernel, K6 adjoint): the argument block every launcher takes, the
 // constants mirrored from path_tracer_tpu_torch/ops/types.py, and float
 // helpers with JAX's semantics (NaN-propagating min/max).
 //
@@ -93,6 +93,10 @@ struct WaveArgs {
   float cam_origin[3], pixel00[3], du[3], dv[3], defocus_u[3], defocus_v[3];
   float defocus_angle, bg_color[3];
   int bg_type;
+  // adjoint (K6): dL/d(image) per pixel (npix, 3), and the gradient buffers
+  // of the colour leaves, (n_tex, 6) as tex_tab columns 1-6 and
+  // (n_img * img_h * img_w, 3) as img_data
+  const float* delta; float* g_tex; float* g_img;
 };
 
 // Every field of WaveArgs in declaration order.  A name missing from the
@@ -112,7 +116,8 @@ struct WaveArgs {
   X(has_image_medium) X(width) X(max_depth) X(iters_cap) X(rr_min_depth)     \
   X(use_rr) X(sss_steps) X(npix) X(stride) X(multi) X(start_sample) X(n_samples) X(key0)  \
   X(key1) X(rr_max_prob) X(t_min) X(t_max) X(cam_origin) X(pixel00) X(du)    \
-  X(dv) X(defocus_u) X(defocus_v) X(defocus_angle) X(bg_color) X(bg_type)
+  X(dv) X(defocus_u) X(defocus_v) X(defocus_angle) X(bg_color) X(bg_type)   \
+  X(delta) X(g_tex) X(g_img)
 
 // Fills names[k], offsets[k] for each field when the arrays are given;
 // returns the number of fields.  Each kernel library exports its own copy.

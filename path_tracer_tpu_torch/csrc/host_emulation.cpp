@@ -1,7 +1,8 @@
 // CPU build of the kernels' per-slot code, for tests.
 //
 // The CUDA sources keep each kernel's per-slot work in a __device__
-// function (trace_lane, shade_lane, retire_lane, spawn_lane, mega_pixel)
+// function (trace_lane, shade_lane, retire_lane, spawn_lane, mega_pixel,
+// adjoint_pixel)
 // and only the grid plumbing in the __global__ wrapper.  Compiled by a host C++ compiler
 // with PTT_HOST_EMULATION defined, the same per-slot code runs here in a
 // loop over slots, so the CPU test suite holds the kernel sources — not only
@@ -26,6 +27,7 @@ static T atomicAdd(T* p, T v) {
 #include "retire.cu"
 #include "spawn.cu"
 #include "megakernel.cu"
+#include "adjoint.cu"
 
 extern "C" void emu_trace_step(WaveArgs* a) {
   if (!wave_is_live(*a)) {
@@ -74,5 +76,17 @@ extern "C" void emu_megakernel(WaveArgs* a) {
     a->ctr[C_TRAV_STEPS] += c.trav_steps;
     a->ctr[C_WALK_STEPS] += c.walk_trips;
     a->ctr[C_STACK_OVF] += c.ovf;
+  }
+}
+
+extern "C" void emu_adjoint(WaveArgs* a) {
+  for (int pix = 0; pix < a->npix; ++pix) {
+    int stack[PTT_MEGA_STACK];
+    TapeEntry tape[PTT_TAPE_MAX];
+    adjoint_pixel(*a, pix, stack, tape, [&](int src, int k, float v) {
+      bool in_img;
+      const int off = grad_offset(*a, src, k, in_img);
+      (in_img ? a->g_img : a->g_tex)[off] += v;
+    });
   }
 }

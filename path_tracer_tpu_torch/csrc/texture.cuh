@@ -88,3 +88,33 @@ __device__ __forceinline__ Col eval_texture(const WaveArgs& a, int tex_idx,
   }
   return out;
 }
+
+// The colour leaf that eval_texture's result is read from, for the adjoint
+// (K6): 2*ti for c1 of texture row ti (solid, even checker cell, or a family
+// whose evaluation is compiled out), 2*ti + 1 for c2 (odd checker cell),
+// 2*n_tex + texel for an atlas texel (texel = (image*img_h + y)*img_w + x),
+// or -1 for marble, which has no colour leaf.  Same branches as eval_texture.
+__device__ __forceinline__ int texture_src(const WaveArgs& a, int tex_idx,
+                                           float u, float v, float px,
+                                           float py, float pz,
+                                           bool allow_noise,
+                                           bool allow_image) {
+  const int ti = clampi(tex_idx, 0, a.n_tex - 1);
+  const float* row = a.tex_tab + 9 * ti;
+  const int ttype = (int)row[0];
+  const float scale = row[7];
+  if (ttype == TEX_CHECKER) {
+    const float lat = floorf(scale * px) + floorf(scale * py) + floorf(scale * pz);
+    return 2 * ti + (((int)lat & 1) != 0 ? 1 : 0);
+  }
+  if (ttype == TEX_IMAGE && a.has_image && allow_image) {
+    const int ii = clampi((int)row[8], 0, a.n_img - 1);
+    const int h = a.img_hw[2 * ii], w = a.img_hw[2 * ii + 1];
+    const int x = clampi((int)(clampf(u, 0.0f, 1.0f) * (float)w), 0, w - 1);
+    const int y =
+        clampi((int)((1.0f - clampf(v, 0.0f, 1.0f)) * (float)h), 0, h - 1);
+    return 2 * a.n_tex + (ii * a.img_h + y) * a.img_w + x;
+  }
+  if (ttype == TEX_NOISE && a.has_noise && allow_noise) return -1;
+  return 2 * ti;
+}

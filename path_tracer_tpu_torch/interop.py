@@ -47,3 +47,9 @@ def key_from_data(data, device="cuda") -> torch.Tensor:
     """``jax.random.key_data(k)`` words (uint32[2]) → the port's key."""
     d = np.asarray(data).astype(np.uint64).astype(np.int64).reshape(2)
     return torch.from_numpy(d).to(device)
+
+
+def from_numpy_params(params, device="cuda") -> dict:
+    """A JAX parameter dict (leaf name → array) → port tensors, e.g. the
+    ``params`` of ``make_train_step``'s step."""
+    return {k: _t(v, device) for k, v in params.items()}

@@ -12,9 +12,15 @@ two engines integrate the same (sample, pixel, bounce) set.
 pixel runs ``trace_ray``'s whole loop for one sample — the per-ray BVH walk
 (B10), the volume-exit walk for medium hits, and the bounce (B11, with the
 SSS walk B6) — and adds its colour into the frame.  :func:`megakernel_plain`
-is its plain-torch twin.  The fixed-trip ``trace_ray_scan`` and
-``render(differentiable=True)`` belong to the differentiable engine
-(ROADMAP A.10) and raise ``NotImplementedError``.
+is its plain-torch twin.
+
+The differentiable engine: :func:`trace_ray_scan` is ``trace_ray``'s
+fixed-trip form (every lane runs ``cfg.iters`` trips, finished lanes
+frozen), plain torch under autograd.  ``render(differentiable=True)`` and
+``render_sample(differentiable=True)`` render with K5 on the card (the twin
+on the CPU) and differentiate through :mod:`.adjoint`: on the CPU autograd
+of the twin's replay for every leaf, on the card kernel K6 for the colour
+leaves.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 from ..utils import rng
 from ..utils import vec
 from ..utils.vec import rsqrt32
-from . import kernels
+from . import adjoint, kernels
 from .camera import get_ray
 from .shade_tiled import (bounce_rng, bounce_shade_t, make_tables, med_table,
                           medium_sample_t)
@@ -34,10 +40,6 @@ from .types import (C_DEPTH_SUM, C_DONE, C_RAYS, C_STACK_OVF, C_TRAV_STEPS,
                     C_WALK_STEPS, N_COUNTERS, PathState, RenderConfig)
 
 MEGA_STACK = 64   # per-thread stack capacity of K5 (csrc/megakernel.cu)
-
-_DIFF = ("the differentiable engine (trace_ray_scan, render(differentiable="
-         "True)) is not ported yet (ROADMAP.md A.10)")
-
 
 def prim_front_face(scene, ptype, pidx, origin, direction, time, t):
     """Front-face test for known hits: sign of rd · outward normal."""
@@ -153,8 +155,33 @@ def trace_ray(scene, flags, bvh, cam, cfg: RenderConfig, origin, direction,
     return out if full_state else out.color
 
 
-def trace_ray_scan(*args, **kwargs):
-    raise NotImplementedError(_DIFF)
+def trace_ray_scan(scene, flags, bvh, cam, cfg: RenderConfig, origin,
+                   direction, time, ray_key, full_state: bool = False):
+    """Differentiable trace: the same bounce body for ``cfg.iters`` trips
+    on every lane, finished lanes frozen by their ``alive`` mask.  With the
+    same keys it gives exactly :func:`trace_ray`'s radiance."""
+    st = _init_state(origin, direction, time)
+    tabs = make_tables(scene)
+    for _ in range(cfg.iters):
+        nxt = bounce_body(scene, flags, bvh, cam, cfg, tabs, st, ray_key)[0]
+        keep = st.alive
+        st = PathState(*(torch.where(keep.view(-1, *(1,) * (x.ndim - 1)), y, x)
+                         for x, y in zip(st, nxt)))
+    return st if full_state else st.color
+
+
+def trace_sample(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
+                 sample_idx):
+    """Sample ``sample_idx`` of every pixel by the twin (``render_sample``'s
+    keys: base → sample → pixel, camera ray from ``fold_in(key_p, 7)``) →
+    (final state, traversal steps, SSS walk steps); differentiable."""
+    dev = scene.sph_c0.device
+    pix = torch.arange(cfg.width * cfg.height, dtype=torch.int32, device=dev)
+    key_p = rng.fold_in(rng.fold_in(base_key.to(dev), sample_idx), pix)
+    origin, direction, time = get_ray(
+        cam, (pix % cfg.width).float(), (pix // cfg.width).float(),
+        rng.fold_in(key_p, 7))
+    return _trace(scene, flags, bvh, cam, cfg, origin, direction, time, key_p)
 
 
 # ---------------------------------------------------------------------------
@@ -206,13 +233,8 @@ def megakernel_plain(eng: MegaEngine, ms: MegaState, sample_idx: int) -> None:
     """Plain twin of K5: trace sample ``sample_idx`` of every pixel
     (``render_sample``), add it to the frame and count it (in place)."""
     cfg = eng.cfg
-    pix = torch.arange(eng.npix, dtype=torch.int32, device=eng.device)
-    key_p = rng.fold_in(rng.fold_in(eng.key, sample_idx), pix)
-    origin, direction, time = get_ray(
-        eng.cam, (pix % cfg.width).float(), (pix // cfg.width).float(),
-        rng.fold_in(key_p, 7))
-    st, trav, walk = _trace(eng.scene, eng.flags, eng.bvh, eng.cam, cfg,
-                            origin, direction, time, key_p)
+    st, trav, walk = trace_sample(eng.scene, eng.flags, eng.bvh, eng.cam, cfg,
+                                  eng.key, sample_idx)
     ms.color.copy_(st.color)
     ms.iters.copy_(st.iters)
     ms.depth.copy_(st.depth)
@@ -269,23 +291,35 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     return (image, _stats(ms)) if with_stats else image
 
 
+def _render_samples(scene, flags, bvh, cam, cfg, start, n, base_key,
+                    differentiable, with_stats=False):
+    """Sum of samples ``start ..`` ``+ n`` → (H, W, 3) (and stats); with
+    ``differentiable`` through :func:`.adjoint.render_diff`."""
+    def forward(sc):
+        zero = torch.zeros((cfg.height, cfg.width, 3), device=sc.sph_c0.device)
+        return render_batch(sc, flags, bvh, cam, cfg, zero, start, n,
+                            base_key, with_stats=True)
+
+    if not differentiable:
+        image, stats = forward(scene)
+    else:
+        image, stats = adjoint.render_diff(scene, flags, bvh, cam, cfg,
+                                           base_key, range(start, start + n),
+                                           forward)
+    return (image, stats) if with_stats else image
+
+
 def render_sample(scene, flags, bvh, cam, cfg: RenderConfig, sample_idx,
                   base_key, differentiable: bool = False,
                   with_stats: bool = False):
     """Trace one sample for every pixel → (H, W, 3) radiance (and stats)."""
-    if differentiable:
-        raise NotImplementedError(_DIFF)
-    zero = torch.zeros((cfg.height, cfg.width, 3), device=scene.sph_c0.device)
-    return render_batch(scene, flags, bvh, cam, cfg, zero, sample_idx, 1,
-                        base_key, with_stats=with_stats)
+    return _render_samples(scene, flags, bvh, cam, cfg, int(sample_idx), 1,
+                           base_key, differentiable, with_stats)
 
 
 def render(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
            differentiable: bool = False, spp: int | None = None):
     """Accumulate ``spp`` samples → (H, W, 3) mean radiance."""
-    if differentiable:
-        raise NotImplementedError(_DIFF)
     spp = spp if spp is not None else cfg.samples_per_pixel
-    zero = torch.zeros((cfg.height, cfg.width, 3), device=scene.sph_c0.device)
-    return render_batch(scene, flags, bvh, cam, cfg, zero, 0, spp,
-                        base_key) / spp
+    return _render_samples(scene, flags, bvh, cam, cfg, 0, spp, base_key,
+                           differentiable) / spp

@@ -1,8 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 Each kernel source (``trace_step.cu``, ``spawn.cu``, ``shade.cu``,
-``retire.cu``, ``megakernel.cu``) is compiled by its own ``nvcc`` for
-``sm_90a``, all five started together, into a shared library with a plain C interface under the
+``retire.cu``, ``megakernel.cu``, ``adjoint.cu``) is compiled by its own
+``nvcc`` for ``sm_90a``, all six started together, into a shared library with a plain C interface under the
 git-ignored ``build/torch_ext/`` (file names carry a hash of the sources, so
 an edit rebuilds).  The libraries are opened with ``ctypes``; device
 pointers come from ``tensor.data_ptr()`` and the stream from PyTorch's
@@ -24,7 +24,7 @@ import time
 
 import torch
 
-NAMES = ("trace_step", "spawn", "shade", "retire", "megakernel")
+NAMES = ("trace_step", "spawn", "shade", "retire", "megakernel", "adjoint")
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -66,7 +66,8 @@ class WaveArgs(ctypes.Structure):
         + [(n, _F) for n in ("rr_max_prob", "t_min", "t_max")]
         + [(n, _F * 3) for n in ("cam_origin", "pixel00", "du", "dv",
                                  "defocus_u", "defocus_v")]
-        + [("defocus_angle", _F), ("bg_color", _F * 3), ("bg_type", _I)])
+        + [("defocus_angle", _F), ("bg_color", _F * 3), ("bg_type", _I)]
+        + [(n, _P) for n in ("delta", "g_tex", "g_img")])
 
 
 def _nvcc() -> str:
@@ -154,6 +155,13 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     if not t.is_contiguous():
         raise ValueError("kernel arguments must be contiguous")
     return t.data_ptr()
+
+
+def set_grad_buffers(a: WaveArgs, delta, g_tex, g_img) -> None:
+    """Point K6's fields of an argument block at delta and the gradient
+    buffers (``csrc/common.cuh``), keeping the tensors alive with it."""
+    a.delta, a.g_tex, a.g_img = _ptr(delta), _ptr(g_tex), _ptr(g_img)
+    a._keep_grad = (delta, g_tex, g_img)
 
 
 def make_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
@@ -267,7 +275,7 @@ def host_emulation_ops():
     the wave kernel wrappers (``op(engine, wave_state)``), in the order of
     :data:`~.wavefront.KERNELS`, and one with the signature of
     :func:`~.integrator.megakernel` (``op(engine, mega_state, sample)``),
-    all running on CPU states.
+    all running on CPU states.  :func:`host_emulation_adjoint` gives K6's.
     """
     lib = host_emulation_lib()
 
@@ -287,3 +295,18 @@ def host_emulation_ops():
 
     return (tuple(make(n) for n in ("trace_step", "shade", "retire", "spawn")),
             make("megakernel"))
+
+
+def host_emulation_adjoint():
+    """K6's per-pixel code compiled for the CPU (tests only): an op with the
+    signature of :func:`~.adjoint.adjoint` (``op(engine, mega_state,
+    sample, delta, g_tex, g_img)``) on CPU tensors."""
+    fn = host_emulation_lib().emu_adjoint
+    fn.argtypes = [ctypes.POINTER(WaveArgs)]
+
+    def op(eng, ms, sample, delta, g_tex, g_img):
+        a = fill_args(eng, ms)
+        a.start_sample = int(sample)
+        set_grad_buffers(a, delta, g_tex, g_img)
+        fn(ctypes.byref(a))
+    return op

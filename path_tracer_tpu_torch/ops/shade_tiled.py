@@ -559,7 +559,7 @@ def bounce_shade_t(scene, flags, cam, cfg, tabs: ShadeTables, path: PathState,
     miss = [col[k] + thr[k] * bg[k] for k in range(3)]
     rec = refine_hit_t(tabs, ptype, pidx, ox, oy, oz, dx, dy, dz, time,
                        cfg.t_min)
-    t_hit = rec.t
+    t_hit = rec.t.detach()          # JAX stop_gradient (shade_tiled.py:850)
     zeros = torch.zeros_like(ox)
 
     if flags.has_medium:
@@ -624,7 +624,7 @@ def bounce_shade_t(scene, flags, cam, cfg, tabs: ShadeTables, path: PathState,
                                              thr[2]), max=cfg.rr_max_prob)
         killed = rr_active & (urr > survival)
         boost = W(rr_active & ~killed,
-                  1.0 / torch.clamp(survival, min=1e-6), 1.0)
+                  1.0 / torch.clamp(survival, min=1e-6), 1.0).detach()
         thr = [t * boost for t in thr]
         alive = alive & ~killed
 

@@ -8,8 +8,9 @@ per-ray ``traversal_init``/``traversal_step``/``traversal_steps`` are the
 batched functions here, applied to a batch of rays), the full hit record
 (``intersect_prim`` :73, ``refine_hit`` :558) and ``first_hit_brute``
 (:584).  State is a :class:`TravState` of flat ``(R,)`` tensors plus an
-``(R, SD)`` stack.  ``traverse_bvh`` runs without autograd; its zero-grad
-``autograd.Function`` comes with the differentiable engine (ROADMAP A.10).
+``(R, SD)`` stack.  The walk runs without autograd (``_traverse_impl`` is
+``no_grad``), which gives ``ro``/``rd`` the zero gradient of JAX's
+``traverse_bvh`` custom VJP.
 
 :func:`trace_step` is kernel K1 (``csrc/trace_step.cu``): one launch walks
 every occupied wavefront slot up to ``steps_per_wave`` steps and evaluates
@@ -175,12 +176,16 @@ def traversal_done(s: TravState):
     return s.cur == _DONE
 
 
+@torch.no_grad()
 def _traverse_impl(bvh: PackedBVH, ro, rd, time, t_min, t_max,
                    stack_depth: int, active=None):
     """Walk every ray to completion → (hit, prim_type, prim_idx, t, steps).
 
     ``active`` (optional (R,) bool) starts only those queries; the others
-    return no hit.  ``steps`` counts the walking-lane steps.
+    return no hit.  ``steps`` counts the walking-lane steps.  Runs without
+    autograd: visibility is discrete, and JAX's ``traverse_bvh`` custom VJP
+    gives every input a zero cotangent; shading recomputes the hit
+    differentiably (``refine_hit``).
     """
     s = traversal_init_batched(bvh, ro, rd, time, t_min, t_max, stack_depth)
     if active is not None:

@@ -19,6 +19,11 @@ K3, K4 and K2 return at once when ``do_ctrl`` is 0.  The wave loop itself
 ``CHECK_EVERY`` waves, through pinned memory; nothing per wave crosses to
 the host.  On CPU tensors every kernel wrapper runs its plain-torch twin.
 
+:func:`render_batch_diff` is the differentiable wavefront: the forward is
+:func:`render_batch` (K1-K4 on the card), the backward replays each
+(sample, pixel) path through :mod:`.adjoint` (K6 on the card), so no wave
+state is stored.
+
 Slot↔item assignment and per-pixel float add order depend on the schedule
 (atomics on the card, a prefix-sum rank in the twin); the integrated
 (sample, pixel) set does not — it is fixed by the RNG folds — so ``paths``
@@ -29,11 +34,12 @@ backend fuses multiply-adds, which can flip a near-``t_min`` self-hit).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
 
 import torch
 
-from . import kernels
+from . import adjoint, kernels
 from .shade_tiled import make_tables, shade, shade_plain, spawn_paths
 from .traverse import _DONE, trace_step, trace_step_plain, traversal_init_batched
 from .types import (C_CTRLS, C_DEPTH_SUM, C_DO_CTRL, C_DONE, C_EXEC_STEPS,
@@ -332,3 +338,55 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     if with_stats:
         return image, dict(_stats(ws, eng), host_reads=reads)
     return image
+
+
+def render_batch_diff(scene, flags, bvh, cam, cfg: RenderConfig, accum,
+                      start_sample, n_samples: int, base_key,
+                      queue_size: int = 4096, steps_per_wave: int = 12,
+                      n_waves: int = 256, ctrl_den: int = 8,
+                      ckpt_every: int = 1, save_trav: bool = True,
+                      sample_stride: int | None = None):
+    """Differentiable wavefront → ``(accum + image, stats)``, the arguments
+    and result of the JAX ``render_batch_diff``; ``stats`` is
+    :func:`render_batch`'s, with ``paths == total`` for a whole image.
+
+    The forward is :func:`render_batch`; gradients with respect to the
+    scene's floating fields that require grad come from replaying every
+    (sample, pixel) path (:mod:`.adjoint`): on the card K6, for the colour
+    leaves only (any other leaf raises ``NotImplementedError``), on the CPU
+    autograd of the megakernel twin, for every leaf.  Both integrate the
+    wavefront's sample set, which the RNG folds fix.
+
+    ``n_waves`` keeps its JAX contract, the trip budget of the forward: a
+    forward that needs more waves raises (size it with
+    ``parallel.render_dist.calibrate_n_waves``) instead of returning a
+    partial image.  ``ckpt_every`` and ``save_trav`` choose XLA's
+    rematerialisation of the scanned waves; the replay stores no wave
+    state, so they have no counterpart here and a value other than the
+    default warns.  ``sample_stride`` is :func:`render_batch`'s knob; the
+    gradient does not depend on it.
+    """
+    if ckpt_every != 1 or not save_trav:
+        warnings.warn("render_batch_diff: ckpt_every and save_trav are XLA "
+                      "rematerialisation knobs with no counterpart in the "
+                      "port (the backward replays paths); ignored",
+                      stacklevel=2)
+    start, n = int(start_sample), int(n_samples)
+
+    def forward(sc):
+        zero = torch.zeros((cfg.height, cfg.width, 3), device=sc.sph_c0.device)
+        image, stats = render_batch(sc, flags, bvh, cam, cfg, zero, start, n,
+                                    base_key, queue_size=queue_size,
+                                    steps_per_wave=steps_per_wave,
+                                    with_stats=True, ctrl_den=ctrl_den,
+                                    sample_stride=sample_stride)
+        if int(stats["waves"]) > n_waves:
+            raise RuntimeError(
+                f"the forward took {int(stats['waves'])} waves, more than "
+                f"n_waves={n_waves}; size n_waves with "
+                f"parallel.render_dist.calibrate_n_waves")
+        return image, stats
+
+    image, stats = adjoint.render_diff(scene, flags, bvh, cam, cfg, base_key,
+                                       range(start, start + n), forward)
+    return accum.to(image.device) + image, stats

@@ -212,6 +212,40 @@ def cornell_smoke():
                    background=(0, 0, 0))
 
 
+def texture_target(n: int = 8) -> np.ndarray:
+    """The n x n RGB pattern of the texture demo in [0.15, 0.85]
+    (tools/train_demo.py:207-215): gradients on R/G, a checker on B."""
+    yy, xx = np.mgrid[0:n, 0:n] / max(n - 1, 1)
+    checker = (np.arange(n)[:, None] + np.arange(n)[None, :]) % 2
+    return np.stack([0.15 + 0.70 * xx, 0.15 + 0.70 * yy,
+                     0.20 + 0.60 * checker], axis=-1).astype(np.float32)
+
+
+def texture_demo(tex_n: int = 8):
+    """The texture-recovery scene of tools/train_demo.py:261-280: the
+    Cornell walls and light without the boxes, an image-textured back wall
+    (``texture_target``; its ``img_data`` atlas is the trained leaf), a
+    weak flash quad behind the camera, and the camera at z = -200.  Not
+    one of :data:`SCENES`, as in the JAX package."""
+    w = HittableList()
+    red = Lambertian((0.65, 0.05, 0.05))
+    white = Lambertian((0.73, 0.73, 0.73))
+    green = Lambertian((0.12, 0.45, 0.15))
+    light = DiffuseLight((15, 15, 15))
+    w.add(Quad((555, 0, 0), (0, 0, 555), (0, 555, 0), green))
+    w.add(Quad((0, 0, 0), (0, 555, 0), (0, 0, 555), red))
+    w.add(Quad((343, 554, 332), (-130, 0, 0), (0, 0, -105), light))
+    w.add(Quad((0, 0, 0), (0, 0, 555), (555, 0, 0), white))
+    w.add(Quad((555, 555, 555), (-555, 0, 0), (0, 0, -555), white))
+    w.add(Quad((0, 0, 555), (0, 555, 0), (555, 0, 0),
+               Lambertian(ImageTexture.from_array(texture_target(tex_n)))))
+    w.add(Quad((50, 50, -210), (455, 0, 0), (0, 455, 0),
+               DiffuseLight((1.5, 1.5, 1.5))))
+    _, cam = cornell_box()
+    cam.lookfrom = np.array([278.0, 278.0, -200.0])
+    return w, cam
+
+
 def vol2_final_scene(seed=7, sphere_cluster=1000):
     """The vol-2 finale: 1000+ objects, all features (scenes.py:1152-1246)."""
     rng = np.random.default_rng(seed)

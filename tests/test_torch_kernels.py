@@ -10,6 +10,7 @@
   the kernels within the graded agreement of the twin path.
 """
 import ctypes
+import dataclasses
 import shutil
 
 import numpy as np
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 import path_tracer_tpu_torch as ptt
-from path_tracer_tpu_torch.ops import kernels
+from path_tracer_tpu_torch.ops import integrator, kernels
 from path_tracer_tpu_torch.ops import wavefront as wf
 from path_tracer_tpu_torch.ops.shade import SceneFlags
 from path_tracer_tpu_torch.ops.types import RenderConfig
@@ -134,7 +135,14 @@ def test_kernel_wrappers_launch_on_card(cuda_device):
     cam.img_width = 32
     kernels.reset_launches()
     for engine in ("wavefront", "megakernel"):
-        img = ptt.Renderer(world, cam, engine=engine,
-                           device=cuda_device).render(spp=2)
+        r = ptt.Renderer(world, cam, engine=engine, device=cuda_device)
+        img = r.render(spp=2)
         assert np.isfinite(img).all() and img.mean() > 0
+    # the adjoint kernel: the backward of a differentiable render
+    c1 = r.scene.tex_c1.clone().requires_grad_()
+    img = integrator.render(dataclasses.replace(r.scene, tex_c1=c1), r.flags,
+                            r.bvh, r.cam_arrays, r.cfg, r.key,
+                            differentiable=True, spp=1)
+    img.sum().backward()
+    assert bool(torch.isfinite(c1.grad).all()) and float(c1.grad.abs().sum()) > 0
     assert all(v > 0 for v in kernels.LAUNCHES.values())

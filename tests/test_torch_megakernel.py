@@ -329,12 +329,20 @@ def test_default_engine_factory_and_refusals():
     np.testing.assert_array_equal(
         ptt.render_scene(world, cam, spp=1, device="cpu"), img)
     args = (r.scene, r.flags, r.bvh, r.cam_arrays, r.cfg)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tint.render(*args, r.key, differentiable=True)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tint.render_sample(*args, 0, r.key, differentiable=True)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tint.trace_ray_scan()
+    # The differentiable entry points render the forward image.
+    torch.testing.assert_close(
+        tint.render(*args, r.key, differentiable=True, spp=1),
+        tint.render(*args, r.key, spp=1), rtol=0, atol=0)
+    torch.testing.assert_close(
+        tint.render_sample(*args, 0, r.key, differentiable=True),
+        tint.render_sample(*args, 0, r.key), rtol=0, atol=0)
+    pix = torch.arange(64, dtype=torch.int32)
+    key_p = trng.fold_in(trng.fold_in(r.key, 0), pix)
+    o, d, t = tcam.get_ray(r.cam_arrays, (pix % 8).float(),
+                           (pix // 8).float(), trng.fold_in(key_p, 7))
+    torch.testing.assert_close(tint.trace_ray_scan(*args, o, d, t, key_p),
+                               tint.trace_ray(*args, o, d, t, key_p),
+                               rtol=0, atol=0)
 
 
 @pytest.fixture

@@ -23,6 +23,7 @@ from path_tracer_tpu.ops import bvh_build as jbvh
 from path_tracer_tpu.ops import bvh_native as jnative
 from path_tracer_tpu.ops.shade import SceneFlags as JFlags
 import path_tracer_tpu_torch as ptt
+from path_tracer_tpu_torch.ops import bvh_build as tbvh
 from path_tracer_tpu_torch.ops import bvh_native as tnative
 from path_tracer_tpu_torch.ops.shade import SceneFlags as TFlags
 
@@ -94,6 +95,31 @@ def test_bvh_numpy_builder_equal(name, kw):
     js, ts, _, _ = _pair(name, kw)
     _assert_bvh_equal(_jax_numpy_bvh(js),
                       ptt.build_from_scene(ts, use_native=False))
+
+
+@pytest.mark.parametrize("name,budget", [("triangles", 0.6),
+                                         ("mesh_perlin_sss", 0.25),
+                                         ("mesh_perlin_sss", 0.6)])
+def test_presplit_refs_equal(name, budget):
+    """``presplit_refs`` (SBVH pre-splitting, off by default) gives the JAX
+    package's split references, and the BVH built from them is the same."""
+    js, ts, _, _ = _pair(name, {})
+    keys = ("sph_valid", "sph_c0", "sph_c1", "sph_rad", "qd_valid", "qd_q",
+            "qd_u", "qd_v", "tr_valid", "tr_v0", "tr_e1", "tr_e2")
+    j_refs = jbvh.primitive_aabbs({k: np.asarray(getattr(js, k)) for k in keys})
+    t_refs = tbvh.primitive_aabbs({k: getattr(ts, k).numpy() for k in keys})
+    j_split = jbvh.presplit_refs(*j_refs, budget_frac=budget)
+    t_split = tbvh.presplit_refs(*t_refs, budget_frac=budget)
+    assert len(t_split[0]) > len(t_refs[0])          # something was split
+    for a, b in zip(t_split, j_split):
+        np.testing.assert_array_equal(a, b)
+    jb = jbvh.pack_bvh(js, jbvh.build_bvh(*j_split, use_native=False,
+                                          leaf_cap=4,
+                                          leaf_ratio=jbvh.LEAF_RATIO))
+    tb = tbvh.pack_bvh(ts, tbvh.build_bvh(*t_split, use_native=False,
+                                          leaf_cap=4,
+                                          leaf_ratio=tbvh.LEAF_RATIO))
+    _assert_bvh_equal(jb, tb)
 
 
 @pytest.mark.parametrize("name,kw", SCENES[:1] + SCENES[5:],

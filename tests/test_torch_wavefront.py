@@ -126,9 +126,11 @@ def test_renderer_facade_and_png(tmp_path):
 
 def test_unported_paths_raise():
     """Both engines and SSS scenes construct; what is still queued in
-    ROADMAP.md (the differentiable engine, A.10) raises, and an unknown
+    ROADMAP.md raises (the card's adjoint for leaves other than the texture
+    colours, B13', and the data-parallel train step, A.11), and an unknown
     engine is refused."""
-    from path_tracer_tpu_torch.ops import integrator
+    from path_tracer_tpu_torch.ops import adjoint
+    from path_tracer_tpu_torch.parallel import make_train_step
     world, cam = ptt.scenes.cornell_box()
     assert ptt.Renderer(world, cam, device="cpu").engine == "megakernel"
     assert ptt.RendererFactory.create("cpu", world, cam,
@@ -138,9 +140,10 @@ def test_unported_paths_raise():
     world, cam = ptt.scenes.subsurface_scattering()
     r = ptt.Renderer(world, cam, engine="wavefront", device="cpu")
     assert r.flags.has_sss
-    with pytest.raises(NotImplementedError, match="A.10"):
-        integrator.render(r.scene, r.flags, r.bvh, r.cam_arrays, r.cfg, r.key,
-                          differentiable=True)
+    with pytest.raises(NotImplementedError, match="B13'"):
+        adjoint.check_leaves(["tex_c1", "mat_g"], on_card=True)
+    with pytest.raises(NotImplementedError, match="A.11"):
+        make_train_step(r.flags, r.cfg, [0, 1])
 
 
 def test_kernel_wrappers_take_twins_only_for_cpu_tensors():
