@@ -5,8 +5,9 @@
 Phases (each prints its own line; any failure exits non-zero):
 
 1. device     — require CUDA; print the card's name and power limit.
-2. build      — compile the five CUDA kernels (one nvcc per source, all
-                started together) and print the build seconds and ptxas
+2. build      — compile the CUDA kernels (one nvcc per source, all
+                started together; adjoint.cu holds K6's two
+                instantiations) and print the build seconds and ptxas
                 resources.
 3. kernels    — at the full configuration's shapes (vol2_final_scene,
                 800x450, depth 10, 32768 slots, 32 steps per wave) hold each
@@ -28,7 +29,15 @@ Phases (each prints its own line; any failure exits non-zero):
                 Then K6 (adjoint) against its plain version at 160x90,
                 2 spp, on cornell_box (tex_c1), the texture-demo scene
                 (img_data), vol2_final_scene (image texture, marble,
-                media) and mesh_perlin_sss (the SSS exponent).
+                media) and mesh_perlin_sss (the SSS exponent); K6's full
+                instantiation (adjoint_full, every floating leaf) against
+                its plain version at 160x90, 2 spp, on vol2_final_scene,
+                mesh_perlin_sss, cornell_smoke and the triangle scene, per
+                leaf, and on one 800x450 vol2_final and one 400x225
+                mesh_perlin_sss sample, each timed beside K5 and the
+                colour K6 on the same sample; then the full K6's gradients
+                against central differences of the K5 forward on the
+                solo-sphere and fuzz-plate setups of tests/test_grad.py.
 7. agree      — kernel paths vs twin paths on the card at 160x90, 2 spp: the
                 graded image agreement of tools/bench_ab.py and exact
                 counters, for the wavefront on vol2_final and
@@ -41,7 +50,13 @@ Phases (each prints its own line; any failure exits non-zero):
                 three steps each with loss, forward and backward ms (CUDA
                 events around each forward render and around the K6
                 backward), step wall and K6 launches; then K6 against its
-                plain version on one 800x800 cornell_box sample.
+                plain version on one 800x800 cornell_box sample.  Then the
+                train step on leaves that move rays (the full K6): on
+                vol2_final_scene at 800x450, depth 10 (mat_fuzz, mat_ir,
+                med_density, tex_scale, sph_c0/sph_c1 of the moving
+                sphere) and on mesh_perlin_sss at 400x225, depth 12
+                (mat_g, mat_sigma_s, mat_sigma_a, mat_scatter_dist, tr_v0,
+                perlin_vec), 4 spp per render, three steps each.
 9. the JSON kernel table, then the JSON result line.
 
 Each main phase sets the launch counts to 0 just before it runs and reads
@@ -51,6 +66,7 @@ phase also holds K3 and K5 at their recorded ptxas resources
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -78,11 +94,20 @@ KERNELS = {
                    "path_tracer_tpu/ops/integrator.py:253"),
     "adjoint": ("path_tracer_tpu_torch/csrc/adjoint.cu",
                 "path_tracer_tpu/ops/wavefront.py:520"),
+    "adjoint_full": ("path_tracer_tpu_torch/csrc/adjoint.cu",
+                     "path_tracer_tpu/ops/integrator.py:268"),
 }
 WAVE_KERNELS = ("trace_step", "spawn", "shade", "retire")
 BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce (threefry at 110)
 WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
 SWEEP_OPS = 60                 # K6's reverse sweep, per tape entry
+# What the gradient needs beyond the forward (counted as K5's replay): per
+# tape entry the bounce's transpose (about as many operations as the
+# bounce), per SSS walk trip the walk's reverse.  The full K6's recompute of
+# each bounce and its re-runs of the walk are its design's overhead above
+# the bound, not part of it.
+FULL_SWEEP_OPS = BOUNCE_OPS
+FULL_WALK_OPS = WALK_TRIP_OPS
 # (registers, stack frame bytes) of K3 and K5 as recorded in PERF.md (Findings)
 PTXAS_EXPECT = {"shade": (110, 104), "megakernel": (112, 368)}
 
@@ -228,9 +253,10 @@ def main() -> int:
                                                  C_DONE, C_N_OCC, C_RAYS,
                                                  C_STACK_OVF, C_TRAV_STEPS,
                                                  C_WALK_STEPS, FL_FINISHED,
-                                                 FL_RESAMPLE, MAT_SSS_SIMPLE,
+                                                 FL_RESAMPLE, MAT_DIELECTRIC,
+                                                 MAT_METAL, MAT_SSS_SIMPLE,
                                                  MAT_SSS_VOLUMETRIC, PH_EXIT,
-                                                 RenderConfig)
+                                                 TEX_NOISE, RenderConfig)
     from path_tracer_tpu_torch.render.renderer import Renderer
     from path_tracer_tpu_torch.utils import rng
 
@@ -251,6 +277,10 @@ def main() -> int:
         phase("build", f"{n}: (registers, stack frame) {got}, recorded {want} "
               f"{'PASS' if got == want else 'FAIL'}")
         assert got == want, f"{n} ptxas resources changed: {got} != {want}"
+    if "adjoint" in kernels.BUILD_LOG:
+        for n in ("adjoint", "adjoint_full"):
+            phase("build", f"{n}: (registers, stack frame) "
+                  f"{ptxas_resources(kernels.BUILD_LOG['adjoint'], n)}")
 
     # --- 3. kernel vs twin at the full configuration's shapes ---
     dev = torch.device("cuda")
@@ -569,12 +599,14 @@ def main() -> int:
                            max_depth=depth)
         return sc_, fl_, ptt.build_from_scene(sc_), cam_.initialize(device=dev), cf_
 
-    def adjoint_pair(sc_, fl_, bv_, ca_, cf_, samples, seed):
-        """K6 and its plain version over ``samples`` with one random delta:
-        relative L2 error and max abs error of the gradient vector, the
-        buffers, K6's ms for one launch (median of 25), the plain ms for all
-        samples, and K5's counters and ms on the first sample (the bound's
-        input, and the replay's cost alone)."""
+    def adjoint_pair(sc_, fl_, bv_, ca_, cf_, samples, seed, full=False):
+        """K6 (the colour or the ``full`` instantiation) and its plain
+        version over ``samples`` with one random delta: relative L2 error
+        (with ``full`` per leaf) and max abs error of the gradient vector,
+        the buffers, K6's ms for one launch (median of 25), the plain ms for
+        all samples, and K5's counters and ms on the first sample (the
+        bound's input, and the replay's cost alone); with ``full`` also the
+        colour K6's ms there."""
         aeng = integrator.MegaEngine(sc_, fl_, bv_, ca_, cf_, key)
         npx = aeng.npix
         ams = aeng.init_state(torch.zeros((npx, 3), device=dev))
@@ -582,37 +614,56 @@ def main() -> int:
             (npx, 3)).astype(np.float32)).to(dev)
         gk, gp = adjoint.grad_buffers(sc_), adjoint.grad_buffers(sc_)
         for s_ in samples:
-            adjoint.adjoint(aeng, ams, s_, delta, *gk)
+            adjoint.adjoint(aeng, ams, s_, delta, gk, full)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for s_ in samples:
-            adjoint.adjoint_plain(aeng, ams, s_, delta, *gp)
+            adjoint.adjoint_plain(aeng, ams, s_, delta, gp, full)
         torch.cuda.synchronize()
         pms = 1e3 * (time.perf_counter() - t0)
         vk = torch.cat([g.flatten() for g in gk])
         vp = torch.cat([g.flatten() for g in gp])
         rel = float((vk - vp).norm() / vp.norm().clamp(min=1e-30))
         err = float((vk - vp).abs().max())
+        out = dict(rel=rel, err=err, plain_ms=pms)
+        if full:
+            K, P = adjoint.leaf_grads(sc_, gk), adjoint.leaf_grads(sc_, gp)
+            out["leaf_rel"] = {
+                n: float((K[n] - P[n]).norm() / P[n].norm().clamp(min=1e-30))
+                for n in adjoint.FLOAT_LEAVES if float(P[n].norm()) > 0
+                or float(K[n].norm()) > 0}
+            out["rel"] = max(out["leaf_rel"].values(), default=0.0)
         scratch = adjoint.grad_buffers(sc_)
-        ms = cuda_ms(lambda: adjoint.adjoint(aeng, ams, samples[0], delta,
-                                             *scratch))
+        out["ms"] = cuda_ms(lambda: adjoint.adjoint(aeng, ams, samples[0],
+                                                    delta, scratch, full))
+        if full:
+            out["colour_ms"] = cuda_ms(lambda: adjoint.adjoint(
+                aeng, ams, samples[0], delta, scratch))
         mst = aeng.init_state(torch.zeros((npx, 3), device=dev))
         integrator.megakernel(aeng, mst, samples[0])
         torch.cuda.synchronize()
         ctr = {n: int(mst.ctr[i]) for n, i in (
             ("rays", C_RAYS), ("trav_steps", C_TRAV_STEPS),
             ("walk_steps", C_WALK_STEPS))}
-        k5_ms = cuda_ms(lambda: integrator.megakernel(aeng, mst, samples[0]))
-        # Bytes: node and shade rows once, delta read, the gradient buffers
+        out["k5_ms"] = cuda_ms(lambda: integrator.megakernel(aeng, mst,
+                                                             samples[0]))
+        # Bytes: node and shade rows once (with the material, medium and
+        # texture rows for the full sweep), delta read, the gradient buffers
         # read and written once.  Operations: K5's replay of the sample plus
-        # the sweep (one tape entry per loop trip).
+        # the sweep (one tape entry per loop trip; the full sweep also
+        # reverses each SSS walk).
         g_bytes = sum(g.numel() for g in gk) * 4
-        byts = (bv_.nodes.numel() + aeng.tabs.prim.numel()) * 4 + npx * 12 \
-            + 2 * g_bytes
-        ops = (ctr["trav_steps"] * 220 + ctr["rays"] * (BOUNCE_OPS + SWEEP_OPS)
-               + ctr["walk_steps"] * WALK_TRIP_OPS + npx * (8 * 110 + 60))
-        return dict(rel=rel, err=err, ms=ms, plain_ms=pms, bytes=byts, ops=ops,
-                    k5_ms=k5_ms, g=gk, **ctr)
+        tab_bytes = (bv_.nodes.numel() + aeng.tabs.prim.numel()) * 4
+        if full:
+            tab_bytes += (aeng.tabs.mat.numel() + aeng.tabs.med.numel()
+                          + aeng.tabs.tex.numel()) * 4
+        out["bytes"] = tab_bytes + npx * 12 + 2 * g_bytes
+        sweep, walk = ((FULL_SWEEP_OPS, WALK_TRIP_OPS + FULL_WALK_OPS) if full
+                       else (SWEEP_OPS, WALK_TRIP_OPS))
+        out["ops"] = (ctr["trav_steps"] * 220 + ctr["rays"] * (BOUNCE_OPS
+                                                              + sweep)
+                      + ctr["walk_steps"] * walk + npx * (8 * 110 + 60))
+        return dict(out, g=gk, **ctr)
 
     def bound_ms(byts, ops):
         return max(byts / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S) * 1e3
@@ -627,7 +678,7 @@ def main() -> int:
             ("mesh_perlin_sss", ptt.scenes.mesh_perlin_sss, QDEPTH)):
         sc_, fl_, bv_, ca_, cf_ = prepare(*build_fn(), 160, 90, 2, depth)
         r = adjoint_pair(sc_, fl_, bv_, ca_, cf_, (0, 1), 1)
-        g = adjoint.leaf_grads(sc_, *r.pop("g"))
+        g = adjoint.leaf_grads(sc_, r.pop("g"))
         mat_t = sc_.mat_type.cpu().numpy()
         sss_tex = sc_.mat_tex.cpu().numpy()[mat_t == MAT_SSS_VOLUMETRIC]
         covered = {
@@ -652,6 +703,165 @@ def main() -> int:
               f"ms, plain {r['plain_ms']:.1f} ms for 2 samples "
               f"{'PASS' if ok else 'FAIL'}")
     torch.cuda.empty_cache()
+
+    # K6's full instantiation against its plain version, per leaf.  The
+    # leaves each scene exercises (non-zero gradient) at 160x90, 2 spp, key
+    # 0; every other leaf must agree too (zero on both sides).
+    exercised = {
+        "vol2_final_scene": ("sph_c0", "sph_c1", "sph_rad", "qd_n", "qd_d",
+                             "mat_ir", "tex_c1", "tex_scale", "img_data",
+                             "med_density", "perlin_vec"),
+        "mesh_perlin_sss": ("sph_c0", "sph_c1", "sph_rad", "tr_v0", "tr_e1",
+                            "tr_e2", "tr_n", "mat_fuzz", "mat_sigma_s",
+                            "mat_sigma_a", "mat_scatter_dist", "tex_c1",
+                            "tex_scale", "perlin_vec"),
+        "cornell_smoke": ("tex_c1",),
+        "triangles": ("sph_c0", "sph_c1", "sph_rad", "tr_v0", "tr_e1",
+                      "tr_e2", "tr_n", "tex_c1", "tex_scale", "img_data",
+                      "perlin_vec"),
+    }
+
+    def full_line(tag, r):
+        return (f"adjoint_full: {tag}: K6 vs plain max per-leaf rel L2 "
+                f"{r['rel']:.2e}, {r['ms']:.3f} ms per launch (bound {r['bound_ms']:.5f} ms; "
+                f"rays {r['rays']}, traversal steps {r['trav_steps']}, walk "
+                f"steps {r['walk_steps']}), colour K6 {r['colour_ms']:.3f} ms "
+                f"and K5 {r['k5_ms']:.3f} ms on the same sample, plain "
+                f"{r['plain_ms']:.1f} ms")
+
+    full_ok = True
+    full_rows = {}
+    for label, build_fn, depth in (
+            ("vol2_final_scene",
+             lambda: ptt.scenes.vol2_final_scene(sphere_cluster=1000), DEPTH),
+            ("mesh_perlin_sss", ptt.scenes.mesh_perlin_sss, QDEPTH),
+            ("cornell_smoke", ptt.scenes.cornell_smoke, 6),
+            ("triangles", ptt.scenes.triangles, DEPTH)):
+        sc_, fl_, bv_, ca_, cf_ = prepare(*build_fn(), 160, 90, 2, depth)
+        r = adjoint_pair(sc_, fl_, bv_, ca_, cf_, (0, 1), 1, full=True)
+        g = adjoint.leaf_grads(sc_, r.pop("g"))
+        r["bound_ms"] = bound_ms(r["bytes"], r["ops"])
+        finite = all(bool(torch.isfinite(x).all()) for x in g.values())
+        zero = [n for n in exercised[label] if float(g[n].abs().sum()) == 0]
+        bad = {n: v for n, v in r["leaf_rel"].items() if not v <= 1e-3}
+        ok = finite and not zero and not bad
+        full_ok = full_ok and ok
+        full_rows[label] = dict(r, ok=ok, zero=zero)
+        per_leaf = ", ".join(f"{n} {v:.1e}" for n, v in r["leaf_rel"].items())
+        phase("kernels", full_line(f"{label} 160x90 2 spp depth {depth}", r)
+              + f"; per leaf: {per_leaf}; finite {finite}, exercised leaves "
+              f"zero {zero} {'PASS' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    # one full-size sample of each main configuration
+    for label, args in (
+            ("vol2_final 800x450", (scene, flags, bvh, cam_a, cfg)),
+            ("mesh_perlin_sss 400x225", (sc_q, fl_q, bv_q, ca_q, cf_q))):
+        r = adjoint_pair(*args, (0,), 3, full=True)
+        g = adjoint.leaf_grads(args[0], r.pop("g"))
+        r["bound_ms"] = bound_ms(r["bytes"], r["ops"])
+        finite = all(bool(torch.isfinite(x).all()) for x in g.values())
+        ok = finite and r["rel"] <= 1e-3
+        full_ok = full_ok and ok
+        full_rows[label] = dict(r, ok=ok)
+        phase("kernels", full_line(f"{label} one sample", r)
+              + f", finite {finite} {'PASS' if ok else 'FAIL'}")
+        torch.cuda.empty_cache()
+    rv = full_rows["vol2_final 800x450"]
+    results["adjoint_full"] = dict(
+        ok=full_ok, err=max(x["err"] for x in full_rows.values()),
+        ms=rv["ms"], plain_ms=rv["plain_ms"], bytes=rv["bytes"],
+        ops=rv["ops"], library_ms=None, rows=full_rows)
+
+    # The full K6's gradients against central differences of the K5
+    # forward (tests/test_grad.py: the solo-sphere and fuzz-plate setups,
+    # their keys, eps and tolerances; the BVH rebuilt at each FD point).
+    def solo(mat, lookfrom=(0.0, 0.0, 3.0), spp=4):
+        w_ = ptt.HittableList()
+        w_.add(ptt.Sphere.stationary((0, 0, 0), 1.0, mat))
+        c_ = ptt.Camera()
+        c_.aspect_ratio, c_.img_width = 1.5, 16
+        c_.lookfrom = np.array(lookfrom, np.float64)
+        c_.lookat = np.array([0.0, 0.0, 0.0])
+        return w_, c_, RenderConfig(width=16, height=10, samples_per_pixel=spp,
+                                    max_depth=4, use_russian_roulette=False), 7
+
+    def plate():
+        w_ = ptt.HittableList()
+        w_.add(ptt.Quad((-5, -5, -2), (10, 0, 0), (0, 10, 0),
+                        ptt.Metal((0.9, 0.9, 0.9), 0.3)))
+        c_ = ptt.Camera()
+        c_.aspect_ratio, c_.img_width = 1.5, 24
+        c_.lookfrom = np.array([0.0, 0.0, 5.0])
+        c_.lookat = np.array([0.0, 0.0, 0.0])
+        return w_, c_, RenderConfig(width=24, height=16, samples_per_pixel=8,
+                                    max_depth=3, use_russian_roulette=False), 5
+
+    vol = lambda: solo(ptt.SubsurfaceVolumetric((0.8, 0.7, 0.6), 2.0, 0.4,  # noqa: E731
+                                                g=0.3), spp=2)
+    metal0 = lambda: solo(ptt.Metal((0.9, 0.85, 0.8), 0.0),  # noqa: E731
+                          lookfrom=(0.0, 0.0, 1.05))
+    # (setup, leaf, tied leaves, index, eps, rtol, atol).  Some atol values
+    # exceed the gradients checked (1.6e-5 to 2.9e-4 on the card), so both
+    # the kernel's value and the difference must also exceed FD_LEAST and
+    # agree in sign: a zero gradient fails.
+    FD_LEAST = 1e-5
+    fd_cases = (
+        (plate, "mat_fuzz", (), 0, 1e-3, 0.15, 5e-4),
+        (lambda: solo(ptt.Dielectric(1.5)), "mat_ir", (), 0, 2e-3, 0.12,
+         5e-5),
+        (lambda: solo(ptt.SubsurfaceSimple((0.8, 0.6, 0.5), 0.2)),
+         "mat_scatter_dist", (), 0, 1e-3, 0.12, 1e-3),
+        (vol, "mat_g", (), 0, 1e-3, 0.25, 2e-3),
+        (vol, "mat_sigma_s", (), 0, 1e-3, 0.25, 2e-3),
+        (vol, "mat_sigma_a", (), 0, 1e-3, 0.25, 2e-3),
+        (metal0, "sph_c0", ("sph_c1",), 2, 1e-3, 0.12, 1e-3),
+        (metal0, "sph_rad", (), 0, 1e-3, 0.12, 1e-3),
+    )
+    fd_ok = True
+    fd_rows = []
+    for setup, leaf, tied, idx, eps, rtol, atol in fd_cases:
+        w_, c_, cf_, seed_ = setup()
+        sc_ = ptt.compile_scene(w_, device=dev)
+        fl_ = SceneFlags.from_scene(sc_)
+        ca_ = c_.initialize(device=dev)
+        k_ = rng.key(seed_, device=dev)
+
+        def with_leaf(v):
+            return dataclasses.replace(sc_, **{n: v for n in (leaf, *tied)})
+
+        x = getattr(sc_, leaf).clone().requires_grad_()
+        kernels.reset_launches()
+        img = integrator.render(with_leaf(x), fl_, ptt.build_from_scene(sc_),
+                                ca_, cf_, k_, differentiable=True)
+        (img.sum() / img.numel()).backward()
+        ad = float(x.grad.reshape(-1)[idx])
+        full_launches = kernels.LAUNCHES["adjoint_full"]
+
+        def fd_loss(v):
+            s2 = with_leaf(v)
+            im = integrator.render(s2, fl_, ptt.build_from_scene(s2), ca_, cf_,
+                                   k_)
+            return float(im.double().sum() / im.numel())
+
+        unit = torch.zeros_like(x).reshape(-1)
+        unit[idx] = 1.0
+        unit = unit.reshape(x.shape)
+        x0 = x.detach()
+        fd = (fd_loss(x0 + eps * unit) - fd_loss(x0 - eps * unit)) / (2 * eps)
+        ok = (bool(torch.isfinite(x.grad).all()) and full_launches > 0
+              and bool(np.isclose(fd, ad, rtol=rtol, atol=atol))
+              and min(abs(fd), abs(ad)) > FD_LEAST
+              and np.sign(fd) == np.sign(ad))
+        fd_ok = fd_ok and ok
+        fd_rows.append(dict(leaf=leaf, index=idx, fd=fd, ad=ad, eps=eps,
+                            rtol=rtol, atol=atol, ok=ok))
+        phase("kernels", f"adjoint_full vs finite differences: {leaf}[{idx}]"
+              f"{' (tied ' + ', '.join(tied) + ')' if tied else ''}: K6 "
+              f"{ad:.6g}, central FD of K5 (eps {eps:g}) {fd:.6g}, rtol "
+              f"{rtol:g} atol {atol:g}, full K6 launches {full_launches} "
+              f"{'PASS' if ok else 'FAIL'}")
+    results["adjoint_full"]["ok"] = results["adjoint_full"]["ok"] and fd_ok
+    results["adjoint_full"]["fd"] = fd_rows
 
     # --- 4. the main path through the public entry points ---
     rec = {}
@@ -773,20 +983,22 @@ def main() -> int:
             return out
         return wrapped
 
-    def train_phase(tag, world_, cam_, w, h, spp, depth, leaf, init, lr):
-        """Three make_train_step steps after a warm-up; the launch counts
+    def train_phase(tag, world_, cam_, w, h, spp, depth, inits, lr):
+        """Three make_train_step steps after a warm-up on the leaves of
+        ``inits`` ({leaf: its start from the truth}); the launch counts
         are set to 0 just before the three and read just after."""
         sc_, fl_, bv_, ca_, cf_ = prepare(world_, cam_, w, h, spp, depth)
         zero_ = torch.zeros((h, w, 3), device=dev)
         target = wf.render_batch(sc_, fl_, bv_, ca_, cf_, zero_, 0, 32,
                                  rng.key(10_000, device=dev),
                                  queue_size=32768, steps_per_wave=32) / 32
-        n_waves = calibrate_n_waves(sc_, fl_, bv_, ca_, cf_, key, spp=spp,
+        params = {n: f(getattr(sc_, n)) for n, f in inits.items()}
+        n_waves = calibrate_n_waves(dataclasses.replace(sc_, **params), fl_,
+                                    bv_, ca_, cf_, key, spp=spp,
                                     queue_size=32768, steps_per_wave=32)
         step = make_train_step(fl_, cf_, None, spp=spp, lr=lr,
                                queue_size=32768, steps_per_wave=32,
                                n_waves=n_waves, unbiased=True)
-        params = {leaf: init(getattr(sc_, leaf))}
         step(params, sc_, bv_, ca_, rng.fold_in(key, 99), target)  # warm-up
         fwd, bwd = [], []
         real_rb, real_vjp = wf.render_batch, adjoint.kernel_vjp
@@ -806,13 +1018,13 @@ def main() -> int:
                 wall = time.perf_counter() - t0
                 f_ms = sum(a.elapsed_time(b) for a, b in fwd)
                 b_ms = sum(a.elapsed_time(b) for a, b in bwd)
-                g = grads[leaf]
                 rows.append(dict(loss=float(loss), fwd_ms=f_ms, bwd_ms=b_ms,
                                  wall_s=wall, renders=len(fwd),
                                  paths_done=aux["paths_done"],
                                  paths_total=aux["paths_total"],
-                                 grad_finite=bool(torch.isfinite(g).all()),
-                                 grad=g))
+                                 grad_finite=all(bool(torch.isfinite(g).all())
+                                                 for g in grads.values()),
+                                 grads=grads))
             launches_ = dict(kernels.LAUNCHES)
         finally:
             wf.render_batch, adjoint.kernel_vjp = real_rb, real_vjp
@@ -836,9 +1048,10 @@ def main() -> int:
         return c1
 
     sc_c, fl_c, bv_c, ca_c, cf_c, rows, tl = train_phase(
-        "train", world_c, cam_c, 800, 800, 4, 6, "tex_c1", perturb_rows, 0.08)
+        "train", world_c, cam_c, 800, 800, 4, 6, {"tex_c1": perturb_rows},
+        0.08)
     for r in rows:
-        g = r.pop("grad")
+        g = r.pop("grads")["tex_c1"]
         r["grad_rows_nonzero"] = bool((g[1].abs() > 0).all()
                                       and (g[2].abs() > 0).all())
         ok = (r["paths_done"] == r["paths_total"] == 2 * 800 * 800 * 4
@@ -854,11 +1067,11 @@ def main() -> int:
 
     world_t, cam_t = ptt.scenes.texture_demo()
     sc_t, _, _, _, _, rows_t, tl_t = train_phase(
-        "train-texture", world_t, cam_t, 800, 800, 8, 5, "img_data",
-        lambda x: torch.full_like(x, 0.5), 0.02)
+        "train-texture", world_t, cam_t, 800, 800, 8, 5,
+        {"img_data": lambda x: torch.full_like(x, 0.5)}, 0.02)
     ok_t = tl_t["adjoint"] == 3 * 8
     for r in rows_t:
-        g = r.pop("grad")
+        g = r.pop("grads")["img_data"]
         r["texels_nonzero"] = float((g.abs().sum(-1) > 0).float().mean())
         ok_t = ok_t and (r["paths_done"] == r["paths_total"]
                          == 2 * 800 * 800 * 8 and r["grad_finite"]
@@ -869,6 +1082,85 @@ def main() -> int:
           f"{tl_t['adjoint'] / 3:g} -> {'PASS' if ok_t else 'FAIL'}")
     train_ok = train_ok and ok_t
     train_rec["texture_demo"] = dict(rows=rows_t, launches=tl_t)
+
+    # The train step on leaves that move rays: the full K6.  Each leaf starts
+    # perturbed from the truth at the rows named (the target is 32 spp at the
+    # truth).  One lr serves leaves of very different scales (the fog's
+    # density is 1e-4, a sphere centre hundreds of units): it is set so that
+    # three steps stay near the start, where n_waves was calibrated (at
+    # lr 1e-6 one step thickened vol2_final's fog until a render took 356
+    # waves against a budget of 266).
+    def rows_of(mask):
+        return torch.from_numpy(np.nonzero(mask.cpu().numpy())[0]).to(dev)
+
+    def set_rows(idx, value):
+        def init(x):
+            x = x.clone()
+            x[idx] = value
+            return x
+        return init
+
+    def shift_rows(idx, by):
+        def init(x):
+            x = x.clone()
+            x[idx] += torch.tensor(by, device=dev)
+            return x
+        return init
+
+    mt_v = scene.mat_type
+    moving = rows_of((scene.sph_c0 != scene.sph_c1).any(-1))
+    perturbed_v = {
+        "mat_fuzz": rows_of(mt_v == MAT_METAL),
+        "mat_ir": rows_of(mt_v == MAT_DIELECTRIC),
+        "med_density": rows_of(scene.med_density > 0),
+        "tex_scale": rows_of(scene.tex_type == TEX_NOISE),
+        "sph_c0": moving, "sph_c1": moving}
+    inits_v = {
+        "mat_fuzz": set_rows(perturbed_v["mat_fuzz"], 0.7),
+        "mat_ir": set_rows(perturbed_v["mat_ir"], 1.3),
+        "med_density": lambda x: x * 1.5,
+        "tex_scale": set_rows(perturbed_v["tex_scale"], 0.25),
+        "sph_c0": shift_rows(moving, (5.0, 0.0, 0.0)),
+        "sph_c1": shift_rows(moving, (5.0, 0.0, 0.0))}
+    mt_q = sc_q.mat_type
+    wax = rows_of(mt_q == MAT_SSS_VOLUMETRIC)
+    perturbed_q = {
+        "mat_g": wax, "mat_sigma_s": wax, "mat_sigma_a": wax,
+        "mat_scatter_dist": rows_of(mt_q == MAT_SSS_SIMPLE),
+        "tr_v0": rows_of(sc_q.tr_valid),
+        "perlin_vec": torch.arange(256, device=dev)}
+    inits_q = {
+        "mat_g": set_rows(wax, 0.5), "mat_sigma_s": set_rows(wax, 0.12),
+        "mat_sigma_a": set_rows(wax, 0.6),
+        "mat_scatter_dist": set_rows(perturbed_q["mat_scatter_dist"], 0.3),
+        "tr_v0": shift_rows(perturbed_q["tr_v0"], (0.0, 0.02, 0.0)),
+        "perlin_vec": lambda x: x * 1.1}
+    for tag, label, world_, cam_, w, h, depth, inits, perturbed, lr in (
+            ("train-vol2", "vol2_final",
+             *ptt.scenes.vol2_final_scene(sphere_cluster=1000), W, H, DEPTH,
+             inits_v, perturbed_v, 1e-9),
+            ("train-sss", "mesh_perlin_sss", *ptt.scenes.mesh_perlin_sss(),
+             QW, QH, QDEPTH, inits_q, perturbed_q, 1e-7)):
+        _, _, _, _, _, rows_f, tl_f = train_phase(
+            tag, world_, cam_, w, h, 4, depth, inits, lr)
+        ok_f = tl_f["adjoint_full"] == 3 * 4 and tl_f["adjoint"] == 0
+        for r in rows_f:
+            grads = r.pop("grads")
+            r["zero_leaves"] = [n for n, idx in perturbed.items()
+                                if float(grads[n][idx].abs().sum()) == 0]
+            ok_f = ok_f and (r["paths_done"] == r["paths_total"]
+                             == 2 * w * h * 4 and r["grad_finite"]
+                             and not r["zero_leaves"]
+                             and np.isfinite(r["loss"]) and r["loss"] > 0)
+        phase(tag, f"{label} {w}x{h} 4 spp depth {depth}, leaves "
+              f"{list(inits)}: leaves with a zero gradient at their perturbed "
+              f"rows {[r['zero_leaves'] for r in rows_f]}, full K6 launches "
+              f"per step {tl_f['adjoint_full'] / 3:g}, backward/forward "
+              f"{[round(r['bwd_ms'] / r['fwd_ms'], 3) for r in rows_f]} -> "
+              f"{'PASS' if ok_f else 'FAIL'}")
+        train_ok = train_ok and ok_f
+        train_rec[label] = dict(rows=rows_f, launches=tl_f)
+        torch.cuda.empty_cache()
 
     # K6 on one 800x800 cornell_box sample against its plain version
     r6 = adjoint_pair(sc_c, fl_c, bv_c, ca_c, cf_c, (0,), 2)
@@ -890,6 +1182,8 @@ def main() -> int:
     launches = dict(rec["main"]["launches"])
     launches["megakernel"] = rec["main-mega"]["launches"]["megakernel"]
     launches["adjoint"] = train_rec["cornell_box"]["launches"]["adjoint"]
+    launches["adjoint_full"] = (
+        train_rec["vol2_final"]["launches"]["adjoint_full"])
     table = []
     for n, (srcf, repl) in KERNELS.items():
         res = results[n]
@@ -908,6 +1202,8 @@ def main() -> int:
                    "megakernel_sss": results["megakernel"]["sss"],
                    "adjoint": {k: results["adjoint"][k]
                                for k in ("small", "full")},
+                   "adjoint_full": {k: results["adjoint_full"][k]
+                                    for k in ("rows", "fd")},
                    "train": train_rec, "kernels": table},
                   f, indent=1, default=str)
     failed = [t["name"] for t in table if not t["pass"]]

@@ -1,43 +1,59 @@
 // K6 adjoint: the gradient of one sample of every pixel with respect to the
-// scene's colour leaves (tex_c1, tex_c2, img_data), contracted with
-// delta = dL/d(image).
+// scene's leaves, contracted with delta = dL/d(image).  Two instantiations
+// of one kernel template:
+//
+// * colour (adjoint_kernel): the colour leaves tex_c1, tex_c2, img_data.
+//   Those enter a path linearly: with thr_j the throughput before trip j,
+//   E_j its emission or background term, a_j its attenuation (a texture
+//   colour c, c^(n+1) after the SSS walk's n kept trips, 1 when the trip
+//   does not scatter) and b_j the roulette boost (a constant, as under
+//   JAX's stop_gradient), the radiance is C = sum_j thr_j E_j with
+//   thr_{j+1} = thr_j a_j b_j.  So, with R_j = E_j + a_j b_j R_{j+1}:
+//     dC/dE_j = thr_j,   dC/dc_j = thr_j b_j R_{j+1} m c^(m-1).
+//   Visibility, coins and directions do not depend on a colour, so the path
+//   is the forward's.  No division by a colour that may be 0 is needed.
+// * full (adjoint_full_kernel): every floating leaf of SceneArrays (B13'):
+//   geometry, materials, media, textures and the Perlin table.  The replay
+//   records each trip's bounce inputs (TripIn, 14 words: origin, direction,
+//   throughput, the hit query's result, the exit query's result, depth);
+//   the reverse sweep recomputes trip j's bounce from its entry with the
+//   forward's code and applies its transpose (bounce_adj.cuh), carrying the
+//   adjoint of (origin, direction, throughput) from trip j+1 to trip j; the
+//   radiance's adjoint is delta on every trip.  The camera ray depends on no
+//   leaf, so the sweep ends at trip 0.  The colour leaves fall out of the
+//   same sweep (texture_adj).
 //
 // Replaces the backward that jax.grad takes through
 // path_tracer_tpu/ops/integrator.py trace_ray_scan (:268) and the backward
 // wavefront (ops/wavefront.py:520 render_batch_diff): the transpose of the
-// bounce (B4, shade_tiled.py:773) with its textures (B5) and SSS walk (B6)
-// for the colour leaves.  Those enter a path linearly: with thr_j the
-// throughput before trip j, E_j its emission or background term, a_j its
-// attenuation (a texture colour c, c^(n+1) after the SSS walk's n kept
-// trips, 1 when the trip does not scatter) and b_j the roulette boost (a
-// constant, as under JAX's stop_gradient), the radiance is
-// C = sum_j thr_j E_j with thr_{j+1} = thr_j a_j b_j.  So, with
-// R_j = E_j + a_j b_j R_{j+1}:
-//   dC/dE_j = thr_j,   dC/dc_j = thr_j b_j R_{j+1} m c^(m-1).
-// Visibility, coins and directions do not depend on a colour, so the path
-// is the forward's.
+// bounce (B4, shade_tiled.py:773) with its textures (B5), SSS walk (B6) and
+// refine_hit (traverse.py:558).
 //
 // One thread per pixel, one launch per sample, as K5: the thread replays
 // its path with K5's code (path.cuh, bounce.cuh with a recorder) and the
 // same key folds, recording one tape entry per trip in local memory (at
-// most iters_cap <= PTT_TAPE_MAX), then sweeps the tape in reverse.  No
-// division by a colour that may be 0 is needed.
+// most iters_cap <= PTT_TAPE_MAX), then sweeps the tape in reverse.
 //
-// Contributions go to the block's copy of the gradient tables in shared
-// memory where they fit (a Cornell frame has four texture rows: 640,000
-// threads would otherwise add into the same 12 floats; the 8x8 atlas fits
-// too), then one atomicAdd per non-zero entry per block; larger tables take
-// global atomics.  Float add order therefore differs from the plain
-// version's and from run to run: comparisons use a tolerance.
+// Contributions go to the block's copy of the small gradient tables in
+// shared memory where they fit (48 KB: textures, then materials, media, the
+// Perlin table and the atlas; a Cornell frame has four texture rows that
+// 640,000 threads would otherwise add into), then one atomicAdd per non-zero
+// entry per block; what does not fit, and the primitive rows, take global
+// atomics (the primitive rows aggregated per warp, GradSink::prim_row).
+// Float add order therefore differs from the plain version's and from run
+// to run: comparisons use a tolerance.
 //
 // Bound: the replay is K5's work (dependent node-row gathers and
 // divergence, ~220 fp32 ops per traversal step, ~1,920 per bounce); the
-// sweep adds a few dozen ops per trip.  The tape adds to K6's stack frame,
-// not to K5's.
+// colour sweep adds a few dozen ops per trip, the full sweep a bounce's
+// recompute and its transpose per trip (several thousand ops on a marble
+// hit, whose turbulence is re-evaluated with its adjoint).  The tape adds to
+// K6's stack frame, not to K5's.
+#include "bounce_adj.cuh"
 #include "path.cuh"
 
 #define PTT_TAPE_MAX 64
-#define PTT_ADJ_SMEM_FLOATS 12288   // 48 KB of shared gradient table
+#define PTT_ADJ_SMEM_FLOATS 12288   // 48 KB of shared gradient tables
 
 struct TapeEntry {
   float thr[3], e[3], c[3];
@@ -45,9 +61,11 @@ struct TapeEntry {
   int src_e, src_a, m;
 };
 
-// The recorder bounce() reports to (bounce.cuh).
+// The colour instantiation's recorder: bounce() tells it each trip's
+// colour events (bounce.cuh).
 struct Tape {
   static constexpr bool kOn = true;
+  static constexpr bool kTrips = false;
   TapeEntry* t;
   int n;
   __device__ __forceinline__ void begin(const float* thr) {
@@ -83,33 +101,50 @@ struct Tape {
   __device__ __forceinline__ void end() { ++n; }
 };
 
-// c^m by repeated multiplication, in the walk's order (1 * c * c ...).
-__device__ __forceinline__ float pow_int(float c, int m) {
-  float p = 1.0f;
-  for (int i = 0; i < m; ++i) p = p * c;
-  return p;
-}
-
-// Offset of component k of leaf `src` (texture_src) in g_tex (n_tex x 6)
-// or, with `in_img` set, in g_img (texels x 3).
-__device__ __forceinline__ int grad_offset(const WaveArgs& a, int src, int k,
-                                           bool& in_img) {
-  in_img = src >= 2 * a.n_tex;
-  return in_img ? (src - 2 * a.n_tex) * 3 + k : (src >> 1) * 6 + (src & 1) * 3 + k;
-}
+// The full instantiation's recorder: trace_path hands it each trip's bounce
+// inputs; bounce() records nothing (kOn false compiles its hooks out).
+struct TripTape {
+  static constexpr bool kOn = false;
+  static constexpr bool kTrips = true;
+  TripIn* t;
+  int n;
+  __device__ __forceinline__ void trip(const PathRegs& p, bool found,
+                                       int r_pt, int r_pi, bool exit_found,
+                                       float t_exit, bool exit_is_medium) {
+    TripIn& e = t[n++];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      e.o[k] = p.o[k];
+      e.d[k] = p.d[k];
+      e.thr[k] = p.thr[k];
+    }
+    e.t_exit = t_exit;
+    e.r_pt = r_pt;
+    e.r_pi = r_pi;
+    e.bits = (found ? 1 : 0) | (exit_found ? 2 : 0) |
+             (exit_is_medium ? 4 : 0) | (p.depth << 3);
+  }
+};
 
 // Replay sample a.start_sample of pixel pix and add its colour-leaf
-// gradients through add(src, k, value).
-template <class Add>
+// gradients to the sink.
 __device__ __forceinline__ void adjoint_pixel(const WaveArgs& a, int pix,
                                               int* stack, TapeEntry* tape,
-                                              Add add) {
+                                              const GradSink& sink) {
   MegaCount c{0, 0, 0};
   Tape rec{tape, 0};
   PathRegs p;
   trace_path(a, pix, stack, c, p, &rec);
   const float d[3] = {a.delta[3 * (size_t)pix], a.delta[3 * (size_t)pix + 1],
                       a.delta[3 * (size_t)pix + 2]};
+  // Colour leaf src (texture.cuh texture_src), component k.
+  auto add = [&](int src, int k, float v) {
+    if (src >= 2 * a.n_tex) {
+      sink.img_(src - 2 * a.n_tex, k, v);
+    } else {
+      sink.tex_(src >> 1, 1 + 3 * (src & 1) + k, v);
+    }
+  };
   float R[3] = {0.0f, 0.0f, 0.0f};
   for (int j = rec.n - 1; j >= 0; --j) {
     const TapeEntry& e = tape[j];
@@ -117,56 +152,134 @@ __device__ __forceinline__ void adjoint_pixel(const WaveArgs& a, int pix,
     for (int k = 0; k < 3; ++k) {
       if (e.src_a >= 0) {
         const float dm = (float)e.m * pow_int(e.c[k], e.m - 1);
-        const float g = d[k] * e.thr[k] * e.boost * R[k] * dm;
-        if (g != 0.0f) add(e.src_a, k, g);
+        add(e.src_a, k, d[k] * e.thr[k] * e.boost * R[k] * dm);
       }
-      if (e.src_e >= 0) {
-        const float g = d[k] * e.thr[k];
-        if (g != 0.0f) add(e.src_e, k, g);
-      }
+      if (e.src_e >= 0) add(e.src_e, k, d[k] * e.thr[k]);
       R[k] = e.e[k] + pow_int(e.c[k], e.m) * e.boost * R[k];
     }
   }
 }
 
-#ifndef PTT_HOST_EMULATION
-// s_tex / s_img: floats of g_tex / g_img kept in shared memory (0: global).
-__global__ void adjoint_kernel(WaveArgs a, int s_tex, int s_img) {
-  extern __shared__ float s_g[];
-  for (int i = threadIdx.x; i < s_tex + s_img; i += blockDim.x) s_g[i] = 0.0f;
-  __syncthreads();
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix < a.npix) {
-    int stack[PTT_MEGA_STACK];
-    TapeEntry tape[PTT_TAPE_MAX];
-    adjoint_pixel(a, pix, stack, tape, [&](int src, int k, float v) {
-      bool in_img;
-      const int off = grad_offset(a, src, k, in_img);
-      float* dst = in_img ? (s_img ? s_g + s_tex + off : a.g_img + off)
-                          : (s_tex ? s_g + off : a.g_tex + off);
-      atomicAdd(dst, v);
-    });
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < s_tex; i += blockDim.x) {
-    if (s_g[i] != 0.0f) atomicAdd(a.g_tex + i, s_g[i]);
-  }
-  for (int i = threadIdx.x; i < s_img; i += blockDim.x) {
-    if (s_g[s_tex + i] != 0.0f) atomicAdd(a.g_img + i, s_g[s_tex + i]);
+// Replay sample a.start_sample of pixel pix and add the gradients of every
+// leaf to the sink.
+__device__ __forceinline__ void adjoint_pixel_full(const WaveArgs& a, int pix,
+                                                   int* stack, TripIn* trips,
+                                                   const GradSink& sink) {
+  MegaCount c{0, 0, 0};
+  TripTape rec{trips, 0};
+  PathRegs p;
+  trace_path(a, pix, stack, c, p, &rec);
+  const Key key_p = path_key(a, a.start_sample, pix);
+  const float d[3] = {a.delta[3 * (size_t)pix], a.delta[3 * (size_t)pix + 1],
+                      a.delta[3 * (size_t)pix + 2]};
+  PathAdj adj;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) adj.o[k] = adj.d[k] = adj.thr[k] = 0.0f;
+  for (int j = rec.n - 1; j >= 0; --j) {
+    bounce_adj(a, trips[j], p.time, fold_in(key_p, (uint32_t)j), d, adj,
+               sink);
   }
 }
 
-extern "C" int ptt_launch_adjoint(const WaveArgs* a, void* stream) {
-  if (a->sd > PTT_MEGA_STACK || a->iters_cap > PTT_TAPE_MAX)
+// Offsets (in floats) of the gradient tables kept in shared memory, -1 for
+// a table left in global memory; `floats` is the total.
+struct SmemPlan {
+  int tex, img, mat, med, perlin, floats;
+};
+
+// The global buffers as a sink.
+__device__ __forceinline__ GradSink global_sink(const WaveArgs& a) {
+  return GradSink{a.g_tex, a.g_img, a.g_prim, a.g_mat, a.g_med, a.g_perlin};
+}
+
+#ifndef PTT_HOST_EMULATION
+__device__ __forceinline__ void flush_table(const float* s, float* g, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (s[i] != 0.0f) atomicAdd(g + i, s[i]);
+  }
+}
+
+template <bool kFull>
+__device__ __forceinline__ void adjoint_block(const WaveArgs& a,
+                                              const SmemPlan& plan) {
+  extern __shared__ float s_g[];
+  for (int i = threadIdx.x; i < plan.floats; i += blockDim.x) s_g[i] = 0.0f;
+  __syncthreads();
+  GradSink sink = global_sink(a);
+  if (plan.tex >= 0) sink.tex = s_g + plan.tex;
+  if (plan.img >= 0) sink.img = s_g + plan.img;
+  if (plan.mat >= 0) sink.mat = s_g + plan.mat;
+  if (plan.med >= 0) sink.med = s_g + plan.med;
+  if (plan.perlin >= 0) sink.perlin = s_g + plan.perlin;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix < a.npix) {
+    int stack[PTT_MEGA_STACK];
+    if constexpr (kFull) {
+      TripIn trips[PTT_TAPE_MAX];
+      adjoint_pixel_full(a, pix, stack, trips, sink);
+    } else {
+      TapeEntry tape[PTT_TAPE_MAX];
+      adjoint_pixel(a, pix, stack, tape, sink);
+    }
+  }
+  __syncthreads();
+  if (plan.tex >= 0) flush_table(s_g + plan.tex, a.g_tex, a.n_tex * 9);
+  if (plan.img >= 0) {
+    flush_table(s_g + plan.img, a.g_img, a.n_img * a.img_h * a.img_w * 3);
+  }
+  if (plan.mat >= 0) flush_table(s_g + plan.mat, a.g_mat, a.n_mat * 8);
+  if (plan.med >= 0) flush_table(s_g + plan.med, a.g_med, a.n_med * 2);
+  if (plan.perlin >= 0) flush_table(s_g + plan.perlin, a.g_perlin, 256 * 4);
+}
+
+__global__ void adjoint_kernel(WaveArgs a, SmemPlan plan) {
+  adjoint_block<false>(a, plan);
+}
+
+__global__ void adjoint_full_kernel(WaveArgs a, SmemPlan plan) {
+  adjoint_block<true>(a, plan);
+}
+
+// Tables in order of priority, each kept in shared memory if it still fits.
+static SmemPlan plan_smem(const WaveArgs* a, bool full) {
+  SmemPlan p{-1, -1, -1, -1, -1, 0};
+  auto place = [&](int& off, int n) {
+    if (n > 0 && p.floats + n <= PTT_ADJ_SMEM_FLOATS) {
+      off = p.floats;
+      p.floats += n;
+    }
+  };
+  place(p.tex, a->n_tex * 9);
+  if (full) {
+    place(p.mat, a->n_mat * 8);
+    place(p.med, a->n_med * 2);
+    if (a->has_noise) place(p.perlin, 256 * 4);
+  }
+  place(p.img, a->n_img * a->img_h * a->img_w * 3);
+  return p;
+}
+
+static int launch_adjoint(const WaveArgs* a, void* stream, bool full) {
+  if (a->sd > PTT_MEGA_STACK || a->iters_cap > PTT_TAPE_MAX ||
+      (full && a->sss_steps > PTT_WALK_MAX))
     return (int)cudaErrorInvalidValue;
-  const int n_tex = a->n_tex * 6;
-  const int n_img = a->n_img * a->img_h * a->img_w * 3;
-  const int s_tex = n_tex <= PTT_ADJ_SMEM_FLOATS ? n_tex : 0;
-  const int s_img = s_tex + n_img <= PTT_ADJ_SMEM_FLOATS ? n_img : 0;
+  const SmemPlan plan = plan_smem(a, full);
   const int block = 128;
   const int grid = (a->npix + block - 1) / block;
-  const size_t smem = sizeof(float) * (size_t)(s_tex + s_img);
-  adjoint_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(*a, s_tex, s_img);
+  const size_t smem = sizeof(float) * (size_t)plan.floats;
+  if (full) {
+    adjoint_full_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(*a, plan);
+  } else {
+    adjoint_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(*a, plan);
+  }
   return (int)cudaGetLastError();
+}
+
+extern "C" int ptt_launch_adjoint(const WaveArgs* a, void* stream) {
+  return launch_adjoint(a, stream, false);
+}
+
+extern "C" int ptt_launch_adjoint_full(const WaveArgs* a, void* stream) {
+  return launch_adjoint(a, stream, true);
 }
 #endif

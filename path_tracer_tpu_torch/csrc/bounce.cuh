@@ -36,9 +36,11 @@ struct PathRegs {
   bool alive;
 };
 
-// The recorder K3 and K5 use: records nothing.
+// The recorder K3 and K5 use: records nothing.  (kOn: colour events of
+// bounce(); kTrips: each trip's bounce inputs, recorded by trace_path.)
 struct NoTape {
   static constexpr bool kOn = false;
+  static constexpr bool kTrips = false;
 };
 
 // Shade-table row of (ptype, pidx): [mat, medium, a, b, c, n, w, d].

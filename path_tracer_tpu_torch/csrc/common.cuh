@@ -94,9 +94,13 @@ struct WaveArgs {
   float defocus_angle, bg_color[3];
   int bg_type;
   // adjoint (K6): dL/d(image) per pixel (npix, 3), and the gradient buffers
-  // of the colour leaves, (n_tex, 6) as tex_tab columns 1-6 and
-  // (n_img * img_h * img_w, 3) as img_data
+  // in the layout of the tables they differentiate: g_tex (n_tex, 9) as
+  // tex_tab, g_img (n_img * img_h * img_w, 3) as img_data, g_prim
+  // (n_prim_rows, 18) as prim_tab, g_mat (n_mat, 8) as mat_tab, g_med
+  // (n_med, 2) as med_tab and g_perlin (256, 4) as perlin_vec (the colour
+  // instantiation writes only g_tex and g_img)
   const float* delta; float* g_tex; float* g_img;
+  float* g_prim; float* g_mat; float* g_med; float* g_perlin;
 };
 
 // Every field of WaveArgs in declaration order.  A name missing from the
@@ -117,7 +121,7 @@ struct WaveArgs {
   X(use_rr) X(sss_steps) X(npix) X(stride) X(multi) X(start_sample) X(n_samples) X(key0)  \
   X(key1) X(rr_max_prob) X(t_min) X(t_max) X(cam_origin) X(pixel00) X(du)    \
   X(dv) X(defocus_u) X(defocus_v) X(defocus_angle) X(bg_color) X(bg_type)   \
-  X(delta) X(g_tex) X(g_img)
+  X(delta) X(g_tex) X(g_img) X(g_prim) X(g_mat) X(g_med) X(g_perlin)
 
 // Fills names[k], offsets[k] for each field when the arrays are given;
 // returns the number of fields.  Each kernel library exports its own copy.

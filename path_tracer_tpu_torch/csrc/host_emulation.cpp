@@ -2,9 +2,9 @@
 //
 // The CUDA sources keep each kernel's per-slot work in a __device__
 // function (trace_lane, shade_lane, retire_lane, spawn_lane, mega_pixel,
-// adjoint_pixel)
-// and only the grid plumbing in the __global__ wrapper.  Compiled by a host C++ compiler
-// with PTT_HOST_EMULATION defined, the same per-slot code runs here in a
+// adjoint_pixel, adjoint_pixel_full) and only the grid plumbing in the
+// __global__ wrapper.  Compiled by a host C++ compiler with
+// PTT_HOST_EMULATION defined, the same per-slot code runs here in a
 // loop over slots, so the CPU test suite holds the kernel sources — not only
 // their plain-torch twins — against the JAX package's engine.
 //   g++ -O1 -std=c++17 -ffp-contract=off -shared -fPIC -o emu.so host_emulation.cpp
@@ -80,13 +80,19 @@ extern "C" void emu_megakernel(WaveArgs* a) {
 }
 
 extern "C" void emu_adjoint(WaveArgs* a) {
+  const GradSink sink = global_sink(*a);
   for (int pix = 0; pix < a->npix; ++pix) {
     int stack[PTT_MEGA_STACK];
     TapeEntry tape[PTT_TAPE_MAX];
-    adjoint_pixel(*a, pix, stack, tape, [&](int src, int k, float v) {
-      bool in_img;
-      const int off = grad_offset(*a, src, k, in_img);
-      (in_img ? a->g_img : a->g_tex)[off] += v;
-    });
+    adjoint_pixel(*a, pix, stack, tape, sink);
+  }
+}
+
+extern "C" void emu_adjoint_full(WaveArgs* a) {
+  const GradSink sink = global_sink(*a);
+  for (int pix = 0; pix < a->npix; ++pix) {
+    int stack[PTT_MEGA_STACK];
+    TripIn trips[PTT_TAPE_MAX];
+    adjoint_pixel_full(*a, pix, stack, trips, sink);
   }
 }

@@ -5,7 +5,9 @@
 // iters < iters_cap: closest-hit walk, the volume-exit walk from
 // t_hit + 1e-4 when the hit has a medium (JAX walks it on every lane but
 // reads it only there), then the bounce with keys fold_in(key_p, iters).
-// K6 passes a recorder to the bounce (bounce.cuh); K5 passes none.
+// K6 passes a recorder: the colour instantiation's is told the bounce's
+// colour events (bounce.cuh), the full instantiation's (Rec::kTrips) the
+// inputs of each trip's bounce (adjoint.cu); K5 passes none.
 #pragma once
 
 #include "bounce.cuh"
@@ -65,6 +67,10 @@ __device__ __forceinline__ void trace_path(const WaveArgs& a, int pix,
                 e_pi, c);
       exit_found = e_pt >= 0;
       exit_is_medium = medium_of(a, e_pt, e_pi) >= 0;
+    }
+    if constexpr (Rec::kTrips) {
+      tape->trip(p, found, best_pt, best_pi, exit_found, t_exit,
+                 exit_is_medium);
     }
     c.walk_trips += bounce(a, p, found, best_pt, best_pi, exit_found, t_exit,
                            exit_is_medium, fold_in(key_p, (uint32_t)p.iters),

@@ -1,4 +1,5 @@
-"""The backward of the shading (B13): image gradients for the scene leaves.
+"""The backward of the shading (B13, B13'): image gradients for the scene
+leaves.
 
 Port of what ``jax.grad`` computes through ``integrator.trace_ray_scan``
 (``path_tracer_tpu/ops/integrator.py:268``) and the backward wavefront
@@ -16,32 +17,51 @@ the twins on the CPU) and its backward receives δ = dL/d(image):
 
 * CPU tensors: autograd of the megakernel twin's replay, contracted with δ,
   for every floating scene leaf that requires grad (the plain path).
-* CUDA tensors: kernel K6 :func:`adjoint` (``csrc/adjoint.cu``) for the
-  colour leaves ``tex_c1``, ``tex_c2`` and ``img_data``.  They enter a path
-  linearly — every attenuation is a texture colour, or colour^(n+1) after
-  the SSS walk's n kept steps, and emission is ``throughput * colour`` — so
-  their adjoint is a replay of the path and a reverse sweep over it.  Any
-  other leaf that requires grad raises :class:`NotImplementedError` before
-  anything runs (ROADMAP.md B13'); nothing falls back to the twin.
+* CUDA tensors: kernel K6 :func:`adjoint` (``csrc/adjoint.cu``), one launch
+  per sample, for every floating leaf (:data:`FLOAT_LEAVES`).  A leaf set
+  within :data:`COLOUR_LEAVES` runs its colour instantiation: those leaves
+  enter a path linearly, so their adjoint is a replay and a reverse sweep of
+  the path's colour events.  Any other set runs the full instantiation,
+  which carries the adjoint of each trip's origin, direction and throughput
+  back through the bounce (hit refinement, media, the seven scatter
+  families, the SSS walk, textures).  Nothing falls back to the twin.
 
-K6 writes into gradient buffers shaped like columns 1-6 of
-:class:`~.shade_tiled.ShadeTables` ``tex`` (``[c1(3), c2(3)]`` per row) and
-like ``img_data`` flattened to ``(texels, 3)``; :func:`leaf_grads` maps them
-to the leaves.
+K6 writes into :class:`GradBuffers`, shaped like the tables it reads
+(:class:`~.shade_tiled.ShadeTables` ``prim``, ``mat``, ``med``, ``tex``; the
+atlas flattened to ``(texels, 3)``; the Perlin table); :func:`leaf_grads`
+maps them to the leaves, the transpose of
+:func:`~.shade_tiled.make_tables`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from . import kernels
 
 COLOUR_LEAVES = ("tex_c1", "tex_c2", "img_data")
+# Every floating field of SceneArrays: the leaves K6 differentiates.
+FLOAT_LEAVES = (
+    "sph_c0", "sph_c1", "sph_rad", "qd_q", "qd_u", "qd_v", "qd_n", "qd_w",
+    "qd_d", "tr_v0", "tr_e1", "tr_e2", "tr_n", "mat_fuzz", "mat_ir", "mat_g",
+    "mat_sigma_s", "mat_sigma_a", "mat_scatter_dist", "tex_c1", "tex_c2",
+    "tex_scale", "img_data", "med_density", "perlin_vec")
 TAPE_MAX = 64   # per-thread tape entries of K6 (PTT_TAPE_MAX, csrc/adjoint.cu)
-_UNPORTED = ("the card's adjoint covers the colour leaves tex_c1, tex_c2 and "
-             "img_data; gradients for {} need the direction- and "
-             "position-dependent adjoint in K6 (ROADMAP.md B13')")
+WALK_MAX = 64   # SSS walk trips the full K6 keeps (PTT_WALK_MAX, sss_adj.cuh)
+
+
+class GradBuffers(NamedTuple):
+    """K6's gradient buffers, in the layout of the tables they
+    differentiate (``csrc/common.cuh`` ``WaveArgs.g_*``)."""
+
+    tex: torch.Tensor     # (T, 9) as ShadeTables.tex
+    img: torch.Tensor     # (texels, 3) as img_data
+    prim: torch.Tensor    # (Ns+Nq+Nt, 18) as ShadeTables.prim
+    mat: torch.Tensor     # (M, 8) as ShadeTables.mat
+    med: torch.Tensor     # (Mv, 2) as ShadeTables.med
+    perlin: torch.Tensor  # (256, 4) as perlin_vec
 
 
 def grad_leaves(scene) -> tuple[list[str], list[torch.Tensor]]:
@@ -53,14 +73,6 @@ def grad_leaves(scene) -> tuple[list[str], list[torch.Tensor]]:
             names.append(f.name)
             leaves.append(x)
     return names, leaves
-
-
-def check_leaves(names, on_card: bool) -> None:
-    """Raise unless the backward that will run can differentiate ``names``:
-    every leaf on the CPU, only :data:`COLOUR_LEAVES` on the card."""
-    other = [n for n in names if n not in COLOUR_LEAVES]
-    if on_card and other:
-        raise NotImplementedError(_UNPORTED.format(", ".join(other)))
 
 
 def plain_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta):
@@ -83,41 +95,76 @@ def plain_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta):
 
 
 # ---------------------------------------------------------------------------
-# K6: the adjoint of one sample for the colour leaves.
+# K6: the adjoint of one sample.
 # ---------------------------------------------------------------------------
 
-def grad_buffers(scene):
-    """Zeroed K6 gradient buffers: ``g_tex`` (T, 6) and ``g_img``
-    (texels, 3) on the scene's device."""
-    dev = scene.tex_c1.device
-    return (torch.zeros((scene.tex_c1.shape[0], 6), device=dev),
-            torch.zeros((scene.img_data[..., 0].numel(), 3), device=dev))
+def _buffer_shapes(scene) -> GradBuffers:
+    n_prim = (scene.sph_rad.shape[0] + scene.qd_d.shape[0]
+              + scene.tr_mat.shape[0])
+    return GradBuffers(
+        tex=(scene.tex_c1.shape[0], 9), img=(scene.img_data[..., 0].numel(), 3),
+        prim=(n_prim, 18), mat=(scene.mat_fuzz.shape[0], 8),
+        med=(scene.med_density.shape[0], 2),
+        perlin=tuple(scene.perlin_vec.shape))
 
 
-def leaf_grads(scene, g_tex, g_img) -> dict:
-    """The gradient buffers as gradients of the colour leaves."""
-    return {"tex_c1": g_tex[:, :3], "tex_c2": g_tex[:, 3:],
-            "img_data": g_img.reshape(scene.img_data.shape)}
+def grad_buffers(scene) -> GradBuffers:
+    """Zeroed K6 gradient buffers on the scene's device."""
+    dev = scene.sph_c0.device
+    return GradBuffers(*(torch.zeros(shape, device=dev)
+                         for shape in _buffer_shapes(scene)))
 
 
-def adjoint_plain(eng, ms, sample_idx, delta, g_tex, g_img) -> None:
-    """Plain version of K6: add the colour-leaf gradients of sample
-    ``sample_idx`` of every pixel, contracted with ``delta`` (npix, 3), to
-    ``g_tex`` and ``g_img`` (in place)."""
+def leaf_grads(scene, bufs: GradBuffers) -> dict:
+    """The gradient buffers as gradients of every leaf of
+    :data:`FLOAT_LEAVES`: views of ``bufs``, the transpose of
+    :func:`~.shade_tiled.make_tables` (and of the atlas and Perlin table,
+    which K6 reads as they are)."""
+    ns, nq = scene.sph_rad.shape[0], scene.qd_d.shape[0]
+    sph, qd, tr = bufs.prim[:ns], bufs.prim[ns:ns + nq], bufs.prim[ns + nq:]
+    return {
+        "sph_c0": sph[:, 2:5], "sph_c1": sph[:, 5:8], "sph_rad": sph[:, 8],
+        "qd_q": qd[:, 2:5], "qd_u": qd[:, 5:8], "qd_v": qd[:, 8:11],
+        "qd_n": qd[:, 11:14], "qd_w": qd[:, 14:17], "qd_d": qd[:, 17],
+        "tr_v0": tr[:, 2:5], "tr_e1": tr[:, 5:8], "tr_e2": tr[:, 8:11],
+        "tr_n": tr[:, 11:14],
+        "mat_fuzz": bufs.mat[:, 2], "mat_ir": bufs.mat[:, 3],
+        "mat_g": bufs.mat[:, 4], "mat_sigma_s": bufs.mat[:, 5],
+        "mat_sigma_a": bufs.mat[:, 6], "mat_scatter_dist": bufs.mat[:, 7],
+        "tex_c1": bufs.tex[:, 1:4], "tex_c2": bufs.tex[:, 4:7],
+        "tex_scale": bufs.tex[:, 7],
+        "img_data": bufs.img.view(scene.img_data.shape),
+        "med_density": bufs.med[:, 0], "perlin_vec": bufs.perlin}
+
+
+def _check_names(names) -> None:
+    bad = [n for n in names if n not in FLOAT_LEAVES]
+    if bad:
+        raise ValueError(f"not a floating SceneArrays leaf: {bad}")
+
+
+def adjoint_plain(eng, ms, sample_idx, delta, bufs: GradBuffers,
+                  full: bool = False) -> None:
+    """Plain version of K6: add the gradients of sample ``sample_idx`` of
+    every pixel, contracted with ``delta`` (npix, 3), to ``bufs`` (in
+    place): of the colour leaves, or with ``full`` of every leaf."""
     del ms
+    names = FLOAT_LEAVES if full else COLOUR_LEAVES
     g = plain_vjp(eng.scene, eng.flags, eng.bvh, eng.cam, eng.cfg, eng.key,
-                  (sample_idx,), COLOUR_LEAVES, delta)
-    g_tex[:, :3] += g[0]
-    g_tex[:, 3:] += g[1]
-    g_img += g[2].reshape(-1, 3)
+                  (sample_idx,), names, delta)
+    views = leaf_grads(eng.scene, bufs)
+    for n, gn in zip(names, g):
+        views[n].add_(gn)
 
 
-def adjoint(eng, ms, sample_idx, delta, g_tex, g_img) -> None:
-    """K6 wrapper: the CUDA kernel for CUDA state, its plain version for
-    CPU state.  ``eng``/``ms`` are a :class:`~.integrator.MegaEngine` and
-    its state (the argument block K5 takes)."""
+def adjoint(eng, ms, sample_idx, delta, bufs: GradBuffers,
+            full: bool = False) -> None:
+    """K6 wrapper: the CUDA kernel (``adjoint``, or ``adjoint_full`` with
+    ``full``) for CUDA state, its plain version for CPU state.
+    ``eng``/``ms`` are a :class:`~.integrator.MegaEngine` and its state (the
+    argument block K5 takes)."""
     if not ms.ctr.is_cuda:
-        return adjoint_plain(eng, ms, sample_idx, delta, g_tex, g_img)
+        return adjoint_plain(eng, ms, sample_idx, delta, bufs, full)
     from .integrator import MEGA_STACK
 
     if eng.sd > MEGA_STACK:
@@ -126,8 +173,11 @@ def adjoint(eng, ms, sample_idx, delta, g_tex, g_img) -> None:
     if eng.cfg.iters > TAPE_MAX:
         raise ValueError(f"{eng.cfg.iters} loop trips exceed the adjoint's "
                          f"tape of {TAPE_MAX} entries")
-    for t, shape in ((delta, (eng.npix, 3)), (g_tex, (eng.tabs.tex.shape[0], 6)),
-                     (g_img, (eng.scene.img_data[..., 0].numel(), 3))):
+    if full and eng.cfg.sss_max_steps > WALK_MAX:
+        raise ValueError(f"{eng.cfg.sss_max_steps} SSS walk steps exceed the "
+                         f"adjoint's walk record of {WALK_MAX}")
+    for t, shape in ((delta, (eng.npix, 3)),
+                     *zip(bufs, _buffer_shapes(eng.scene))):
         if t.device != ms.ctr.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape:
             raise ValueError(f"adjoint buffer must be float32 {shape} on "
@@ -138,21 +188,26 @@ def adjoint(eng, ms, sample_idx, delta, g_tex, g_img) -> None:
         ms._adjoint_args = cache
     a = cache[1]
     a.start_sample = int(sample_idx)
-    kernels.set_grad_buffers(a, delta, g_tex, g_img)
-    kernels.launch("adjoint", eng, ms, a)
+    kernels.set_grad_buffers(a, delta, bufs)
+    kernels.launch("adjoint_full" if full else "adjoint", eng, ms, a)
 
 
-def kernel_vjp(scene, flags, bvh, cam, cfg, base_key, samples, delta):
-    """K6 over ``samples``, one launch per sample → colour-leaf gradients."""
+def kernel_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta):
+    """K6 over ``samples``, one launch per sample → the gradients of
+    ``names`` (a list of :data:`FLOAT_LEAVES`), by the colour instantiation
+    when every name is a colour leaf, else by the full one."""
     from .integrator import MegaEngine
 
+    _check_names(names)
+    full = not set(names) <= set(COLOUR_LEAVES)
     eng = MegaEngine(scene, flags, bvh, cam, cfg, base_key)
     ms = eng.init_state(torch.zeros((eng.npix, 3), device=eng.device))
-    g_tex, g_img = grad_buffers(scene)
+    bufs = grad_buffers(scene)
     delta = delta.contiguous()
     for s in samples:
-        adjoint(eng, ms, s, delta, g_tex, g_img)
-    return leaf_grads(scene, g_tex, g_img)
+        adjoint(eng, ms, s, delta, bufs, full)
+    g = leaf_grads(scene, bufs)
+    return [g[n] for n in names]
 
 
 class SceneRender(torch.autograd.Function):
@@ -178,8 +233,7 @@ class SceneRender(torch.autograd.Function):
         args = (scene, sp["flags"], sp["bvh"], sp["cam"], cfg, sp["key"],
                 sp["samples"])
         if delta.is_cuda:
-            g = kernel_vjp(*args, delta)
-            grads = [g[n] for n in sp["names"]]
+            grads = kernel_vjp(*args, sp["names"], delta)
         else:
             grads = plain_vjp(*args, sp["names"], delta)
         return (None, *grads)
@@ -190,9 +244,8 @@ def render_diff(scene, flags, bvh, cam, cfg, base_key, samples, forward):
 
     ``forward(scene)`` renders the same sample set with a forward engine
     and returns ``(image, aux)``.  The leaves are the scene's floating
-    fields that require grad; on the card they must be colour leaves."""
+    fields that require grad."""
     names, leaves = grad_leaves(scene)
-    check_leaves(names, scene.sph_c0.is_cuda)
     detached = dataclasses.replace(scene, **{n: x.detach() for n, x in
                                              zip(names, leaves)})
     spec = {"scene": detached, "flags": flags, "bvh": bvh, "cam": cam,

@@ -2,9 +2,11 @@
 
 Each kernel source (``trace_step.cu``, ``spawn.cu``, ``shade.cu``,
 ``retire.cu``, ``megakernel.cu``, ``adjoint.cu``) is compiled by its own
-``nvcc`` for ``sm_90a``, all six started together, into a shared library with a plain C interface under the
-git-ignored ``build/torch_ext/`` (file names carry a hash of the sources, so
-an edit rebuilds).  The libraries are opened with ``ctypes``; device
+``nvcc`` for ``sm_90a``, all six started together, into a shared library
+with a plain C interface under the git-ignored ``build/torch_ext/`` (file
+names carry a hash of the sources, so an edit rebuilds).  ``adjoint.cu``
+holds two kernels, K6's colour and full instantiations (``adjoint`` and
+``adjoint_full``), each with its own launcher.  The libraries are opened with ``ctypes``; device
 pointers come from ``tensor.data_ptr()`` and the stream from PyTorch's
 current stream.  Nothing here runs at import time, and nothing falls back:
 a failed build or launch raises.
@@ -24,7 +26,9 @@ import time
 
 import torch
 
-NAMES = ("trace_step", "spawn", "shade", "retire", "megakernel", "adjoint")
+SOURCES = ("trace_step", "spawn", "shade", "retire", "megakernel", "adjoint")
+NAMES = SOURCES + ("adjoint_full",)
+SOURCE_OF = {n: n for n in SOURCES} | {"adjoint_full": "adjoint"}
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -67,7 +71,8 @@ class WaveArgs(ctypes.Structure):
         + [(n, _F * 3) for n in ("cam_origin", "pixel00", "du", "dv",
                                  "defocus_u", "defocus_v")]
         + [("defocus_angle", _F), ("bg_color", _F * 3), ("bg_type", _I)]
-        + [(n, _P) for n in ("delta", "g_tex", "g_img")])
+        + [(n, _P) for n in ("delta", "g_tex", "g_img", "g_prim", "g_mat",
+                             "g_med", "g_perlin")])
 
 
 def _nvcc() -> str:
@@ -90,23 +95,23 @@ def _source_hash() -> str:
 def build(verbose: bool = False) -> dict:
     """Compile every kernel (one nvcc per source, in parallel) and load them.
 
-    Returns ``{name: seconds}`` of the compile wall time (0 when cached).
+    Returns ``{source: seconds}`` of the compile wall time (0 when cached).
     """
     if len(_LIBS) == len(NAMES):
-        return {n: 0.0 for n in NAMES}
+        return {n: 0.0 for n in SOURCES}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = _source_hash()
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
-    for n in NAMES:
+    for n in SOURCES:
         so = os.path.join(BUILD_DIR, f"{n}-{tag}.so")
         if os.path.exists(so):
             continue
         cmd = [nvcc, *NVCC_FLAGS, "-o", so + ".tmp", os.path.join(_CSRC, f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), so)
-    secs = {n: 0.0 for n in NAMES}
+    secs = {n: 0.0 for n in SOURCES}
     for n, (p, so) in procs.items():
         out, _ = p.communicate()
         secs[n] = time.perf_counter() - t0
@@ -117,7 +122,7 @@ def build(verbose: bool = False) -> dict:
         if verbose:
             print(out)
     for n in NAMES:
-        lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"{n}-{tag}.so"))
+        lib = ctypes.CDLL(os.path.join(BUILD_DIR, f"{SOURCE_OF[n]}-{tag}.so"))
         check_layout(lib)
         fn = getattr(lib, f"ptt_launch_{n}")
         fn.argtypes = [ctypes.POINTER(WaveArgs), _P]
@@ -157,11 +162,14 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return t.data_ptr()
 
 
-def set_grad_buffers(a: WaveArgs, delta, g_tex, g_img) -> None:
+def set_grad_buffers(a: WaveArgs, delta, bufs) -> None:
     """Point K6's fields of an argument block at delta and the gradient
-    buffers (``csrc/common.cuh``), keeping the tensors alive with it."""
-    a.delta, a.g_tex, a.g_img = _ptr(delta), _ptr(g_tex), _ptr(g_img)
-    a._keep_grad = (delta, g_tex, g_img)
+    buffers ``bufs`` (:class:`~.adjoint.GradBuffers`, ``csrc/common.cuh``),
+    keeping the tensors alive with it."""
+    a.delta = _ptr(delta)
+    for f, t in zip(bufs._fields, bufs):
+        setattr(a, f"g_{f}", _ptr(t))
+    a._keep_grad = (delta, bufs)
 
 
 def make_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
@@ -297,16 +305,18 @@ def host_emulation_ops():
             make("megakernel"))
 
 
-def host_emulation_adjoint():
-    """K6's per-pixel code compiled for the CPU (tests only): an op with the
-    signature of :func:`~.adjoint.adjoint` (``op(engine, mega_state,
-    sample, delta, g_tex, g_img)``) on CPU tensors."""
-    fn = host_emulation_lib().emu_adjoint
+def host_emulation_adjoint(full: bool = False):
+    """K6's per-pixel code compiled for the CPU (tests only), the colour
+    or the ``full`` instantiation: an op with the signature of
+    :func:`~.adjoint.adjoint` (``op(engine, mega_state, sample, delta,
+    bufs)``) on CPU tensors."""
+    lib = host_emulation_lib()
+    fn = lib.emu_adjoint_full if full else lib.emu_adjoint
     fn.argtypes = [ctypes.POINTER(WaveArgs)]
 
-    def op(eng, ms, sample, delta, g_tex, g_img):
+    def op(eng, ms, sample, delta, bufs):
         a = fill_args(eng, ms)
         a.start_sample = int(sample)
-        set_grad_buffers(a, delta, g_tex, g_img)
+        set_grad_buffers(a, delta, bufs)
         fn(ctypes.byref(a))
     return op

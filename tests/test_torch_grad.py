@@ -2,25 +2,31 @@
 per-pixel code against the port's plain path.
 
 * ``integrator.render(differentiable=True)`` on the CPU (autograd of the
-  megakernel twin's replay) against ``jax.grad`` of the JAX ``render`` on the
-  setups of ``tests/test_grad.py``: emission/albedo colours, the metal fuzz
-  plate, the dielectric ``mat_ir``, the SSS-volumetric ``mat_g``,
-  ``mat_sigma_s`` and colour (the exponent), a sphere centre, and two more:
-  the texture-demo atlas ``img_data`` and cornell_smoke's medium albedo.
+  megakernel twin's replay) against ``jax.grad`` of the JAX ``render``: on
+  the setups of ``tests/test_grad.py`` (emission/albedo colours, a sphere
+  centre, the metal fuzz plate, the dielectric ``mat_ir``, the
+  SSS-volumetric ``mat_g``, ``mat_sigma_s``, ``mat_sigma_a`` and colour
+  (the exponent)) and on two more: the texture-demo atlas ``img_data`` and
+  cornell_smoke's medium albedo.  The remaining floating ``SceneArrays``
+  leaves, those that move rays, are held by the same check in
+  ``tests/test_torch_grad_leaves.py``.
 * ``wavefront.render_batch_diff`` (primal image, stats, gradients of
-  ``tex_c1``, ``tex_c2`` (checker), ``mat_fuzz``, ``mat_ir``) against the JAX ``render_batch_diff``
-  on the setup of ``tests/test_integrator_tiled.py:83-112``, with the marble
-  sphere of that world made solid: XLA's CPU backend contracts the marble's
-  multiply-adds, so a marble forward matches JAX only under the graded rule
-  (ROADMAP.md C), and this scene's forward matches exactly.
+  ``tex_c1``, ``tex_c2`` (checker), ``mat_fuzz``, ``mat_ir``) against the
+  JAX ``render_batch_diff`` on the setup of
+  ``tests/test_integrator_tiled.py:83-112``, with the marble sphere of that
+  world made solid: XLA's CPU backend contracts the marble's multiply-adds,
+  so a marble forward on that larger frame matches JAX only under the
+  graded rule (ROADMAP.md C), and this scene's forward matches exactly.
 
 Tolerance: atol 2e-5, rtol 1e-3, JAX's own engine-to-engine limit for
 gradients (``tests/test_integrator_tiled.py:111-112``).
 
-* ``emu_adjoint`` (``csrc/adjoint.cu``'s per-pixel code built by g++ through
-  ``csrc/host_emulation.cpp``) against the plain path's colour-leaf gradients
-  on five scenes at 32x18, 2 spp: relative L2 error of the gradient vector
-  at most 1e-4 (float add order differs; measured about 1e-7).
+* ``emu_adjoint`` (``csrc/adjoint.cu``'s colour instantiation built by g++
+  through ``csrc/host_emulation.cpp``) against the plain path's colour-leaf
+  gradients on five scenes at 32x18, 2 spp: relative L2 error of the
+  gradient vector at most 1e-4 (float add order differs; measured about
+  1e-7).  The full instantiation's CPU tests are in
+  ``tests/test_torch_adjoint.py``.
 """
 import dataclasses
 import shutil
@@ -137,7 +143,7 @@ SETUPS = {
     "mat_ir": (_solo(lambda pkg: pkg.Dielectric(1.5)), (16, 10, 4, 4), 7,
                ("mat_ir",), ()),
     "sss_volumetric": (_WAX, (16, 10, 2, 4), 7,
-                       ("mat_g", "mat_sigma_s", "tex_c1"), ()),
+                       ("mat_g", "mat_sigma_s", "mat_sigma_a", "tex_c1"), ()),
     "img_data": (_texture_wall, (24, 16, 2, 4), 8, ("img_data",), ()),
     "medium_albedo": (_smoke, (24, 16, 2, 5), 9, ("tex_c1",), ()),
 }
@@ -158,9 +164,16 @@ def _tkey(key):
     return interop.key_from_data(np.asarray(jax.random.key_data(key)), "cpu")
 
 
-@pytest.mark.parametrize("name", list(SETUPS))
+@pytest.mark.parametrize("name", SETUPS)
 def test_render_grad_matches_jax(name):
-    build, (w, h, spp, depth), seed, leaves, tied = SETUPS[name]
+    check_render_grad(SETUPS[name])
+
+
+def check_render_grad(setup, zero=()):
+    """The port's render gradients against ``jax.grad`` on ``setup`` (an
+    entry of ``SETUPS``); the leaves in ``zero`` must be exactly zero in
+    both."""
+    build, (w, h, spp, depth), seed, leaves, tied = setup
     (js, jf, jb, jc), (ts, tb, tc) = _both(build, w, h)
     key = jax.random.key(seed)
 
@@ -188,6 +201,9 @@ def test_render_grad_matches_jax(name):
     for n in leaves:
         g = xs[n].grad.numpy()
         assert np.isfinite(g).all(), n
+        if n in zero:
+            assert not np.asarray(jg[n]).any() and not g.any(), n
+            continue
         assert np.abs(g).max() > 0, n
         np.testing.assert_allclose(g, np.asarray(jg[n]), atol=ATOL,
                                    rtol=RTOL, err_msg=n)
@@ -334,14 +350,30 @@ def test_trace_ray_scan_equals_trace_ray_and_unused_leaves_get_zero():
     assert torch.equal(gg, torch.zeros_like(g))
 
 
-def test_card_guard_refuses_non_colour_leaves():
-    adjoint.check_leaves(["tex_c1", "tex_c2", "img_data"], on_card=True)
-    adjoint.check_leaves(["mat_fuzz", "sph_c0", "tex_c1"], on_card=False)
-    for leaf in ("mat_fuzz", "mat_ir", "mat_g", "mat_sigma_s", "mat_sigma_a",
-                 "mat_scatter_dist", "sph_c0", "qd_q", "tr_v0", "tex_scale",
-                 "med_density"):
-        with pytest.raises(NotImplementedError, match="B13'"):
-            adjoint.check_leaves(["tex_c1", leaf], on_card=True)
+def test_backward_takes_every_float_leaf_and_refuses_other_names():
+    """Every floating SceneArrays field is a leaf the backward takes (on the
+    card K6's full instantiation, here the plain path); a name that is not
+    one is refused before anything runs."""
+    world, cam = ptt.scenes.cornell_smoke()
+    cam.img_width = 8
+    ts = ptt.compile_scene(world, device="cpu")
+    floats = {f.name for f in dataclasses.fields(ts)
+              if getattr(ts, f.name).dtype == torch.float32}
+    assert floats == set(adjoint.FLOAT_LEAVES)
+    xs = {n: getattr(ts, n).clone().requires_grad_() for n in floats}
+    fl, tb = TFlags.from_scene(ts), ptt.build_from_scene(ts)
+    tc = cam.initialize(device="cpu")
+    cfg = TCfg(width=8, height=8, samples_per_pixel=1, max_depth=3)
+    img = tint.render(dataclasses.replace(ts, **xs), fl, tb, tc, cfg,
+                      trng.key(0), differentiable=True)
+    img.sum().backward()
+    for n, x in xs.items():
+        assert x.grad is not None and x.grad.shape == x.shape, n
+        assert bool(torch.isfinite(x.grad).all()), n
+    for bad in (["sph_mat"], ["tex_c1", "perlin_perm"], ["nonsense"]):
+        with pytest.raises(ValueError, match="floating SceneArrays leaf"):
+            adjoint.kernel_vjp(ts, fl, tb, tc, cfg, trng.key(0), (0,), bad,
+                               torch.zeros((64, 3)))
 
 
 # --- K6's per-pixel code (host emulation) against the plain path ---
@@ -378,12 +410,12 @@ def test_emulated_adjoint_matches_plain_path(emu_adjoint, name):
         (W * H, 3)).astype(np.float32))
     gp, ge = adjoint.grad_buffers(sc), adjoint.grad_buffers(sc)
     for s in range(2):
-        adjoint.adjoint(eng, ms, s, delta, *gp)          # plain on CPU
-        emu_adjoint(eng, ms, s, delta, *ge)
+        adjoint.adjoint(eng, ms, s, delta, gp)          # plain on CPU
+        emu_adjoint(eng, ms, s, delta, ge)
     vp = torch.cat([g.flatten() for g in gp])
     ve = torch.cat([g.flatten() for g in ge])
     assert float((ve - vp).norm()) <= 1e-4 * float(vp.norm())
-    g = adjoint.leaf_grads(sc, *gp)
+    g = adjoint.leaf_grads(sc, gp)
     mat_t = sc.mat_type.numpy()
     if name == "texture_demo":
         assert float((g["img_data"].abs().sum(-1) > 0).float().mean()) > 0.5
@@ -408,15 +440,19 @@ def test_gradient_buffers_map_to_leaves():
                           cam.initialize(device="cpu"),
                           TCfg(width=8, height=8, samples_per_pixel=1,
                                max_depth=4), trng.key(0))
-    g_tex, g_img = adjoint.grad_buffers(sc)
-    assert g_tex.shape == (sc.tex_c1.shape[0], 6)
-    assert g_img.shape == (sc.img_data[..., 0].numel(), 3)
-    grads = adjoint.leaf_grads(sc, g_tex, g_img)
-    assert grads["img_data"].shape == sc.img_data.shape
-    assert grads["tex_c2"].shape == sc.tex_c2.shape
+    bufs = adjoint.grad_buffers(sc)
+    assert bufs.tex.shape == (sc.tex_c1.shape[0], 9)
+    assert bufs.img.shape == (sc.img_data[..., 0].numel(), 3)
+    assert bufs.prim.shape == (eng.tabs.prim.shape[0], 18)
+    assert bufs.mat.shape == eng.tabs.mat.shape
+    assert bufs.med.shape == eng.tabs.med.shape
+    assert bufs.perlin.shape == sc.perlin_vec.shape
+    grads = adjoint.leaf_grads(sc, bufs)
+    for n in adjoint.FLOAT_LEAVES:
+        assert grads[n].shape == getattr(sc, n).shape, n
     ms = eng.init_state(torch.zeros((64, 3)))
-    adjoint.adjoint(eng, ms, 0, torch.ones((64, 3)), g_tex, g_img)
-    assert float(g_tex.abs().sum()) > 0
+    adjoint.adjoint(eng, ms, 0, torch.ones((64, 3)), bufs)
+    assert float(bufs.tex.abs().sum()) > 0
 
 
 @pytest.fixture
@@ -447,9 +483,9 @@ def test_adjoint_kernel_matches_plain_on_card(cuda_device, name):
         (W * H, 3)).astype(np.float32)).to(cuda_device)
     gk, gp = adjoint.grad_buffers(sc), adjoint.grad_buffers(sc)
     before = kernels.LAUNCHES["adjoint"]
-    adjoint.adjoint(eng, ms, 0, delta, *gk)
+    adjoint.adjoint(eng, ms, 0, delta, gk)
     assert kernels.LAUNCHES["adjoint"] == before + 1
-    adjoint.adjoint_plain(eng, ms, 0, delta, *gp)
+    adjoint.adjoint_plain(eng, ms, 0, delta, gp)
     torch.cuda.synchronize()
     vk = torch.cat([g.flatten() for g in gk])
     vp = torch.cat([g.flatten() for g in gp])
@@ -458,15 +494,58 @@ def test_adjoint_kernel_matches_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.gpu
-def test_card_backward_refuses_non_colour_leaves(cuda_device):
-    world, cam = ptt.scenes.cornell_box()
+@pytest.mark.parametrize("name", ["sphere_c1_radius", "fuzz_plate", "mat_ir",
+                                  "sss_volumetric", "sss_simple", "marble"])
+def test_full_adjoint_kernel_matches_plain_on_card(cuda_device, name):
+    """The full K6 against the plain path on the card, every leaf, on the
+    solo-sphere and fuzz-plate setups: relative L2 ≤ 1e-3 per leaf, finite,
+    and the full instantiation's launch counted."""
+    from test_torch_grad_leaves import LEAF_SETUPS
+    build, (w, h, spp, depth), seed, leaves = {**SETUPS, **LEAF_SETUPS}[name][:4]
+    world, cam = build(ptt)
+    cam.img_width, cam.aspect_ratio = w, w / h
+    sc = ptt.compile_scene(world, device=cuda_device)
+    eng = tint.MegaEngine(sc, TFlags.from_scene(sc), ptt.build_from_scene(sc),
+                          cam.initialize(device=cuda_device),
+                          TCfg(width=w, height=h, samples_per_pixel=spp,
+                               max_depth=depth, use_russian_roulette=False),
+                          trng.key(seed, device=cuda_device))
+    ms = eng.init_state(torch.zeros((w * h, 3), device=cuda_device))
+    delta = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (w * h, 3)).astype(np.float32)).to(cuda_device)
+    gk, gp = adjoint.grad_buffers(sc), adjoint.grad_buffers(sc)
+    before = kernels.LAUNCHES["adjoint_full"]
+    for s in range(spp):
+        adjoint.adjoint(eng, ms, s, delta, gk, full=True)
+        adjoint.adjoint_plain(eng, ms, s, delta, gp, full=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["adjoint_full"] == before + spp
+    K, P = adjoint.leaf_grads(sc, gk), adjoint.leaf_grads(sc, gp)
+    for n in adjoint.FLOAT_LEAVES:
+        assert bool(torch.isfinite(K[n]).all()), n
+        assert float((K[n] - P[n]).norm()) <= 1e-3 * float(P[n].norm()), n
+    for n in leaves:
+        assert float(K[n].abs().sum()) > 0, n
+
+
+@pytest.mark.gpu
+def test_card_backward_takes_every_leaf(cuda_device):
+    """On the card every floating leaf differentiates (the full K6); a
+    colour-only leaf set keeps the colour instantiation."""
+    world, cam = ptt.scenes.cornell_smoke()
     cam.img_width = 16
     sc = ptt.compile_scene(world, device=cuda_device)
-    fuzz = sc.mat_fuzz.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="B13'"):
-        tint.render(dataclasses.replace(sc, mat_fuzz=fuzz),
-                    TFlags.from_scene(sc), ptt.build_from_scene(sc),
-                    cam.initialize(device=cuda_device),
-                    TCfg(width=16, height=16, samples_per_pixel=1,
-                         max_depth=4), trng.key(0, device=cuda_device),
-                    differentiable=True)
+    args = (TFlags.from_scene(sc), ptt.build_from_scene(sc),
+            cam.initialize(device=cuda_device),
+            TCfg(width=16, height=16, samples_per_pixel=1, max_depth=4),
+            trng.key(0, device=cuda_device))
+    for names, kernel in ((("tex_c1",), "adjoint"),
+                          (adjoint.FLOAT_LEAVES, "adjoint_full")):
+        xs = {n: getattr(sc, n).clone().requires_grad_() for n in names}
+        before = kernels.LAUNCHES[kernel]
+        img = tint.render(dataclasses.replace(sc, **xs), *args,
+                          differentiable=True)
+        img.sum().backward()
+        assert kernels.LAUNCHES[kernel] == before + 1
+        for n, x in xs.items():
+            assert bool(torch.isfinite(x.grad).all()), n

@@ -145,4 +145,11 @@ def test_kernel_wrappers_launch_on_card(cuda_device):
                             differentiable=True, spp=1)
     img.sum().backward()
     assert bool(torch.isfinite(c1.grad).all()) and float(c1.grad.abs().sum()) > 0
+    # and its full instantiation: a leaf that moves rays
+    qd = r.scene.qd_d.clone().requires_grad_()
+    img = integrator.render(dataclasses.replace(r.scene, qd_d=qd), r.flags,
+                            r.bvh, r.cam_arrays, r.cfg, r.key,
+                            differentiable=True, spp=1)
+    img.sum().backward()
+    assert bool(torch.isfinite(qd.grad).all())
     assert all(v > 0 for v in kernels.LAUNCHES.values())

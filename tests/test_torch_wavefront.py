@@ -126,9 +126,9 @@ def test_renderer_facade_and_png(tmp_path):
 
 def test_unported_paths_raise():
     """Both engines and SSS scenes construct; what is still queued in
-    ROADMAP.md raises (the card's adjoint for leaves other than the texture
-    colours, B13', and the data-parallel train step, A.11), and an unknown
-    engine is refused."""
+    ROADMAP.md raises (the data-parallel train step, A.11), and an unknown
+    engine or a backward leaf that is not a floating scene field is
+    refused."""
     from path_tracer_tpu_torch.ops import adjoint
     from path_tracer_tpu_torch.parallel import make_train_step
     world, cam = ptt.scenes.cornell_box()
@@ -140,8 +140,9 @@ def test_unported_paths_raise():
     world, cam = ptt.scenes.subsurface_scattering()
     r = ptt.Renderer(world, cam, engine="wavefront", device="cpu")
     assert r.flags.has_sss
-    with pytest.raises(NotImplementedError, match="B13'"):
-        adjoint.check_leaves(["tex_c1", "mat_g"], on_card=True)
+    with pytest.raises(ValueError, match="floating SceneArrays leaf"):
+        adjoint.kernel_vjp(r.scene, r.flags, r.bvh, r.cam_arrays, r.cfg,
+                           r.key, (0,), ["tex_c1", "mat_type"], None)
     with pytest.raises(NotImplementedError, match="A.11"):
         make_train_step(r.flags, r.cfg, [0, 1])
 
