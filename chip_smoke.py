@@ -56,8 +56,28 @@ Phases (each prints its own line; any failure exits non-zero):
                 med_density, tex_scale, sph_c0/sph_c1 of the moving
                 sphere) and on mesh_perlin_sss at 400x225, depth 12
                 (mat_g, mat_sigma_s, mat_sigma_a, mat_scatter_dist, tr_v0,
-                perlin_vec), 4 spp per render, three steps each.
-9. the JSON kernel table, then the JSON result line.
+                perlin_vec), 4 spp per render, three steps each.  Then
+                the same vol2_final step on the tiled engine
+                (engine="megakernel": K7 + K8 forward, K6 backward), its
+                first step's gradients against the wavefront step's.
+9. tiled      — (run after phase 6) render_tiled on the vol2_final frame:
+                wall, Mrays/s, per-kernel device time, the image against
+                K5's under the graded rule.
+10. parallel  — ranks of a gloo job sharing the card, each a process
+                (this script with --rank): 2-rank data-parallel wavefront
+                on the vol2_final frame (image against the one-rank frame,
+                summed counters exact), megakernel (render_sharded, image
+                against phase 5's) and train step (gradients against one
+                rank's), 2-rank tensor- and pipeline-parallel renders
+                of the 102,400-triangle torus knot at 800x800 (against the
+                one-rank tiled image, tests/test_tp_scale.py's graded
+                rule), and DP x TP on a 2x2 grid on vol2_final at 400x225.
+11. the JSON kernel table, then the JSON result line.
+
+Phase 3 also holds the tiled engine's kernels against their plain
+versions: K7 (closest_hit), K8 (tiled_trip) and the tiled spawn on every
+lane of an 800x450 vol2_final sample after three trips, K9 (ring_hop) and
+K8's rec variant on one shard of the torus knot sharded two ways.
 
 Each main phase sets the launch counts to 0 just before it runs and reads
 them just after; the table's ``launches`` come from those runs.  The build
@@ -96,7 +116,20 @@ KERNELS = {
                 "path_tracer_tpu/ops/wavefront.py:520"),
     "adjoint_full": ("path_tracer_tpu_torch/csrc/adjoint.cu",
                      "path_tracer_tpu/ops/integrator.py:268"),
+    "closest_hit": ("path_tracer_tpu_torch/csrc/closest_hit.cu",
+                    "path_tracer_tpu/ops/integrator_tiled.py:46"),
+    "tiled_trip": ("path_tracer_tpu_torch/csrc/tiled_trip.cu",
+                   "path_tracer_tpu/ops/integrator_tiled.py:91"),
+    "tiled_spawn": ("path_tracer_tpu_torch/csrc/tiled_trip.cu",
+                    "path_tracer_tpu/ops/shade_tiled.py:741"),
+    "ring_hop": ("path_tracer_tpu_torch/csrc/closest_hit.cu",
+                 "path_tracer_tpu/parallel/pipeline.py:63"),
+    "tiled_trip_rec": ("path_tracer_tpu_torch/csrc/tiled_trip.cu",
+                       "path_tracer_tpu/parallel/pipeline.py:140"),
 }
+TILED_KERNELS = ("closest_hit", "tiled_trip", "tiled_spawn")
+STATE_BYTES = 61                # one lane's path state (PathState)
+REFINE_OPS = 150                # refine_hit of one primitive
 WAVE_KERNELS = ("trace_step", "spawn", "shade", "retire")
 BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce (threefry at 110)
 WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
@@ -228,6 +261,146 @@ def frame_phase(tag, make, W, H, spp, depth, names, kernels):
                 profiled_wall_ms=1e3 * prof_wall, idle_share=idle)
 
 
+def compiled(world, cam, w, h, spp, depth, dev):
+    """(scene, flags, bvh, camera, config) of a world at w x h."""
+    import path_tracer_tpu_torch as ptt
+    from path_tracer_tpu_torch.ops.shade import SceneFlags
+    from path_tracer_tpu_torch.ops.types import RenderConfig
+    cam.aspect_ratio, cam.img_width = w / h, w
+    sc = ptt.compile_scene(world, device=dev)
+    return (sc, SceneFlags.from_scene(sc), ptt.build_from_scene(sc),
+            cam.initialize(device=dev),
+            RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                         max_depth=depth))
+
+
+def torus_knot(dev, w=800, h=800, spp=1, depth=4):
+    """tests/test_tp_scale.py:27-49: a 102,400-triangle torus knot over a
+    ground sphere under a light."""
+    import path_tracer_tpu_torch as ptt
+    from path_tracer_tpu_torch.models.geometry import torus_knot as knot
+    world = ptt.HittableList()
+    world.add(ptt.Sphere.stationary((0, -1000, 0), 1000,
+                                    ptt.Lambertian((0.5, 0.5, 0.5))))
+    world.add(knot(ptt.Metal((0.75, 0.65, 0.5), 0.05), segments=400,
+                   sides=128, tube_radius=0.35, center=(0.0, 1.6, 0.0)))
+    world.add(ptt.Sphere.stationary((0, 7, 4), 2.0,
+                                    ptt.DiffuseLight((6, 6, 6))))
+    cam = ptt.Camera()
+    cam.vfov = 35
+    cam.lookfrom = np.array([9.0, 4.5, 7.0])
+    cam.lookat = np.array([0.0, 1.4, 0.0])
+    return compiled(world, cam, w, h, spp, depth, dev)
+
+
+def vol2(dev, w=800, h=450, spp=10, depth=10):
+    import path_tracer_tpu_torch as ptt
+    return compiled(*ptt.scenes.vol2_final_scene(sphere_cluster=1000), w, h,
+                    spp, depth, dev)
+
+
+# Rank jobs of the parallel phase: (world size, job names).
+RANK_RUNS = ((2, ("dp_wavefront", "dp_mega", "dp_train", "tp", "pp")),
+             (4, ("dp_tp",)))
+DP_TP = dict(w=400, h=225, spp=2, depth=10)
+TRAIN_SPP, TRAIN_LR = 4, 1e-9
+
+
+def run_ranks(world, jobs, out_dir, timeout=420):
+    """Run this script's ``jobs`` on ``world`` rank processes (the port's
+    launcher: a free port, every rank killed as soon as one fails)."""
+    from path_tracer_tpu_torch.parallel.launch import run_ranks as launch
+    return launch(world, lambda r, port: [
+        sys.executable, os.path.abspath(__file__), "--rank", str(r),
+        str(world), str(port), out_dir, *jobs], out_dir, timeout)
+
+
+def rank_main(argv) -> int:
+    """One rank of the parallel phase: ``--rank RANK WORLD PORT DIR JOB..``.
+    Joins a gloo job on 127.0.0.1:PORT (the ranks share card 0), runs each
+    job with the launch counts set to 0 just before and read just after,
+    and saves ``DIR/<job>.<rank>.pt``."""
+    rank, world, port, out_dir, jobs = (int(argv[0]), int(argv[1]), argv[2],
+                                        argv[3], argv[4:])
+    import torch.distributed as dist
+    from path_tracer_tpu_torch import parallel as par
+    from path_tracer_tpu_torch.ops import kernels
+    from path_tracer_tpu_torch.utils import rng
+    torch.set_num_threads(2)
+    par.init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    dev = torch.device("cuda")
+    kernels.build()
+    key = rng.key(0, device=dev)
+    for job in jobs:
+        out = {}
+        if job in ("dp_wavefront", "dp_mega", "dp_train"):
+            mesh = par.make_mesh(world)
+            sc, fl, bvh, ca, cf = vol2(dev)
+        if job == "dp_mega":
+            par.render_sharded(sc, fl, bvh, ca, cf, key, mesh, 1)
+            run = lambda: par.render_sharded(  # noqa: E731
+                sc, fl, bvh, ca, cf, key, mesh, cf.samples_per_pixel)
+        elif job == "dp_wavefront":
+            par.render_sharded_wavefront(sc, fl, bvh, ca, cf, key, mesh, spp=1,
+                                         queue_size=32768, steps_per_wave=32)
+            run = lambda: par.render_sharded_wavefront(  # noqa: E731
+                sc, fl, bvh, ca, cf, key, mesh, spp=cf.samples_per_pixel,
+                queue_size=32768, steps_per_wave=32, with_stats=True)
+        elif job == "dp_train":
+            cf = dataclasses.replace(cf, samples_per_pixel=TRAIN_SPP)
+            inp = torch.load(os.path.join(out_dir, "train_inputs.pt"))
+            params = {k: v.to(dev) for k, v in inp["params"].items()}
+            target = inp["target"].to(dev)
+            n_waves = par.calibrate_n_waves(
+                dataclasses.replace(sc, **params), fl, bvh, ca, cf, key,
+                spp=TRAIN_SPP, queue_size=32768, steps_per_wave=32, mesh=mesh)
+            step = par.make_train_step(fl, cf, mesh, spp=TRAIN_SPP,
+                                       lr=TRAIN_LR, queue_size=32768,
+                                       steps_per_wave=32, n_waves=n_waves,
+                                       unbiased=True)
+            step(params, sc, bvh, ca, rng.fold_in(key, 99), target)
+            out["n_waves"] = n_waves
+            run = lambda: step(params, sc, bvh, ca,  # noqa: E731
+                               rng.fold_in(key, 0), target)
+        elif job in ("tp", "pp"):
+            axis = "t" if job == "tp" else "p"
+            mesh = par.make_mesh(world, axis)
+            sc, fl, _, ca, cf = torus_knot(dev)
+            sc_s, bv_s = par.shard_scene(sc, world)
+            fn = par.render_tp if job == "tp" else par.render_pp
+            run = lambda: fn(sc_s, fl, bv_s, ca, cf, key, mesh,  # noqa: E731
+                             axis=axis)
+        elif job == "dp_tp":
+            mesh = par.make_mesh((2, world // 2), ("d", "t"))
+            sc, fl, _, ca, cf = vol2(dev, **DP_TP)
+            sc_s, bv_s = par.shard_scene(sc, world // 2)
+            run = lambda: par.render_dp_tp(  # noqa: E731
+                sc_s, fl, bv_s, ca, cf, key, mesh, spp=cf.samples_per_pixel)
+        else:
+            raise ValueError(f"unknown rank job {job!r}")
+        dist.barrier()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+        out["launches"] = dict(kernels.LAUNCHES)
+        if job == "dp_wavefront":
+            out["image"], out["stats"] = res[0].cpu(), {
+                k: v.cpu() for k, v in res[1].items()}
+        elif job == "dp_train":
+            _, loss, grads, aux = res
+            out.update(loss=float(loss), aux=aux,
+                       grads={k: v.cpu() for k, v in grads.items()})
+        else:
+            out["image"] = res.cpu()
+        torch.save(out, os.path.join(out_dir, f"{job}.{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     # --- 1. device ---
     if not torch.cuda.is_available():
@@ -248,6 +421,8 @@ def main() -> int:
     from path_tracer_tpu_torch.parallel import (calibrate_n_waves,
                                                 make_train_step)
     from path_tracer_tpu_torch.ops import shade_tiled, traverse
+    from path_tracer_tpu_torch.ops import integrator_tiled as itl
+    from path_tracer_tpu_torch.parallel import pipeline, scene_shard
     from path_tracer_tpu_torch.ops.shade import SceneFlags
     from path_tracer_tpu_torch.ops.types import (C_DEPTH_SUM, C_DO_CTRL,
                                                  C_DONE, C_N_OCC, C_RAYS,
@@ -277,10 +452,12 @@ def main() -> int:
         phase("build", f"{n}: (registers, stack frame) {got}, recorded {want} "
               f"{'PASS' if got == want else 'FAIL'}")
         assert got == want, f"{n} ptxas resources changed: {got} != {want}"
-    if "adjoint" in kernels.BUILD_LOG:
-        for n in ("adjoint", "adjoint_full"):
+    for n in ("adjoint", "adjoint_full", "closest_hit", "ring_hop",
+              "tiled_trip", "tiled_trip_rec", "tiled_spawn"):
+        src = kernels.SOURCE_OF[n]
+        if src in kernels.BUILD_LOG:
             phase("build", f"{n}: (registers, stack frame) "
-                  f"{ptxas_resources(kernels.BUILD_LOG['adjoint'], n)}")
+                  f"{ptxas_resources(kernels.BUILD_LOG[src], n)}")
 
     # --- 3. kernel vs twin at the full configuration's shapes ---
     dev = torch.device("cuda")
@@ -590,6 +767,196 @@ def main() -> int:
           + f" {'PASS' if ok_mq else 'FAIL'}")
     torch.cuda.empty_cache()
 
+    # The tiled engine's kernels on every lane of an 800x450 vol2_final
+    # sample: the tiled spawn (B3) against spawn_paths, then after three
+    # trips of the kernels K7 (closest_hit, the main and the volume-exit
+    # query) and K8 (tiled_trip) against their plain versions on one state.
+    def clone_state(st_):
+        return itl.PathState(*(x.clone() for x in st_))
+
+    def restore_state(dst, src):
+        for d_, s_ in zip(dst, src):
+            d_.copy_(s_)
+
+    def trip_check(kst_, pst_, live_, snap_):
+        """K8's state against the plain trip's on the live lanes, dead
+        lanes frozen → (ok, share of live lanes alike, max abs err).  Every
+        live lane must agree on alive and depth."""
+        same_ = (kst_.alive == pst_.alive) & (kst_.depth == pst_.depth)
+        frac_ = float(same_[live_].float().mean())
+        rest_ = same_ & live_
+        fl_f = ("origin", "direction", "color", "throughput")
+        err_ = max(float((getattr(kst_, f) - getattr(pst_, f))[rest_].abs()
+                         .max()) for f in fl_f)
+        frozen = all(torch.equal(x[~live_], y[~live_])
+                     for x, y in zip(kst_, snap_))
+        ok_ = frac_ == 1.0 and frozen and all(
+            torch.allclose(getattr(kst_, f)[rest_], getattr(pst_, f)[rest_],
+                           rtol=1e-4, atol=1e-4) for f in fl_f)
+        return ok_, frac_, err_
+
+    NL = W * H
+    teng = itl.TiledEngine(scene, flags, bvh, cam_a, cfg, key)
+    tpix = torch.arange(NL, dtype=torch.int32, device=dev)
+    t_min_v = torch.full((NL,), cfg.t_min, device=dev)
+    shade_bytes = 4 * sum(x.numel() for x in (teng.tabs.prim, teng.tabs.mat,
+                                              teng.tabs.tex, teng.tabs.med))
+
+    def query(st_, tmin_, act_, plain=False, ctr=None, bvh_=bvh):
+        fn = itl.closest_hit_plain if plain else itl.closest_hit_batched
+        return fn(bvh_, st_.origin, st_.direction, st_.time, tmin_, cfg.t_max,
+                  cfg.stack_depth, active=act_, ctr=ctr)
+
+    sk = itl.tiled_spawn(teng, 0, tpix)
+    sp_ = shade_tiled.spawn_paths(cam_a, cfg, key, torch.zeros_like(tpix), tpix)
+    err_s = max(float((sk.origin - sp_.origin).abs().max())
+                / max(float(sp_.origin.abs().max()), 1.0),
+                float((sk.direction - sp_.direction).abs().max()))
+    ok_s = err_s <= 1e-6 and torch.equal(sk.time, sp_.time) and all(
+        torch.equal(getattr(sk, f), getattr(sp_, f))
+        for f in ("color", "throughput", "depth", "iters", "alive"))
+    ms_s = cuda_ms(lambda: itl.tiled_spawn(teng, 0, tpix))
+    pms_s = cuda_ms(lambda: shade_tiled.spawn_paths(
+        cam_a, cfg, key, torch.zeros_like(tpix), tpix), reps=5)
+    results["tiled_spawn"] = dict(ok=ok_s, err=err_s, ms=ms_s, plain_ms=pms_s,
+                                  bytes=NL * (4 + STATE_BYTES),
+                                  ops=NL * (6 * 110 + 60), library_ms=None)
+    phase("kernels", f"tiled_spawn: {NL} lanes, rays rel err {err_s:.2e}, "
+          f"time and fresh state exact, {ms_s:.3f} ms (plain {pms_s:.2f} ms) "
+          f"{'PASS' if ok_s else 'FAIL'}")
+    tst = sk
+    for _ in range(3):                        # mid-frame lanes
+        h_ = query(tst, t_min_v, tst.alive)
+        e_ = query(tst, h_[3] + 1e-4, tst.alive & h_[0])
+        tst = itl.tiled_trip(teng, tst, 0, tpix, h_[:3], e_)
+    live = tst.alive.clone()
+    n_live = int(live.sum())
+    c_k, c_p = itl.new_counters(dev), itl.new_counters(dev)
+    hk = query(tst, t_min_v, live, ctr=c_k)
+    hp = query(tst, t_min_v, live, plain=True, ctr=c_p)
+    steps7 = int(c_k[C_TRAV_STEPS])
+    ek = query(tst, hk[3] + 1e-4, live & hk[0], ctr=c_k)
+    ep = query(tst, hk[3] + 1e-4, live & hk[0], plain=True, ctr=c_p)
+    eq = torch.cat([(a_[0] == b_[0]) & (a_[1] == b_[1]) & (a_[2] == b_[2])
+                    for a_, b_ in ((hk, hp), (ek, ep))])
+    tk_, tp_ = torch.cat([hk[3], ek[3]]), torch.cat([hp[3], ep[3]])
+    frac7 = float(eq.float().mean())
+    rel7 = float(((tk_ - tp_).abs() / tp_.abs().clamp(min=1e-6))[eq].max())
+    err7 = float((tk_ - tp_)[eq].abs().max())
+    ok7 = frac7 == 1.0 and rel7 <= 1e-5
+    ms7 = cuda_ms(lambda: query(tst, t_min_v, live))
+    pms7 = cuda_ms(lambda: query(tst, t_min_v, live, plain=True), reps=1)
+    # Bytes: the node rows once; per lane its mask read and its result (13
+    # B) written, per live lane its ray (32 B) read.  Operations: ~220 per
+    # traversal step of the main query.
+    byts7 = node_bytes + NL * 14 + n_live * 32
+    results["closest_hit"] = dict(ok=ok7, err=err7, ms=ms7, plain_ms=pms7,
+                                  bytes=byts7, ops=steps7 * 220,
+                                  library_ms=None)
+    phase("kernels", f"closest_hit: vol2_final 800x450 sample 0 after 3 "
+          f"trips, {n_live} live lanes: main and exit queries match "
+          f"{frac7:.6f} of lanes, t max rel {rel7:.2e}, traversal steps "
+          f"{int(c_k[C_TRAV_STEPS])} (plain {int(c_p[C_TRAV_STEPS])}; main "
+          f"query {steps7}), {ms7:.3f} ms per main query (plain {pms7:.1f} "
+          f"ms), bound inputs: bytes {byts7}, fp32 ops {steps7 * 220} "
+          f"{'PASS' if ok7 else 'FAIL'}")
+    snap8 = clone_state(tst)
+    ks, c8k, c8p = clone_state(snap8), itl.new_counters(dev), itl.new_counters(dev)
+    itl.tiled_trip(teng, ks, 0, tpix, hk[:3], ek, ctr=c8k)
+    ps = itl.tiled_trip_plain(teng, snap8, 0, tpix, hk[:3], ek, ctr=c8p)
+    ok8, frac8, err8 = trip_check(ks, ps, live, snap8)
+    walk8 = int(c8k[C_WALK_STEPS])
+    ok8 = ok8 and walk8 == int(c8p[C_WALK_STEPS])
+    work8 = clone_state(snap8)
+    ms8 = cuda_ms(lambda: itl.tiled_trip(teng, work8, 0, tpix, hk[:3], ek),
+                  setup=lambda: restore_state(work8, snap8))
+    pms8 = cuda_ms(lambda: itl.tiled_trip_plain(teng, snap8, 0, tpix, hk[:3],
+                                                ek), reps=1)
+    # Bytes: per lane its flag, per live lane its state read and written,
+    # its pixel and both queries' results; the shade tables once.
+    byts8 = shade_bytes + NL + n_live * (2 * STATE_BYTES + 4 + 9 + 13)
+    ops8 = n_live * BOUNCE_OPS + walk8 * WALK_TRIP_OPS
+    results["tiled_trip"] = dict(ok=ok8, err=err8, ms=ms8, plain_ms=pms8,
+                                 bytes=byts8, ops=ops8, library_ms=None)
+    phase("kernels", f"tiled_trip: {n_live} live lanes, alive/depth match "
+          f"{frac8:.6f}, dead lanes frozen, float max abs err {err8:.2e}, "
+          f"walk steps {walk8}, {ms8:.3f} ms (plain {pms8:.1f} ms), bound "
+          f"inputs: bytes {byts8}, fp32 ops {ops8} {'PASS' if ok8 else 'FAIL'}")
+    del teng, sk, sp_, tst, snap8, ks, ps, work8, hk, hp, ek, ep
+    torch.cuda.empty_cache()
+
+    # K9 (ring_hop) and K8's rec variant on shard 0 of the torus knot
+    # sharded two ways, every camera ray of an 800x800 frame: one hop from
+    # the empty bundle, then the bounce of the carried record.
+    sc_k, fl_k, bv_k, ca_k, cf_k = torus_knot(dev)
+    sc_kt, bv_kt = scene_shard.shard_scene(sc_k, 2)
+    sc_l, bv_l = scene_shard.local_shard(sc_kt, bv_kt, 0)
+    keng = itl.TiledEngine(sc_l, fl_k, bv_l, ca_k, cf_k, key)
+    KL = cf_k.width * cf_k.height
+    kpix = torch.arange(KL, dtype=torch.int32, device=dev)
+    kst = itl.tiled_spawn(keng, 0, kpix)
+    kt_min = torch.full((KL,), cf_k.t_min, device=dev)
+    carry0 = (torch.zeros((KL,), dtype=torch.bool, device=dev),
+              torch.full((KL,), 1e30, device=dev),
+              pipeline._empty_rec(KL, dev))
+    kk = tuple(x.clone() for x in carry0)
+    kp = tuple(x.clone() for x in carry0)
+    c9k, c9p = itl.new_counters(dev), itl.new_counters(dev)
+    ray = (kst.origin, kst.direction, kst.time, kt_min, kst.alive)
+    pipeline.ring_hop(keng, *ray, *kk, ctr=c9k)
+    pipeline.ring_hop_plain(keng, *ray, *kp, ctr=c9p)
+    err9 = float((kk[2] - kp[2]).abs().max())
+    ok9 = (torch.equal(kk[0], kp[0]) and torch.equal(kk[1], kp[1])
+           and torch.allclose(kk[2], kp[2], rtol=1e-4, atol=1e-4))
+    # From the empty bundle every hit of this stage wins the merge.
+    n_hit9, steps9 = int(kk[0].sum()), int(c9k[C_TRAV_STEPS])
+    work9 = tuple(x.clone() for x in carry0)
+    ms9 = cuda_ms(lambda: pipeline.ring_hop(keng, *ray, *work9),
+                  setup=lambda: restore_state(work9, carry0))
+    pms9 = cuda_ms(lambda: pipeline.ring_hop_plain(
+        keng, *ray, *work9), setup=lambda: restore_state(work9, carry0),
+        reps=1)
+    node9 = bv_l.nodes.numel() * 4
+    # Bytes: the shard's node rows once, per lane its ray and mask read
+    # (33 B); per hit the carried best t read (4 B), the primitive row
+    # (64 B), and, where the hit wins, found, t and the record written (53 B).
+    byts9 = node9 + KL * 33 + n_hit9 * (4 + 64 + 53)
+    ops9 = steps9 * 220 + n_hit9 * REFINE_OPS
+    results["ring_hop"] = dict(ok=ok9, err=err9, ms=ms9, plain_ms=pms9,
+                               bytes=byts9, ops=ops9, library_ms=None)
+    phase("kernels", f"ring_hop: torus knot shard 0 of 2 "
+          f"({int(sc_l.tr_valid.sum())} triangles), {KL} camera rays: found "
+          f"and t exact, record max abs err {err9:.2e}, {n_hit9} hits, "
+          f"traversal steps {steps9} (plain {int(c9p[C_TRAV_STEPS])}), "
+          f"{ms9:.3f} ms (plain {pms9:.1f} ms), bound inputs: bytes {byts9}, "
+          f"fp32 ops {ops9} {'PASS' if ok9 else 'FAIL'}")
+    zi = torch.zeros((KL,), dtype=torch.int32, device=dev)
+    hit_r = (kk[0], zi, zi)
+    snap_r = clone_state(kst)
+    kr = clone_state(snap_r)
+    itl.tiled_trip(keng, kr, 0, kpix, hit_r, rec=kk[2])
+    pr = itl.tiled_trip_plain(keng, snap_r, 0, kpix, hit_r, rec=kk[2])
+    ok_r, frac_r, err_r = trip_check(kr, pr, snap_r.alive, snap_r)
+    work_r = clone_state(snap_r)
+    ms_r = cuda_ms(lambda: itl.tiled_trip(keng, work_r, 0, kpix, hit_r,
+                                          rec=kk[2]),
+                   setup=lambda: restore_state(work_r, snap_r))
+    pms_r = cuda_ms(lambda: itl.tiled_trip_plain(keng, snap_r, 0, kpix, hit_r,
+                                                 rec=kk[2]), reps=1)
+    n_live_r = int(snap_r.alive.sum())
+    byts_r = (4 * (keng.tabs.mat.numel() + keng.tabs.tex.numel()) + KL
+              + n_live_r * (2 * STATE_BYTES + 4 + 1 + 4 * 12))
+    results["tiled_trip_rec"] = dict(ok=ok_r, err=err_r, ms=ms_r,
+                                     plain_ms=pms_r, bytes=byts_r,
+                                     ops=n_live_r * BOUNCE_OPS,
+                                     library_ms=None)
+    phase("kernels", f"tiled_trip_rec: the carried records of {n_live_r} "
+          f"lanes, alive/depth match {frac_r:.6f}, float max abs err "
+          f"{err_r:.2e}, {ms_r:.3f} ms (plain {pms_r:.1f} ms) "
+          f"{'PASS' if ok_r else 'FAIL'}")
+    del keng, kst, kk, kp, work9, snap_r, kr, pr, work_r, sc_kt, bv_kt
+    torch.cuda.empty_cache()
+
     # K6 adjoint against its plain version (autograd of the twin's replay)
     def prepare(world_, cam_, w, h, spp, depth):
         cam_.aspect_ratio, cam_.img_width = w / h, w
@@ -870,8 +1237,8 @@ def main() -> int:
         W, H, SPP, DEPTH, WAVE_KERNELS, kernels)
     png = os.path.join(RUN_DIR, "vol2_final_800x450_10spp.png")
     rec["main"].pop("r").write_image(png)
-    phase("main", f"image mean {float(rec['main'].pop('img').mean()):.5f}, "
-          f"written to {png}")
+    main_img = rec["main"].pop("img")
+    phase("main", f"image mean {float(main_img.mean()):.5f}, written to {png}")
 
     # --- 5. the megakernel on the same frame ---
     rec["main-mega"] = frame_phase(
@@ -880,8 +1247,9 @@ def main() -> int:
         W, H, SPP, DEPTH, ("megakernel",), kernels)
     png = os.path.join(RUN_DIR, "vol2_final_800x450_10spp_mega.png")
     rec["main-mega"].pop("r").write_image(png)
-    phase("main-mega", f"image mean "
-          f"{float(rec['main-mega'].pop('img').mean()):.5f}, written to {png}")
+    mega_img = rec["main-mega"].pop("img")
+    phase("main-mega", f"image mean {float(mega_img.mean()):.5f}, written to "
+          f"{png}")
 
     # --- 6. mesh_perlin_sss through both engines ---
     for engine, names in (("wavefront", WAVE_KERNELS),
@@ -893,6 +1261,66 @@ def main() -> int:
         assert rec[tag]["walk_steps"] > 0, "no SSS walk steps"
         rec[tag].pop("r")
         rec[tag].pop("img")
+
+    # --- 9. the tiled engine on the vol2_final frame ---
+    def tiled_frame():
+        out = ptt.render_tiled(scene, flags, bvh, cam_a, cfg, key, spp=SPP,
+                               with_stats=True)
+        torch.cuda.synchronize()
+        return out
+
+    ptt.render_tiled(scene, flags, bvh, cam_a, cfg, key, spp=1)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    timg, tstats = tiled_frame()
+    wall = time.perf_counter() - t0
+    tl_frame = dict(kernels.LAUNCHES)
+    walls = [wall]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        tiled_frame()
+        walls.append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tiled_frame()
+        prof_wall = time.perf_counter() - t0
+    totals = {n: sum(ev.device_time_total / 1e3 for ev in prof.key_averages()
+                     if ev.key.startswith(f"{n}_kernel"))
+              for n in TILED_KERNELS}
+    idle = 1 - sum(totals.values()) / (1e3 * prof_wall)
+    timg_np = timg.detach().cpu().numpy()
+    t_ok, t_outl, t_clean = graded_agreement(timg_np, mega_img)
+    want = {"closest_hit": 2 * cfg.iters * SPP, "tiled_trip": cfg.iters * SPP,
+            "tiled_spawn": SPP}
+    launch_ok = all(tl_frame[n] == v for n, v in want.items()) and all(
+        tl_frame[n] == 0 for n in WAVE_KERNELS + ("megakernel",))
+    tiled_ok = (t_ok and launch_ok and bool(np.isfinite(timg_np).all())
+                and float(timg_np.mean()) > 0)
+    rec["tiled"] = dict(wall=wall, walls=walls,
+                        mrays_ub=W * H * SPP * DEPTH / wall / 1e6,
+                        trav_steps=int(tstats["trav_steps"]),
+                        walk_steps=int(tstats["walk_steps"]),
+                        launches=tl_frame, kernel_totals_ms=totals,
+                        profiled_wall_ms=1e3 * prof_wall, idle_share=idle,
+                        outliers=t_outl, clean_mean=t_clean, ok=tiled_ok)
+    phase("tiled", f"render_tiled vol2_final {W}x{H} {SPP} spp depth {DEPTH} "
+          f"({cfg.iters} trips): wall {wall:.4f} s, upper-bound "
+          f"{rec['tiled']['mrays_ub']:.3f} Mrays/s, traversal steps "
+          f"{rec['tiled']['trav_steps']}, launches {tl_frame}; frame walls "
+          + ", ".join(f"{w_:.4f}" for w_ in walls)
+          + f" (median {statistics.median(walls):.4f}; megakernel "
+          f"{statistics.median(rec['main-mega']['walls']):.4f}, wavefront "
+          f"{statistics.median(rec['main']['walls']):.4f}); device ms "
+          + ", ".join(f"{n}={v:.2f}" for n, v in totals.items())
+          + f" of {1e3 * prof_wall:.2f} ms under the profiler (idle "
+          f"{idle:.3f}); image vs K5's: outliers {t_outl:.5f}, clean mean "
+          f"{t_clean:.2e}, launches as expected {launch_ok} -> "
+          f"{'PASS' if tiled_ok else 'FAIL'}")
+    del timg, tstats
+    torch.cuda.empty_cache()
 
     # --- 7. whole-image agreement, kernels vs twins on the card ---
     ws_, hs_ = 160, 90
@@ -983,10 +1411,13 @@ def main() -> int:
             return out
         return wrapped
 
-    def train_phase(tag, world_, cam_, w, h, spp, depth, inits, lr):
+    def train_phase(tag, world_, cam_, w, h, spp, depth, inits, lr,
+                    engine="wavefront"):
         """Three make_train_step steps after a warm-up on the leaves of
         ``inits`` ({leaf: its start from the truth}); the launch counts
-        are set to 0 just before the three and read just after."""
+        are set to 0 just before the three and read just after.  The
+        forward time is the engine's renders (``render_batch`` or
+        ``render_tiled``)."""
         sc_, fl_, bv_, ca_, cf_ = prepare(world_, cam_, w, h, spp, depth)
         zero_ = torch.zeros((h, w, 3), device=dev)
         target = wf.render_batch(sc_, fl_, bv_, ca_, cf_, zero_, 0, 32,
@@ -996,13 +1427,15 @@ def main() -> int:
         n_waves = calibrate_n_waves(dataclasses.replace(sc_, **params), fl_,
                                     bv_, ca_, cf_, key, spp=spp,
                                     queue_size=32768, steps_per_wave=32)
-        step = make_train_step(fl_, cf_, None, spp=spp, lr=lr,
+        step = make_train_step(fl_, cf_, None, spp=spp, lr=lr, engine=engine,
                                queue_size=32768, steps_per_wave=32,
                                n_waves=n_waves, unbiased=True)
         step(params, sc_, bv_, ca_, rng.fold_in(key, 99), target)  # warm-up
         fwd, bwd = [], []
-        real_rb, real_vjp = wf.render_batch, adjoint.kernel_vjp
-        wf.render_batch = timed(real_rb, fwd)
+        fmod, fname = ((wf, "render_batch") if engine == "wavefront"
+                       else (itl, "render_tiled"))
+        real_rb, real_vjp = getattr(fmod, fname), adjoint.kernel_vjp
+        setattr(fmod, fname, timed(real_rb, fwd))
         adjoint.kernel_vjp = timed(real_vjp, bwd)
         rows = []
         try:
@@ -1027,7 +1460,8 @@ def main() -> int:
                                  grads=grads))
             launches_ = dict(kernels.LAUNCHES)
         finally:
-            wf.render_batch, adjoint.kernel_vjp = real_rb, real_vjp
+            setattr(fmod, fname, real_rb)
+            adjoint.kernel_vjp = real_vjp
         for i, r in enumerate(rows):
             phase(tag, f"step {i}: loss {r['loss']:.6g}, forward "
                   f"{r['fwd_ms']:.2f} ms ({r['renders']} renders), backward "
@@ -1135,6 +1569,7 @@ def main() -> int:
         "mat_scatter_dist": set_rows(perturbed_q["mat_scatter_dist"], 0.3),
         "tr_v0": shift_rows(perturbed_q["tr_v0"], (0.0, 0.02, 0.0)),
         "perlin_vec": lambda x: x * 1.1}
+    grads0 = {}
     for tag, label, world_, cam_, w, h, depth, inits, perturbed, lr in (
             ("train-vol2", "vol2_final",
              *ptt.scenes.vol2_final_scene(sphere_cluster=1000), W, H, DEPTH,
@@ -1144,6 +1579,7 @@ def main() -> int:
         _, _, _, _, _, rows_f, tl_f = train_phase(
             tag, world_, cam_, w, h, 4, depth, inits, lr)
         ok_f = tl_f["adjoint_full"] == 3 * 4 and tl_f["adjoint"] == 0
+        grads0[label] = rows_f[0]["grads"]
         for r in rows_f:
             grads = r.pop("grads")
             r["zero_leaves"] = [n for n, idx in perturbed.items()
@@ -1162,6 +1598,35 @@ def main() -> int:
         train_rec[label] = dict(rows=rows_f, launches=tl_f)
         torch.cuda.empty_cache()
 
+    # The vol2_final step on the tiled engine (engine="megakernel", as JAX
+    # runs it): K7 + K8 forward, the full K6 backward; its first step's
+    # gradients against the wavefront step's (same parameters, key and
+    # sample set).
+    _, _, _, _, _, rows_tt, tl_tt = train_phase(
+        "train-tiled", *ptt.scenes.vol2_final_scene(sphere_cluster=1000), W,
+        H, TRAIN_SPP, DEPTH, inits_v, TRAIN_LR, engine="megakernel")
+    g_t, g_w = rows_tt[0]["grads"], grads0["vol2_final"]
+    rel_tt = {n: float((g_t[n] - g_w[n]).norm() / g_w[n].norm().clamp(
+        min=1e-30)) for n in g_w}
+    ok_tt = (all(v <= 1e-3 for v in rel_tt.values())
+             and tl_tt["adjoint_full"] == 3 * TRAIN_SPP
+             and all(tl_tt[n] > 0 for n in TILED_KERNELS)
+             and all(tl_tt[n] == 0 for n in WAVE_KERNELS)
+             and all(r["grad_finite"] and np.isfinite(r["loss"])
+                     for r in rows_tt))
+    for r in rows_tt:
+        r.pop("grads")
+    phase("train-tiled", f"vol2_final {W}x{H} {TRAIN_SPP} spp, step 0 "
+          f"gradients vs the wavefront step's, rel L2 per leaf "
+          + ", ".join(f"{n} {v:.2e}" for n, v in rel_tt.items())
+          + f"; full K6 launches per step {tl_tt['adjoint_full'] / 3:g}, "
+          f"backward/forward {[round(r['bwd_ms'] / r['fwd_ms'], 3) for r in rows_tt]}"
+          f" -> {'PASS' if ok_tt else 'FAIL'}")
+    train_ok = train_ok and ok_tt
+    train_rec["tiled vol2_final"] = dict(rows=rows_tt, launches=tl_tt,
+                                         grad_rel=rel_tt)
+    torch.cuda.empty_cache()
+
     # K6 on one 800x800 cornell_box sample against its plain version
     r6 = adjoint_pair(sc_c, fl_c, bv_c, ca_c, cf_c, (0,), 2)
     r6.pop("g")
@@ -1178,12 +1643,143 @@ def main() -> int:
           f"{r6['k5_ms']:.3f} ms, plain {r6['plain_ms']:.1f} ms "
           f"{'PASS' if ok6 else 'FAIL'}")
 
-    # --- 9. the kernel table ---
+    # --- 10. ranks of a gloo job sharing the card ---
+    rank_dir = os.path.join(RUN_DIR, "ranks")
+    os.makedirs(rank_dir, exist_ok=True)
+    # The train job's inputs and its one-rank reference step.
+    sc_v, fl_v, bv_v, ca_v, cf_v = vol2(dev, spp=TRAIN_SPP)
+    params_v = {n: f(getattr(sc_v, n)) for n, f in inits_v.items()}
+    target_v = wf.render_batch(sc_v, fl_v, bv_v, ca_v, cf_v,
+                               torch.zeros((H, W, 3), device=dev), 0, 32,
+                               rng.key(10_000, device=dev), queue_size=32768,
+                               steps_per_wave=32) / 32
+    torch.save({"params": {k: v.cpu() for k, v in params_v.items()},
+                "target": target_v.cpu()},
+               os.path.join(rank_dir, "train_inputs.pt"))
+    nw_v = calibrate_n_waves(dataclasses.replace(sc_v, **params_v), fl_v, bv_v,
+                             ca_v, cf_v, key, spp=TRAIN_SPP, queue_size=32768,
+                             steps_per_wave=32)
+    step_v = make_train_step(fl_v, cf_v, None, spp=TRAIN_SPP, lr=TRAIN_LR,
+                             queue_size=32768, steps_per_wave=32,
+                             n_waves=nw_v, unbiased=True)
+    _, loss_1, grads_1, aux_1 = step_v(params_v, sc_v, bv_v, ca_v,
+                                       rng.fold_in(key, 0), target_v)
+    # One-rank tiled references of the torus knot and the DP x TP frame.
+    tp_ref = ptt.render_tiled(sc_k, fl_k, bv_k, ca_k, cf_k, key).cpu().numpy()
+    sc_d, fl_d, bv_d, ca_d, cf_d = vol2(dev, **DP_TP)
+    dptp_ref = ptt.render_tiled(sc_d, fl_d, bv_d, ca_d, cf_d,
+                                key).cpu().numpy()
+    del sc_v, bv_v, target_v, step_v, sc_d, bv_d
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    par_rec, par_ok = {}, True
+    for world_n, jobs in RANK_RUNS:
+        secs_ = run_ranks(world_n, jobs, rank_dir)
+        phase("parallel", f"{world_n} ranks ran {list(jobs)} in {secs_:.1f} s "
+              f"(process start and scene builds included)")
+        for job in jobs:
+            par_rec[job] = [torch.load(os.path.join(rank_dir, f"{job}.{r}.pt"))
+                            for r in range(world_n)]
+
+    def tp_rule(a, b):
+        """tests/test_tp_scale.py:63-65: pixels off by more than 1e-4 at
+        most 1%, the others' mean below 1e-6."""
+        d = np.abs(a - b).max(axis=-1)
+        outl = float((d > 1e-4).mean())
+        clean = float(d[d <= 1e-4].mean()) if (d <= 1e-4).any() else 0.0
+        return outl <= 0.01 and clean < 1e-6, outl, clean
+
+    def summed_launches(job):
+        return {n: sum(o["launches"][n] for o in par_rec[job])
+                for n in kernels.LAUNCHES}
+
+    # DP wavefront: the image against the one-rank frame of phase 4, the
+    # counters summed over the ranks against its counters.
+    dpw = par_rec["dp_wavefront"]
+    img_d = dpw[0]["image"].numpy()
+    st_d = dpw[0]["stats"]
+    same_img = all(torch.equal(o["image"], dpw[0]["image"]) for o in dpw)
+    err_d = float(np.abs(img_d - main_img).max())
+    ok_d = (same_img and np.allclose(img_d, main_img, rtol=1e-5, atol=1e-6)
+            and int(st_d["paths"]) == W * H * SPP
+            and int(st_d["rays"]) == rec["main"]["rays"]
+            and int(st_d["walk_steps"]) == rec["main"]["walk_steps"]
+            and int(st_d["stack_overflows"]) == 0
+            and all(summed_launches("dp_wavefront")[n] > 0
+                    for n in WAVE_KERNELS))
+    # DP megakernel: K5 over each rank's block, the same adds per pixel as
+    # the one-rank K5 frame of phase 5.
+    dpm = par_rec["dp_mega"]
+    img_m = dpm[0]["image"].numpy()
+    err_m = float(np.abs(img_m - mega_img).max())
+    ok_m = (all(torch.equal(o["image"], dpm[0]["image"]) for o in dpm)
+            and np.allclose(img_m, mega_img, rtol=1e-6, atol=1e-7)
+            and summed_launches("dp_mega")["megakernel"] == 2 * SPP)
+    phase("parallel", f"DP megakernel 2 ranks vol2_final {W}x{H} {SPP} spp: "
+          f"per-rank wall " + ", ".join(f"{o['wall']:.4f}" for o in dpm)
+          + f" s (one rank: {rec['main-mega']['wall']:.4f} s); image max abs "
+          f"diff vs one rank {err_m:.2e}, K5 launches "
+          f"{summed_launches('dp_mega')['megakernel']} -> "
+          f"{'PASS' if ok_m else 'FAIL'}")
+    par_ok = par_ok and ok_m
+    phase("parallel", f"DP wavefront 2 ranks vol2_final {W}x{H} {SPP} spp: "
+          f"per-rank wall " + ", ".join(f"{o['wall']:.4f}" for o in dpw)
+          + f" s (one rank: {rec['main']['wall']:.4f} s); image max abs diff "
+          f"vs one rank {err_d:.2e}, summed paths {int(st_d['paths'])} rays "
+          f"{int(st_d['rays'])} (one rank {rec['main']['rays']}), waves "
+          f"{int(st_d['waves'])}, launches {summed_launches('dp_wavefront')} "
+          f"-> {'PASS' if ok_d else 'FAIL'}")
+    par_ok = par_ok and ok_d
+    # DP train step: every rank's loss and gradients against one rank's.
+    dtr = par_rec["dp_train"]
+    rel_g = {n: max(float((o["grads"][n].to(dev) - g).norm()
+                          / g.norm().clamp(min=1e-30)) for o in dtr)
+             for n, g in grads_1.items()}
+    rel_l = max(abs(o["loss"] - float(loss_1)) / abs(float(loss_1))
+                for o in dtr)
+    ok_t = (all(v <= 1e-3 for v in rel_g.values()) and rel_l <= 1e-4
+            and all(o["aux"]["paths_done"] == o["aux"]["paths_total"]
+                    == aux_1["paths_total"] for o in dtr)
+            and summed_launches("dp_train")["adjoint_full"] == 2 * TRAIN_SPP)
+    phase("parallel", f"DP train step 2 ranks vol2_final {W}x{H} "
+          f"{TRAIN_SPP} spp: per-rank step wall "
+          + ", ".join(f"{o['wall']:.4f}" for o in dtr)
+          + f" s, n_waves per shard {[o['n_waves'] for o in dtr]} (frame "
+          f"{nw_v}); loss rel diff {rel_l:.2e}, gradient rel L2 vs one rank "
+          + ", ".join(f"{n} {v:.2e}" for n, v in rel_g.items())
+          + f", paths {dtr[0]['aux']['paths_done']}/"
+          f"{dtr[0]['aux']['paths_total']} -> {'PASS' if ok_t else 'FAIL'}")
+    par_ok = par_ok and ok_t
+    # TP, PP and DP x TP against the one-rank tiled images.
+    expect = {"tp": ("closest_hit", "tiled_trip", "tiled_spawn"),
+              "pp": ("ring_hop", "tiled_trip_rec", "tiled_spawn"),
+              "dp_tp": ("closest_hit", "tiled_trip", "tiled_spawn")}
+    for job, ref_ in (("tp", tp_ref), ("pp", tp_ref), ("dp_tp", dptp_ref)):
+        outs = par_rec[job]
+        rule_ok, outl, clean = tp_rule(outs[0]["image"].numpy(), ref_)
+        lj = summed_launches(job)
+        ok_j = (rule_ok and all(torch.equal(o["image"], outs[0]["image"])
+                                for o in outs)
+                and all(lj[n] > 0 for n in expect[job]))
+        phase("parallel", f"{job} {len(outs)} ranks: per-rank wall "
+              + ", ".join(f"{o['wall']:.4f}" for o in outs)
+              + f" s; vs the one-rank tiled image: outliers {outl:.5f}, clean "
+              f"mean {clean:.2e}; launches {lj} -> {'PASS' if ok_j else 'FAIL'}")
+        par_ok = par_ok and ok_j
+    par_summary = {job: dict(walls=[o["wall"] for o in outs],
+                             launches=summed_launches(job))
+                   for job, outs in par_rec.items()}
+
+    # --- 11. the kernel table ---
     launches = dict(rec["main"]["launches"])
     launches["megakernel"] = rec["main-mega"]["launches"]["megakernel"]
     launches["adjoint"] = train_rec["cornell_box"]["launches"]["adjoint"]
     launches["adjoint_full"] = (
         train_rec["vol2_final"]["launches"]["adjoint_full"])
+    for n in TILED_KERNELS:
+        launches[n] = rec["tiled"]["launches"][n]
+    for n in ("ring_hop", "tiled_trip_rec"):
+        launches[n] = par_summary["pp"]["launches"][n]
     table = []
     for n, (srcf, repl) in KERNELS.items():
         res = results[n]
@@ -1204,13 +1800,15 @@ def main() -> int:
                                for k in ("small", "full")},
                    "adjoint_full": {k: results["adjoint_full"][k]
                                     for k in ("rows", "fd")},
-                   "train": train_rec, "kernels": table},
+                   "train": train_rec, "parallel": par_summary,
+                   "kernels": table},
                   f, indent=1, default=str)
     failed = [t["name"] for t in table if not t["pass"]]
     print(json.dumps({"kernels": table}), flush=True)
-    if failed or not agree or not train_ok:
-        print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok}",
-              file=sys.stderr)
+    tiled_ok = rec["tiled"]["ok"]
+    if failed or not (agree and train_ok and tiled_ok and par_ok):
+        print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok} "
+              f"tiled={tiled_ok} parallel={par_ok}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1219,4 +1817,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -6,7 +6,10 @@ engine run as hand-written CUDA kernels (``csrc/``) on an NVIDIA H100, and
 as plain-torch twins on the CPU.  Entry points default to ``device="cuda"``;
 pass ``device="cpu"`` to run the twins.  Gradients with respect to scene
 leaves come from ``integrator.render(differentiable=True)``,
-``wavefront.render_batch_diff`` and ``parallel.make_train_step``.
+``wavefront.render_batch_diff``, ``integrator_tiled.render_tiled`` and
+``parallel.make_train_step``.  :mod:`.parallel` renders and trains over the
+ranks of a ``torch.distributed`` job: data, tensor (scene sharded by
+primitive) and pipeline parallel.
 
 Quick start::
 
@@ -27,8 +30,11 @@ from .models.textures import (CheckerTexture, ImageTexture, NoiseTexture,
                               SolidColor, Texture)
 from .ops.bvh_build import build_from_scene
 from .ops.integrator import trace_ray_scan
+from .ops.integrator_tiled import render_tiled
 from .ops.wavefront import render_batch_diff
-from .parallel import calibrate_n_waves, make_train_step
+from .parallel import (calibrate_n_waves, make_mesh, make_train_step,
+                       render_pp, render_sharded, render_sharded_wavefront,
+                       render_tp, shard_scene)
 from .ops.types import CameraArrays, FlatBVH, RenderConfig, SceneArrays
 from .render.factory import RendererFactory
 from .render.renderer import Renderer, render_scene
@@ -41,8 +47,10 @@ __all__ = [
     "NoiseTexture", "Quad", "RenderConfig", "Renderer", "RendererFactory",
     "SceneArrays", "SolidColor", "Sphere", "SubsurfaceSimple",
     "SubsurfaceVolumetric", "Texture", "Triangle", "box", "build_from_scene",
-    "calibrate_n_waves", "compile_scene", "make_train_step",
-    "render_batch_diff", "render_scene", "trace_ray_scan",
+    "calibrate_n_waves", "compile_scene", "make_mesh", "make_train_step",
+    "render_batch_diff", "render_pp", "render_scene", "render_sharded",
+    "render_sharded_wavefront", "render_tiled", "render_tp", "shard_scene",
+    "trace_ray_scan",
 ]
 
 __version__ = "0.1.0"

@@ -29,7 +29,8 @@
 // bounce (B4, shade_tiled.py:773) with its textures (B5), SSS walk (B6) and
 // refine_hit (traverse.py:558).
 //
-// One thread per pixel, one launch per sample, as K5: the thread replays
+// One thread per pixel of a block (frame pixels pix_offset .. + npix; delta
+// is the block's (npix, 3)), one launch per sample, as K5: the thread replays
 // its path with K5's code (path.cuh, bounce.cuh with a recorder) and the
 // same key folds, recording one tape entry per trip in local memory (at
 // most iters_cap <= PTT_TAPE_MAX), then sweeps the tape in reverse.
@@ -134,7 +135,7 @@ __device__ __forceinline__ void adjoint_pixel(const WaveArgs& a, int pix,
   MegaCount c{0, 0, 0};
   Tape rec{tape, 0};
   PathRegs p;
-  trace_path(a, pix, stack, c, p, &rec);
+  trace_path(a, a.pix_offset + pix, stack, c, p, &rec);
   const float d[3] = {a.delta[3 * (size_t)pix], a.delta[3 * (size_t)pix + 1],
                       a.delta[3 * (size_t)pix + 2]};
   // Colour leaf src (texture.cuh texture_src), component k.
@@ -168,8 +169,8 @@ __device__ __forceinline__ void adjoint_pixel_full(const WaveArgs& a, int pix,
   MegaCount c{0, 0, 0};
   TripTape rec{trips, 0};
   PathRegs p;
-  trace_path(a, pix, stack, c, p, &rec);
-  const Key key_p = path_key(a, a.start_sample, pix);
+  trace_path(a, a.pix_offset + pix, stack, c, p, &rec);
+  const Key key_p = path_key(a, a.start_sample, a.pix_offset + pix);
   const float d[3] = {a.delta[3 * (size_t)pix], a.delta[3 * (size_t)pix + 1],
                       a.delta[3 * (size_t)pix + 2]};
   PathAdj adj;

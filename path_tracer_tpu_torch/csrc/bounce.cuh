@@ -1,7 +1,7 @@
-// One bounce of one path, shared by K3 (shade, the wavefront) and K5
-// (megakernel): hit refinement -> constant-medium free flight -> scatter of
-// the seven families (with the SSS walk of sss.cuh) -> emission -> Russian
-// roulette.
+// One bounce of one path, shared by K3 (shade, the wavefront), K5
+// (megakernel) and K8 (tiled_trip): hit refinement -> constant-medium free
+// flight -> scatter of the seven families (with the SSS walk of sss.cuh) ->
+// emission -> Russian roulette.
 //
 // Device copy of path_tracer_tpu/ops/shade_tiled.py bounce_shade_t (:773)
 // and ops/integrator.py bounce_shade (:123), with refine_hit_t (:155),
@@ -143,13 +143,16 @@ __device__ __forceinline__ Hit refine_hit(const WaveArgs& a, int ptype,
 // t_exit, exit_is_medium).  kit = fold_in(key_p, iters).  Updates p (next
 // segment, radiance, throughput, depth, iters + 1, alive) and returns the
 // SSS walk's walking trips.  `tape`, when Rec::kOn, records the trip's
-// colour events (see the note at the top).
-template <class Rec = NoTape>
+// colour events (see the note at the top).  With kInj the hit record is
+// *inj (the pipeline mode's record, refined on the stage that owns the
+// primitive; K8's rec variant) and (r_pt, r_pi) are not read.
+template <class Rec = NoTape, bool kInj = false>
 __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
                                       bool found, int r_pt, int r_pi,
                                       bool exit_found, float t_exit,
                                       bool exit_is_medium, Key kit,
-                                      Rec* tape = nullptr) {
+                                      Rec* tape = nullptr,
+                                      const Hit* inj = nullptr) {
   const float ox = p.o[0], oy = p.o[1], oz = p.o[2];
   const float dx = p.d[0], dy = p.d[1], dz = p.d[2];
   const float time = p.time;
@@ -162,7 +165,9 @@ __device__ __forceinline__ int bounce(const WaveArgs& a, PathRegs& p,
   if constexpr (Rec::kOn) tape->begin(thr);
 
   Hit rec;
-  if (r_pt >= 0) {
+  if constexpr (kInj) {
+    rec = *inj;
+  } else if (r_pt >= 0) {
     rec = refine_hit(a, r_pt, r_pi, ox, oy, oz, dx, dy, dz, time, a.t_min);
   } else {
     rec = Hit{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, 0, -1};

@@ -1,0 +1,129 @@
+// K7 closest_hit and K9 ring_hop: one closest-hit query per lane, walked to
+// completion.
+//
+// K7 replaces path_tracer_tpu/ops/integrator_tiled.py closest_hit_batched
+// (:46), the query of the tiled engine (B12) and, per shard, of the
+// tensor-parallel mode (parallel/scene_shard.py _traverse_tp, :121; B14).
+// One thread per lane runs the per-ray BVH4 walk of traverse.cuh from the
+// lane's own start q_tmin (the main query's t_min, or the volume-exit
+// query's t_hit + 1e-4) to completion, with K5's local stack; a lane that is
+// not q_active does not walk and reports no hit (found false, pt = pi = -1,
+// t = t_max).  It writes hit_found, hit_pt, hit_pi and hit_t.
+//
+// K9 is the same walk with the epilogue of one hop of the pipeline ring
+// (parallel/pipeline.py _ring_closest_hit, :82-94; B14): where this stage's
+// hit is closer than the carried best (hit_t), it refines the full hit
+// record from this stage's primitive rows (refine_hit_t, shade_tiled.py:155)
+// into rec and sets hit_found and hit_t; the carried bundle then moves to
+// the next stage (a point-to-point hop outside the kernel).
+//
+// Traversal steps and dropped pushes are reduced per block and added to
+// ctr[C_TRAV_STEPS] and ctr[C_STACK_OVF].
+//
+// Bound: as K5's walk, dependent node-row gathers (one 384-byte row per
+// step, the rows L2-resident) and divergence between lanes whose walks end
+// after different numbers of steps; ~220 fp32 ops per step.  The simple
+// design keeps one lane per thread and a 64-entry local stack.
+#include "path.cuh"
+
+// The query of lane i: walked to completion from its start, or no hit.
+__device__ __forceinline__ void query_lane(const WaveArgs& a, int i,
+                                           int* stack, MegaCount& c,
+                                           int& pt, int& pi, float& t) {
+  pt = pi = -1;
+  t = a.t_max;
+  if (a.q_active != nullptr && !a.q_active[i]) return;
+  const float o[3] = {a.origin[3 * i], a.origin[3 * i + 1],
+                      a.origin[3 * i + 2]};
+  const float d[3] = {a.direction[3 * i], a.direction[3 * i + 1],
+                      a.direction[3 * i + 2]};
+  const float t_min = a.q_tmin != nullptr ? a.q_tmin[i] : a.t_min;
+  trav_full(a, o, d, a.time[i], t_min, stack, t, pt, pi, c);
+}
+
+// K7's lane: the query's result.
+__device__ __forceinline__ void closest_hit_lane(const WaveArgs& a, int i,
+                                                 int* stack, MegaCount& c) {
+  int pt, pi;
+  float t;
+  query_lane(a, i, stack, c, pt, pi, t);
+  a.hit_found[i] = pt >= 0;
+  a.hit_pt[i] = pt;
+  a.hit_pi[i] = pi;
+  a.hit_t[i] = t;
+}
+
+// K9's lane: the query, merged into the carried best where it is closer.
+__device__ __forceinline__ void ring_hop_lane(const WaveArgs& a, int i,
+                                              int* stack, MegaCount& c) {
+  int pt, pi;
+  float t;
+  query_lane(a, i, stack, c, pt, pi, t);
+  if (!(pt >= 0 && t < a.hit_t[i])) return;
+  const float t_min = a.q_tmin != nullptr ? a.q_tmin[i] : a.t_min;
+  const Hit h = refine_hit(a, pt, pi, a.origin[3 * i], a.origin[3 * i + 1],
+                           a.origin[3 * i + 2], a.direction[3 * i],
+                           a.direction[3 * i + 1], a.direction[3 * i + 2],
+                           a.time[i], t_min);
+  a.hit_found[i] = true;
+  a.hit_t[i] = t;
+  float* r = a.rec + PTT_REC * (size_t)i;
+  r[0] = h.t;
+  r[1] = h.px; r[2] = h.py; r[3] = h.pz;
+  r[4] = h.nx; r[5] = h.ny; r[6] = h.nz;
+  r[7] = h.front ? 1.0f : 0.0f;
+  r[8] = h.u; r[9] = h.v;
+  r[10] = (float)h.mat; r[11] = (float)h.medium;
+}
+
+#ifndef PTT_HOST_EMULATION
+template <bool kHop>
+__device__ __forceinline__ void query_block(const WaveArgs& a) {
+  __shared__ unsigned long long s_steps, s_ovf;
+  if (threadIdx.x == 0) s_steps = s_ovf = 0ull;
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.R) {
+    int stack[PTT_MEGA_STACK];
+    MegaCount c{0, 0, 0};
+    if constexpr (kHop) {
+      ring_hop_lane(a, i, stack, c);
+    } else {
+      closest_hit_lane(a, i, stack, c);
+    }
+    if (c.trav_steps) atomicAdd(&s_steps, (unsigned long long)c.trav_steps);
+    if (c.ovf) atomicAdd(&s_ovf, (unsigned long long)c.ovf);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long* ctr = (unsigned long long*)a.ctr;
+    if (s_steps) atomicAdd(ctr + C_TRAV_STEPS, s_steps);
+    if (s_ovf) atomicAdd(ctr + C_STACK_OVF, s_ovf);
+  }
+}
+
+__global__ void closest_hit_kernel(WaveArgs a) { query_block<false>(a); }
+
+__global__ void ring_hop_kernel(WaveArgs a) { query_block<true>(a); }
+
+static int launch_query(const WaveArgs* a, void* stream, bool hop) {
+  if (a->sd > PTT_MEGA_STACK) return (int)cudaErrorInvalidValue;
+  if (a->R == 0) return 0;
+  const int block = 128;
+  const int grid = (a->R + block - 1) / block;
+  if (hop) {
+    ring_hop_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
+  } else {
+    closest_hit_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptt_launch_closest_hit(const WaveArgs* a, void* stream) {
+  return launch_query(a, stream, false);
+}
+
+extern "C" int ptt_launch_ring_hop(const WaveArgs* a, void* stream) {
+  return launch_query(a, stream, true);
+}
+#endif

@@ -1,5 +1,6 @@
 // Shared definitions of the kernels (K1 trace_step, K2 spawn, K3 shade,
-// K4 retire, K5 megakernel, K6 adjoint): the argument block every launcher takes, the
+// K4 retire, K5 megakernel, K6 adjoint, K7 closest_hit, K8 tiled_trip, K9
+// ring_hop): the argument block every launcher takes, the
 // constants mirrored from path_tracer_tpu_torch/ops/types.py, and float
 // helpers with JAX's semantics (NaN-propagating min/max).
 //
@@ -23,6 +24,9 @@
 #define PTT_PAYLOAD 32
 #define PTT_PRIM_ROW 16
 #define PTT_INF 1e30f
+// Floats per hit record of the pipeline mode: t, p(3), n(3), front, u, v,
+// mat, medium (ops/integrator_tiled.py REC_FIELDS).
+#define PTT_REC 12
 
 #define PH_MAIN 0
 #define PH_EXIT 1
@@ -101,6 +105,16 @@ struct WaveArgs {
   // instantiation writes only g_tex and g_img)
   const float* delta; float* g_tex; float* g_img;
   float* g_prim; float* g_mat; float* g_med; float* g_perlin;
+  // tiled engine (K7, K8, K9): per-lane query start (null: t_min) and mask
+  // (null: every lane); the exit query's result; an override of the exit
+  // hit's medium flag (null: K8 looks it up from exit_pt/exit_pi); the
+  // (R, PTT_REC) hit records of the pipeline mode (K9 writes, K8's rec
+  // variant reads)
+  const float* q_tmin; const bool* q_active;
+  const bool* exit_found; const int* exit_pt; const int* exit_pi;
+  const float* exit_t; const bool* exit_med; float* rec;
+  // first frame pixel of a pixel block (K2, K4, K5, K6; npix is its size)
+  int pix_offset;
 };
 
 // Every field of WaveArgs in declaration order.  A name missing from the
@@ -121,7 +135,9 @@ struct WaveArgs {
   X(use_rr) X(sss_steps) X(npix) X(stride) X(multi) X(start_sample) X(n_samples) X(key0)  \
   X(key1) X(rr_max_prob) X(t_min) X(t_max) X(cam_origin) X(pixel00) X(du)    \
   X(dv) X(defocus_u) X(defocus_v) X(defocus_angle) X(bg_color) X(bg_type)   \
-  X(delta) X(g_tex) X(g_img) X(g_prim) X(g_mat) X(g_med) X(g_perlin)
+  X(delta) X(g_tex) X(g_img) X(g_prim) X(g_mat) X(g_med) X(g_perlin)        \
+  X(q_tmin) X(q_active) X(exit_found) X(exit_pt) X(exit_pi) X(exit_t)        \
+  X(exit_med) X(rec) X(pix_offset)
 
 // Fills names[k], offsets[k] for each field when the arrays are given;
 // returns the number of fields.  Each kernel library exports its own copy.

@@ -28,6 +28,8 @@ static T atomicAdd(T* p, T v) {
 #include "spawn.cu"
 #include "megakernel.cu"
 #include "adjoint.cu"
+#include "closest_hit.cu"
+#include "tiled_trip.cu"
 
 extern "C" void emu_trace_step(WaveArgs* a) {
   if (!wave_is_live(*a)) {
@@ -95,4 +97,36 @@ extern "C" void emu_adjoint_full(WaveArgs* a) {
     TripIn trips[PTT_TAPE_MAX];
     adjoint_pixel_full(*a, pix, stack, trips, sink);
   }
+}
+
+// K7 and K9: one query per lane; steps and dropped pushes into the counters.
+template <bool kHop>
+static void emu_query(WaveArgs* a) {
+  for (int i = 0; i < a->R; ++i) {
+    int stack[PTT_MEGA_STACK];
+    MegaCount c{0, 0, 0};
+    if (kHop) {
+      ring_hop_lane(*a, i, stack, c);
+    } else {
+      closest_hit_lane(*a, i, stack, c);
+    }
+    a->ctr[C_TRAV_STEPS] += c.trav_steps;
+    a->ctr[C_STACK_OVF] += c.ovf;
+  }
+}
+
+extern "C" void emu_closest_hit(WaveArgs* a) { emu_query<false>(a); }
+
+extern "C" void emu_ring_hop(WaveArgs* a) { emu_query<true>(a); }
+
+extern "C" void emu_tiled_trip(WaveArgs* a) {
+  for (int i = 0; i < a->R; ++i) a->ctr[C_WALK_STEPS] += tiled_lane<false>(*a, i);
+}
+
+extern "C" void emu_tiled_spawn(WaveArgs* a) {
+  for (int i = 0; i < a->R; ++i) tiled_spawn_lane(*a, i);
+}
+
+extern "C" void emu_tiled_trip_rec(WaveArgs* a) {
+  for (int i = 0; i < a->R; ++i) a->ctr[C_WALK_STEPS] += tiled_lane<true>(*a, i);
 }

@@ -6,6 +6,9 @@
 // traverse_bvh (:183, :512, :526; B10) and the bounce loop of B11
 // (bounce_shade :123, _medium_sample :72; bounce.cuh, with the SSS walk of
 // B6).  One thread per pixel traces its path (path.cuh: trace_path).
+// A launch covers the npix pixels of a block from frame pixel pix_offset
+// (the data-parallel shard; the whole frame from 0 by default): the RNG and
+// the camera take the frame pixel, every output its index in the block.
 // The thread writes its colour, iters and depth, and adds the colour to
 // accum[pixel] with a plain load and store: one launch per sample keeps the
 // JAX frame's add order (acc + sample, in sample order) with no float
@@ -24,12 +27,13 @@
 // Persistent threads and ray sorting are later work (PERF.md).
 #include "path.cuh"
 
-// Sample a.start_sample of pixel pix (trace_path); writes the pixel's
-// colour, iters and depth and adds the colour to the frame.
+// Sample a.start_sample of block pixel pix, frame pixel pix_offset + pix
+// (trace_path); writes the pixel's colour, iters and depth and adds the
+// colour to the block's frame entry.
 __device__ __forceinline__ void mega_pixel(const WaveArgs& a, int pix,
                                            int* stack, MegaCount& c) {
   PathRegs p;
-  trace_path(a, pix, stack, c, p);
+  trace_path(a, a.pix_offset + pix, stack, c, p);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     a.color[3 * pix + k] = p.col[k];

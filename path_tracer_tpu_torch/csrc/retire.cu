@@ -16,7 +16,7 @@ __device__ __forceinline__ void retire_lane(const WaveArgs& a, int i) {
   if (a.flag[i] != FL_FINISHED) return;
   unsigned long long* c = (unsigned long long*)a.ctr;
   const int dp = a.depth[i];
-  const int px = a.pixel[i];
+  const int px = a.pixel[i] - a.pix_offset;   // index in the pixel block
   atomicAdd(c + C_DONE, 1ull);
   atomicAdd(c + C_RAYS, (unsigned long long)a.iters[i]);
   atomicAdd(c + C_DEPTH_SUM, (unsigned long long)dp);

@@ -4,9 +4,12 @@
 // prefix-sum rank becomes one atomicAdd on the item counter),
 // shade_tiled.py spawn_rng (:730, B2), spawn_paths/get_rays_t (:741, :333,
 // B3; camera.cuh) and traversal_init_batched (traverse.py:280, root-leaf
-// case included; traverse.cuh).  A work item id maps to (window g, pixel) = (id / npix,
-// id % npix) with samples [start + g*stride, start + min((g+1)*stride, n));
-// with stride 1 it is one (sample, pixel).  FL_RESAMPLE slots start the
+// case included; traverse.cuh).  A work item id maps to (window g, pixel) =
+// (id / npix, pix_offset + id % npix) with samples
+// [start + g*stride, start + min((g+1)*stride, n)); with stride 1 it is one
+// (sample, pixel).  A slot keeps its frame pixel, which the camera and the
+// RNG take; K4 maps it into the block of npix pixels that starts at
+// pix_offset (the data-parallel shard).  FL_RESAMPLE slots start the
 // next sample of their window in place and keep their radiance sum.  The
 // RNG folds fix the (sample, pixel) set, so which slot takes which item
 // does not change the image beyond float add order.
@@ -37,7 +40,7 @@ __device__ __forceinline__ void spawn_lane(const WaveArgs& a, int i) {
       smp = a.start_sample + (int)(id / a.npix);
       last = smp;
     }
-    pix = (int)(id % a.npix);
+    pix = a.pix_offset + (int)(id % a.npix);
   } else {
     smp = a.sample[i] + 1;
     pix = a.pixel[i];

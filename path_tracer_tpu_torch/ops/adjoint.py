@@ -75,10 +75,12 @@ def grad_leaves(scene) -> tuple[list[str], list[torch.Tensor]]:
     return names, leaves
 
 
-def plain_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta):
+def plain_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta,
+              pix_offset: int = 0, n_pix: int | None = None):
     """The plain path: autograd of the twin's replay of ``samples``,
     contracted with ``delta`` (npix, 3) per sample → one gradient per name
-    (zero for a leaf that enters no path)."""
+    (zero for a leaf that enters no path).  With ``n_pix``, the paths of the
+    frame pixels ``pix_offset ..`` ``+ n_pix`` and ``delta`` (n_pix, 3)."""
     from .integrator import trace_sample
 
     xs = [getattr(scene, n).detach().requires_grad_() for n in names]
@@ -86,7 +88,8 @@ def plain_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta):
     grads = [torch.zeros_like(x) for x in xs]
     with torch.enable_grad():
         for s in samples:
-            col = trace_sample(sc, flags, bvh, cam, cfg, base_key, s)[0].color
+            col = trace_sample(sc, flags, bvh, cam, cfg, base_key, s,
+                               pix_offset, n_pix)[0].color
             gs = torch.autograd.grad(col, xs, delta, allow_unused=True)
             for g, gi in zip(grads, gs):
                 if gi is not None:
@@ -151,7 +154,7 @@ def adjoint_plain(eng, ms, sample_idx, delta, bufs: GradBuffers,
     del ms
     names = FLOAT_LEAVES if full else COLOUR_LEAVES
     g = plain_vjp(eng.scene, eng.flags, eng.bvh, eng.cam, eng.cfg, eng.key,
-                  (sample_idx,), names, delta)
+                  (sample_idx,), names, delta, eng.pix_offset, eng.npix)
     views = leaf_grads(eng.scene, bufs)
     for n, gn in zip(names, g):
         views[n].add_(gn)
@@ -192,15 +195,17 @@ def adjoint(eng, ms, sample_idx, delta, bufs: GradBuffers,
     kernels.launch("adjoint_full" if full else "adjoint", eng, ms, a)
 
 
-def kernel_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta):
+def kernel_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta,
+               pix_offset: int = 0, n_pix: int | None = None):
     """K6 over ``samples``, one launch per sample → the gradients of
     ``names`` (a list of :data:`FLOAT_LEAVES`), by the colour instantiation
-    when every name is a colour leaf, else by the full one."""
+    when every name is a colour leaf, else by the full one.  With ``n_pix``,
+    the paths of the block of frame pixels from ``pix_offset``."""
     from .integrator import MegaEngine
 
     _check_names(names)
     full = not set(names) <= set(COLOUR_LEAVES)
-    eng = MegaEngine(scene, flags, bvh, cam, cfg, base_key)
+    eng = MegaEngine(scene, flags, bvh, cam, cfg, base_key, pix_offset, n_pix)
     ms = eng.init_state(torch.zeros((eng.npix, 3), device=eng.device))
     bufs = grad_buffers(scene)
     delta = delta.contiguous()
@@ -228,28 +233,30 @@ class SceneRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, delta):
         sp = ctx.spec
-        scene, cfg = sp["scene"], sp["cfg"]
-        delta = delta.reshape(cfg.width * cfg.height, 3).to(torch.float32)
+        scene, cfg, n_pix = sp["scene"], sp["cfg"], sp["n_pix"]
+        n = n_pix if n_pix is not None else cfg.width * cfg.height
+        delta = delta.reshape(n, 3).to(torch.float32)
         args = (scene, sp["flags"], sp["bvh"], sp["cam"], cfg, sp["key"],
-                sp["samples"])
-        if delta.is_cuda:
-            grads = kernel_vjp(*args, sp["names"], delta)
-        else:
-            grads = plain_vjp(*args, sp["names"], delta)
+                sp["samples"], sp["names"], delta, sp["pix_offset"], n_pix)
+        grads = kernel_vjp(*args) if delta.is_cuda else plain_vjp(*args)
         return (None, *grads)
 
 
-def render_diff(scene, flags, bvh, cam, cfg, base_key, samples, forward):
+def render_diff(scene, flags, bvh, cam, cfg, base_key, samples, forward,
+                pix_offset: int = 0, n_pix: int | None = None):
     """Differentiable sum of ``samples`` over every pixel → (image, aux).
 
     ``forward(scene)`` renders the same sample set with a forward engine
     and returns ``(image, aux)``.  The leaves are the scene's floating
-    fields that require grad."""
+    fields that require grad.  With ``n_pix``, over the block of frame
+    pixels ``pix_offset ..`` ``+ n_pix`` (the image is then the block's
+    ``(n_pix, 3)``)."""
     names, leaves = grad_leaves(scene)
     detached = dataclasses.replace(scene, **{n: x.detach() for n, x in
                                              zip(names, leaves)})
     spec = {"scene": detached, "flags": flags, "bvh": bvh, "cam": cam,
             "cfg": cfg, "key": base_key, "samples": tuple(samples),
-            "names": names, "forward": forward}
+            "names": names, "forward": forward,
+            "pix_offset": int(pix_offset), "n_pix": n_pix}
     image = SceneRender.apply(spec, *leaves)
     return image, spec["aux"]

@@ -19,8 +19,7 @@ fixed-trip form (every lane runs ``cfg.iters`` trips, finished lanes
 frozen), plain torch under autograd.  ``render(differentiable=True)`` and
 ``render_sample(differentiable=True)`` render with K5 on the card (the twin
 on the CPU) and differentiate through :mod:`.adjoint`: on the CPU autograd
-of the twin's replay for every leaf, on the card kernel K6 for the colour
-leaves.
+of the twin's replay for every leaf, on the card kernel K6 for every leaf.
 """
 from __future__ import annotations
 
@@ -171,12 +170,15 @@ def trace_ray_scan(scene, flags, bvh, cam, cfg: RenderConfig, origin,
 
 
 def trace_sample(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
-                 sample_idx):
+                 sample_idx, pix_offset: int = 0, n_pix: int | None = None):
     """Sample ``sample_idx`` of every pixel by the twin (``render_sample``'s
     keys: base → sample → pixel, camera ray from ``fold_in(key_p, 7)``) →
-    (final state, traversal steps, SSS walk steps); differentiable."""
+    (final state, traversal steps, SSS walk steps); differentiable.  With
+    ``n_pix``, the frame pixels ``pix_offset ..`` ``+ n_pix`` only."""
     dev = scene.sph_c0.device
-    pix = torch.arange(cfg.width * cfg.height, dtype=torch.int32, device=dev)
+    n = n_pix if n_pix is not None else cfg.width * cfg.height
+    pix = torch.arange(pix_offset, pix_offset + n, dtype=torch.int32,
+                       device=dev)
     key_p = rng.fold_in(rng.fold_in(base_key.to(dev), sample_idx), pix)
     origin, direction, time = get_ray(
         cam, (pix % cfg.width).float(), (pix // cfg.width).float(),
@@ -201,15 +203,20 @@ class MegaState:
 
 
 class MegaEngine:
-    """Static parameters of megakernel launches over one frame; carries
-    the fields of the kernels' argument block that K5 reads."""
+    """Static parameters of megakernel launches over one frame, or over
+    the block of ``n_pix`` frame pixels from ``pix_offset`` (a data-parallel
+    shard; the state and ``delta`` are then the block's); carries the
+    fields of the kernels' argument block that K5 and K6 read."""
 
-    def __init__(self, scene, flags, bvh, cam, cfg: RenderConfig, base_key):
+    def __init__(self, scene, flags, bvh, cam, cfg: RenderConfig, base_key,
+                 pix_offset: int = 0, n_pix: int | None = None):
         self.scene, self.flags, self.bvh, self.cam, self.cfg = (
             scene, flags, bvh, cam, cfg)
         self.device = scene.sph_c0.device
         self.key = base_key.to(self.device)
-        self.npix = self.R = self.items_total = cfg.width * cfg.height
+        self.pix_offset = int(pix_offset)
+        self.npix = self.R = self.items_total = (
+            int(n_pix) if n_pix is not None else cfg.width * cfg.height)
         self.sd = min(cfg.stack_depth, bvh.max_stack)
         self.root = int(bvh.root)
         self.tabs = make_tables(scene)
@@ -234,7 +241,8 @@ def megakernel_plain(eng: MegaEngine, ms: MegaState, sample_idx: int) -> None:
     (``render_sample``), add it to the frame and count it (in place)."""
     cfg = eng.cfg
     st, trav, walk = trace_sample(eng.scene, eng.flags, eng.bvh, eng.cam, cfg,
-                                  eng.key, sample_idx)
+                                  eng.key, sample_idx, eng.pix_offset,
+                                  eng.npix)
     ms.color.copy_(st.color)
     ms.iters.copy_(st.iters)
     ms.depth.copy_(st.depth)
@@ -275,19 +283,23 @@ def _stats(ms: MegaState) -> dict:
 
 def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
                  start_sample: int, n_samples: int, base_key,
-                 with_stats: bool = False, plain: bool = False):
+                 with_stats: bool = False, plain: bool = False,
+                 pix_offset: int = 0, n_pix: int | None = None):
     """Add samples ``start_sample ..`` ``+ n_samples`` to a copy of ``accum``
     (H, W, 3), one K5 launch per sample, in sample order (the JAX
     renderer's ``_mega_batch``).  ``plain=True`` runs the twin on whatever
     device the tensors are on.  Stats: ``rays``, ``depth_sum`` and
     ``depth_hist`` (of clipped depth) as JAX's, plus ``paths``,
-    ``walk_steps``, ``trav_steps`` and ``stack_overflows``."""
-    eng = MegaEngine(scene, flags, bvh, cam, cfg, base_key)
+    ``walk_steps``, ``trav_steps`` and ``stack_overflows``.
+    ``pix_offset``/``n_pix`` render the block of frame pixels ``pix_offset
+    ..`` ``+ n_pix``; ``accum`` and the image are then ``(n_pix, 3)``."""
+    eng = MegaEngine(scene, flags, bvh, cam, cfg, base_key, pix_offset, n_pix)
     ms = eng.init_state(accum)
     op = megakernel_plain if plain else megakernel
     for s in range(int(start_sample), int(start_sample) + int(n_samples)):
         op(eng, ms, s)
-    image = ms.accum.reshape(cfg.height, cfg.width, 3)
+    image = (ms.accum if n_pix is not None
+             else ms.accum.reshape(cfg.height, cfg.width, 3))
     return (image, _stats(ms)) if with_stats else image
 
 

@@ -1,0 +1,318 @@
+"""The tiled fixed-trip engine (B12): K7 ``closest_hit``, K8 ``tiled_trip``.
+
+Port of ``path_tracer_tpu/ops/integrator_tiled.py``: ``closest_hit_batched``
+(:46), ``trace_rays_tiled`` (:80), ``render_sample_tiled`` (:124) and
+``render_tiled`` (:159).  A chunk of lanes, each one (sample, pixel) path,
+runs exactly ``cfg.iters`` trips; a trip is the closest-hit query from
+``t_min`` (K7), in a medium scene the volume-exit query from ``t_hit +
+1e-4`` of the lanes that hit (K7 again), then one bounce of every live lane
+(K8: ``prim_medium_t`` of the exit hit, ``wave_rng``, ``bounce_shade_t``),
+and finished lanes keep their state.  The keys fold as the megakernel's
+(base → sample → pixel → iters), so the engine integrates
+``trace_ray_scan``'s sample set, lane for lane; that is why the replay of
+:mod:`.adjoint` (K6) is its backward.
+
+On the card one launch of K7 or K8 covers every lane of a chunk, and the
+trip, sample and chunk loops run on the host; the chunk's first state
+comes from ``tiled_spawn`` (``spawn_paths``, B3, with K2's camera code).
+On CPU tensors every wrapper runs its plain-torch version.  The
+pipeline-parallel mode's K9 (``ring_hop``) and the rec variant of K8 live
+beside K7 and K8 (``csrc/closest_hit.cu``, ``csrc/tiled_trip.cu``).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import adjoint, kernels
+from .shade_tiled import (HitT, bounce_shade_t, make_tables, prim_medium_t,
+                          spawn_paths, wave_rng)
+from .traverse import _traverse_impl
+from .types import C_TRAV_STEPS, C_WALK_STEPS, N_COUNTERS, PathState, RenderConfig
+
+MEGA_STACK = 64      # per-thread stack of K7/K9 (PTT_MEGA_STACK, csrc/path.cuh)
+# The (R, 12) hit record of the pipeline mode (PTT_REC, csrc/common.cuh).
+REC_FIELDS = ("t", "px", "py", "pz", "nx", "ny", "nz", "front", "u", "v",
+              "mat", "medium")
+CHUNK = 1 << 20      # lanes per chunk: on the card one launch covers a chunk
+
+
+class TiledEngine:
+    """Static parameters of the lane kernels over one scene: the tables,
+    sizes and keys of the argument block that K8 and K9 read (K7 reads
+    only the BVH)."""
+
+    def __init__(self, scene, flags, bvh, cam, cfg: RenderConfig, base_key):
+        self.scene, self.flags, self.bvh, self.cam, self.cfg = (
+            scene, flags, bvh, cam, cfg)
+        self.device = scene.sph_c0.device
+        self.key = base_key.to(self.device)
+        self.tabs = make_tables(scene)
+        self.sd = min(cfg.stack_depth, bvh.max_stack)
+        self.root = int(bvh.root)
+        self.npix = self.R = self.items_total = 0
+        self.steps = self.ctrl_den = self.pix_offset = 0
+        self.stride, self.multi = 1, False
+        self.start_sample, self.n_samples = 0, 1
+        self._args = None
+
+    def args(self) -> kernels.WaveArgs:
+        """The engine's argument block (built once)."""
+        if self._args is None:
+            self._args = kernels.fill_args(self)
+        return self._args
+
+
+def new_counters(device) -> torch.Tensor:
+    return torch.zeros((N_COUNTERS,), dtype=torch.int64, device=device)
+
+
+def _lanes(x, n, device) -> torch.Tensor:
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x.expand(n).contiguous() if x.ndim == 0 else x.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K7: the closest-hit query.
+# ---------------------------------------------------------------------------
+
+def closest_hit_plain(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
+                      active=None, ctr=None):
+    """Plain version of K7 → ``(found, prim_type, prim_idx, t)``, all (R,):
+    the walk to completion from the per-lane ``t_min``; a lane not
+    ``active`` does not walk and reports no hit (pt = pi = -1, t = t_max).
+    Walking-lane steps are added to ``ctr[C_TRAV_STEPS]``."""
+    found, pt, pi, t, steps = _traverse_impl(bvh, ro, rd, time, t_min, t_max,
+                                             stack_depth, active)
+    if active is not None:
+        t = torch.where(active, t, torch.full_like(t, t_max))
+    if ctr is not None:
+        ctr[C_TRAV_STEPS] += steps
+    return found, pt, pi, t
+
+
+def closest_hit_batched(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
+                        active=None, ctr=None):
+    """K7 wrapper: ``closest_hit_batched``'s query (the walk is
+    zero-gradient, as JAX's stop-gradients make it); the CUDA kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if not ro.is_cuda:
+        return closest_hit_plain(bvh, ro, rd, time, t_min, t_max, stack_depth,
+                                 active, ctr)
+    R, dev = ro.shape[0], ro.device
+    if bvh.nodes.device != dev:
+        raise ValueError("the BVH and the rays are on different devices")
+    sd = min(stack_depth, bvh.max_stack)
+    if sd > MEGA_STACK:
+        raise ValueError(f"stack depth {sd} exceeds the query's per-thread "
+                         f"stack of {MEGA_STACK}")
+    found = torch.empty((R,), dtype=torch.bool, device=dev)
+    pt = torch.empty((R,), dtype=torch.int32, device=dev)
+    pi = torch.empty((R,), dtype=torch.int32, device=dev)
+    t = torch.empty((R,), dtype=torch.float32, device=dev)
+    a = kernels.query_args(bvh, t_max, sd)
+    kernels.set_lanes(a, R, dev, ctr if ctr is not None else new_counters(dev),
+                      origin=ro, direction=rd, time=_lanes(time, R, dev),
+                      q_tmin=_lanes(t_min, R, dev), q_active=active,
+                      hit_found=found, hit_pt=pt, hit_pi=pi, hit_t=t)
+    kernels.launch_args("closest_hit", a, dev)
+    return found, pt, pi, t
+
+
+# ---------------------------------------------------------------------------
+# The tiled spawn (B3) and K8: one trip.
+# ---------------------------------------------------------------------------
+
+def tiled_spawn(eng: TiledEngine, sample: int, pix) -> PathState:
+    """The first trip's state of the lanes ``pix`` (frame pixels) for
+    sample ``sample``: ``spawn_paths``; on the card ``tiled_spawn``."""
+    if not pix.is_cuda:
+        smp = torch.full_like(pix, int(sample))
+        st = spawn_paths(eng.cam, eng.cfg, eng.key, smp, pix)
+        return PathState(*(x.contiguous() for x in st))
+    R, dev = pix.shape[0], pix.device
+    st = PathState(
+        origin=torch.empty((R, 3), device=dev),
+        direction=torch.empty((R, 3), device=dev),
+        time=torch.empty((R,), device=dev),
+        color=torch.empty((R, 3), device=dev),
+        throughput=torch.empty((R, 3), device=dev),
+        depth=torch.empty((R,), dtype=torch.int32, device=dev),
+        iters=torch.empty((R,), dtype=torch.int32, device=dev),
+        alive=torch.empty((R,), dtype=torch.bool, device=dev))
+    a = eng.args()
+    a.start_sample = int(sample)
+    kernels.set_lanes(a, R, dev, new_counters(dev), pixel=pix.contiguous(),
+                      **st._asdict())
+    kernels.launch_args("tiled_spawn", a, dev)
+    return st
+
+
+def rec_to_rows(rec: HitT) -> torch.Tensor:
+    """A hit record as (R, 12) rows in :data:`REC_FIELDS` order."""
+    return torch.stack([rec.t, *rec.p, *rec.n, rec.front.to(torch.float32),
+                        rec.u, rec.v, rec.mat.to(torch.float32),
+                        rec.medium.to(torch.float32)], -1)
+
+
+def rows_to_rec(rows: torch.Tensor, hit) -> HitT:
+    """(R, 12) rows as a :class:`HitT` whose ``hit`` is ``hit``."""
+    c = rows.unbind(-1)
+    return HitT(hit=hit, t=c[0], p=c[1:4], n=c[4:7], front=c[7] != 0.0,
+                u=c[8], v=c[9], mat=c[10].to(torch.int32),
+                medium=c[11].to(torch.int32))
+
+
+def tiled_trip_plain(eng: TiledEngine, st: PathState, sample: int, pix, hit,
+                     ext=None, exit_med=None, rec=None, ctr=None) -> PathState:
+    """Plain version of K8: one trip of every lane → the next state.
+
+    ``hit`` is the main query's ``(found, pt, pi)``; ``ext`` the exit
+    query's ``(found, pt, pi, t)`` (a medium scene); ``exit_med`` (R,) bool
+    replaces the medium lookup of the exit hit; ``rec`` (R, 12) rows replace
+    the refinement of ``(pt, pi)``.  Lanes that are not alive keep their
+    state; the walk's trips of live lanes go to ``ctr[C_WALK_STEPS]``.
+    """
+    flags = eng.flags
+    found, pt, pi = hit
+    if flags.has_medium:
+        e_found, e_pt, e_pi, t_exit = ext
+        if exit_med is None:
+            exit_med = prim_medium_t(eng.tabs, e_pt, e_pi) >= 0
+    else:
+        e_found = torch.zeros_like(found)
+        t_exit = torch.zeros_like(st.time)
+        exit_med = torch.zeros_like(found)
+    rngs = wave_rng(eng.key, torch.full_like(pix, int(sample)), pix, st.iters,
+                    flags.has_sss)
+    record = None if rec is None else rows_to_rec(rec, found)
+    nxt, aux = bounce_shade_t(eng.scene, flags, eng.cam, eng.cfg, eng.tabs, st,
+                              found, pt, pi, e_found, t_exit, exit_med, rngs,
+                              rec=record, live=st.alive, aux=True)
+    if ctr is not None:
+        ctr[C_WALK_STEPS] += aux["walk_steps"]
+    keep = st.alive
+    return PathState(*(torch.where(keep.view(-1, *(1,) * (x.ndim - 1)), y, x)
+                       for x, y in zip(st, nxt)))
+
+
+def tiled_trip(eng: TiledEngine, st: PathState, sample: int, pix, hit,
+               ext=None, exit_med=None, rec=None, ctr=None) -> PathState:
+    """K8 wrapper (``tiled_trip``, or ``tiled_trip_rec`` with ``rec``): on
+    the card it updates ``st`` in place and returns it; on the CPU the
+    plain version's new state."""
+    if not pix.is_cuda:
+        return tiled_trip_plain(eng, st, sample, pix, hit, ext, exit_med, rec,
+                                ctr)
+    R, dev = pix.shape[0], pix.device
+    found, pt, pi = hit
+    lanes = dict(st._asdict(), pixel=pix, hit_found=found, hit_pt=pt,
+                 hit_pi=pi, rec=rec)
+    if eng.flags.has_medium:
+        e_found, e_pt, e_pi, t_exit = ext
+        lanes.update(exit_found=e_found, exit_pt=e_pt, exit_pi=e_pi,
+                     exit_t=t_exit, exit_med=exit_med)
+    a = eng.args()
+    a.start_sample = int(sample)
+    kernels.set_lanes(a, R, dev, ctr if ctr is not None else new_counters(dev),
+                      **lanes)
+    kernels.launch_args("tiled_trip" if rec is None else "tiled_trip_rec", a,
+                        dev)
+    return st
+
+
+# ---------------------------------------------------------------------------
+# The engine.
+# ---------------------------------------------------------------------------
+
+def trace_rays_tiled(eng: TiledEngine, path0: PathState, sample: int, pix,
+                     ctr=None):
+    """Trace the lanes' paths ``cfg.iters`` trips → their radiance (R, 3).
+
+    ``path0`` is the lanes' first state (it is updated in place on the
+    card), ``pix`` their frame pixels and ``sample`` the sample index of
+    every lane.  Same keys, same colours as ``trace_ray_scan``, lane for
+    lane.
+    """
+    cfg, bvh = eng.cfg, eng.bvh
+    R = path0.origin.shape[0]
+    t_min_v = torch.full((R,), cfg.t_min, device=pix.device)
+    s = path0
+    for _ in range(cfg.iters):
+        found, pt, pi, t_hit = closest_hit_batched(
+            bvh, s.origin, s.direction, s.time, t_min_v, cfg.t_max,
+            cfg.stack_depth, active=s.alive, ctr=ctr)
+        ext = None
+        if eng.flags.has_medium:
+            ext = closest_hit_batched(
+                bvh, s.origin, s.direction, s.time, t_hit + 1e-4, cfg.t_max,
+                cfg.stack_depth, active=s.alive & found, ctr=ctr)
+        s = tiled_trip(eng, s, sample, pix, (found, pt, pi), ext, ctr=ctr)
+    return s.color
+
+
+def render_sample_tiled(scene, flags, bvh, cam, cfg: RenderConfig,
+                        sample_idx: int, base_key, pix_idx=None,
+                        chunk_size: int = CHUNK, eng=None, ctr=None):
+    """One sample for every pixel, or for the frame pixels ``pix_idx`` →
+    (H, W, 3), or (len(pix_idx), 3).
+
+    Lanes run in chunks of ``chunk_size`` (the last padded with pixel 0,
+    traced and dropped); the result does not depend on the chunk size.
+    """
+    eng = eng or TiledEngine(scene, flags, bvh, cam, cfg, base_key)
+    dev = eng.device
+    full = pix_idx is None
+    if full:
+        pix_idx = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
+                               device=dev)
+    n = pix_idx.shape[0]
+    chunk = min(int(chunk_size), max(n, 1))
+    n_pad = -(-n // chunk) * chunk
+    idxs = torch.cat([pix_idx.to(dev, torch.int32),
+                      torch.zeros((n_pad - n,), dtype=torch.int32, device=dev)])
+    out = []
+    for c in range(0, n_pad, chunk):
+        pix = idxs[c:c + chunk]
+        path0 = tiled_spawn(eng, sample_idx, pix)
+        out.append(trace_rays_tiled(eng, path0, sample_idx, pix, ctr))
+    colors = torch.cat(out)[:n]
+    return colors.reshape(cfg.height, cfg.width, 3) if full else colors
+
+
+def render_tiled(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
+                 spp: int | None = None, pix_offset: int = 0,
+                 n_pix: int | None = None, chunk_size: int = CHUNK,
+                 with_stats: bool = False):
+    """Accumulate ``spp`` samples → (H, W, 3) mean radiance; differentiable
+    with respect to every floating scene field that requires grad.
+
+    The forward is the tiled engine (K7 + K8 on the card); the backward
+    replays each (sample, pixel) path through :mod:`.adjoint` (K6 on the
+    card, its colour or full instantiation from the leaf set; autograd of
+    the twins on the CPU).  ``pix_offset``/``n_pix`` render the block of
+    frame pixels ``pix_offset ..`` ``+ n_pix`` → ``(n_pix, 3)`` (a
+    data-parallel shard).  With ``with_stats`` also returns
+    ``{"trav_steps", "walk_steps"}``.
+    """
+    spp = spp if spp is not None else cfg.samples_per_pixel
+    dev = scene.sph_c0.device
+    pix = None
+    if n_pix is not None:
+        pix = torch.arange(pix_offset, pix_offset + n_pix, dtype=torch.int32,
+                           device=dev)
+
+    def forward(sc):
+        eng = TiledEngine(sc, flags, bvh, cam, cfg, base_key)
+        ctr = new_counters(dev)
+        acc = 0.0
+        for s in range(spp):
+            acc = acc + render_sample_tiled(sc, flags, bvh, cam, cfg, s,
+                                            base_key, pix, chunk_size, eng,
+                                            ctr)
+        return acc, {"trav_steps": ctr[C_TRAV_STEPS],
+                     "walk_steps": ctr[C_WALK_STEPS]}
+
+    image, stats = adjoint.render_diff(scene, flags, bvh, cam, cfg, base_key,
+                                       range(spp), forward, pix_offset, n_pix)
+    image = image / spp
+    return (image, stats) if with_stats else image

@@ -1,13 +1,17 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 Each kernel source (``trace_step.cu``, ``spawn.cu``, ``shade.cu``,
-``retire.cu``, ``megakernel.cu``, ``adjoint.cu``) is compiled by its own
-``nvcc`` for ``sm_90a``, all six started together, into a shared library
-with a plain C interface under the git-ignored ``build/torch_ext/`` (file
-names carry a hash of the sources, so an edit rebuilds).  ``adjoint.cu``
-holds two kernels, K6's colour and full instantiations (``adjoint`` and
-``adjoint_full``), each with its own launcher.  The libraries are opened with ``ctypes``; device
-pointers come from ``tensor.data_ptr()`` and the stream from PyTorch's
+``retire.cu``, ``megakernel.cu``, ``adjoint.cu``, ``closest_hit.cu``,
+``tiled_trip.cu``) is compiled by its own ``nvcc`` for ``sm_90a``, all eight
+started together, into a shared library with a plain C interface under the
+git-ignored ``build/torch_ext/`` (file names carry a hash of the sources,
+so an edit rebuilds).  Three sources hold more than one kernel, each kernel
+with its own launcher: ``adjoint.cu`` K6's colour and full instantiations
+(``adjoint``, ``adjoint_full``), ``closest_hit.cu`` K7 and K9
+(``closest_hit``, ``ring_hop``), ``tiled_trip.cu`` K8, its variant that
+shades an injected hit record and the tiled engine's spawn (``tiled_trip``,
+``tiled_trip_rec``, ``tiled_spawn``).  The libraries are opened with
+``ctypes``; device pointers come from ``tensor.data_ptr()`` and the stream from PyTorch's
 current stream.  Nothing here runs at import time, and nothing falls back:
 a failed build or launch raises.
 
@@ -26,9 +30,12 @@ import time
 
 import torch
 
-SOURCES = ("trace_step", "spawn", "shade", "retire", "megakernel", "adjoint")
-NAMES = SOURCES + ("adjoint_full",)
-SOURCE_OF = {n: n for n in SOURCES} | {"adjoint_full": "adjoint"}
+SOURCES = ("trace_step", "spawn", "shade", "retire", "megakernel", "adjoint",
+           "closest_hit", "tiled_trip")
+SECOND = {"adjoint_full": "adjoint", "ring_hop": "closest_hit",
+          "tiled_trip_rec": "tiled_trip", "tiled_spawn": "tiled_trip"}
+NAMES = SOURCES + tuple(SECOND)
+SOURCE_OF = {n: n for n in SOURCES} | SECOND
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -72,7 +79,10 @@ class WaveArgs(ctypes.Structure):
                                  "defocus_u", "defocus_v")]
         + [("defocus_angle", _F), ("bg_color", _F * 3), ("bg_type", _I)]
         + [(n, _P) for n in ("delta", "g_tex", "g_img", "g_prim", "g_mat",
-                             "g_med", "g_perlin")])
+                             "g_med", "g_perlin", "q_tmin", "q_active",
+                             "exit_found", "exit_pt", "exit_pi", "exit_t",
+                             "exit_med", "rec")]
+        + [("pix_offset", _I)])
 
 
 def _nvcc() -> str:
@@ -181,19 +191,29 @@ def make_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
               eng.bvh.nodes, eng.tabs.prim):
         if t.device != dev:
             raise ValueError("engine tables and state are on different devices")
-    if eng.bvh.branching != 4:
-        raise ValueError("the CUDA traversal kernel takes BVH4 rows")
     return fill_args(eng, ws, u5_out)
 
 
-def fill_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
-    """The argument block from tensor pointers, without device checks."""
+def _fill_bvh(a: WaveArgs, bvh, sd: int, root: int) -> None:
+    if bvh.branching != 4:
+        raise ValueError("the CUDA traversal takes BVH4 rows")
+    a.nodes = _ptr(bvh.nodes)
+    a.prims = _ptr(bvh.prims)
+    a.n_prims = bvh.prims.shape[0]
+    a.sd, a.root = sd, root
+    pm = bvh.prim_mask
+    a.prim_mask = int(pm[0]) | (int(pm[1]) << 1) | (int(pm[2]) << 2)
+
+
+def fill_args(eng, ws=None, u5_out: torch.Tensor | None = None) -> WaveArgs:
+    """The argument block from tensor pointers, without device checks; the
+    per-slot fields from ``ws`` when given."""
     a = WaveArgs()
-    for f in dataclasses.fields(ws):
-        setattr(a, f.name, _ptr(getattr(ws, f.name)))
+    if ws is not None:
+        for f in dataclasses.fields(ws):
+            setattr(a, f.name, _ptr(getattr(ws, f.name)))
     sc, tabs, cfg, cam, fl = eng.scene, eng.tabs, eng.cfg, eng.cam, eng.flags
-    a.nodes = _ptr(eng.bvh.nodes)
-    a.prims = _ptr(eng.bvh.prims)
+    _fill_bvh(a, eng.bvh, eng.sd, eng.root)
     a.prim_tab, a.mat_tab = _ptr(tabs.prim), _ptr(tabs.mat)
     a.med_tab, a.tex_tab = _ptr(tabs.med), _ptr(tabs.tex)
     a.img_data = _ptr(sc.img_data)
@@ -202,17 +222,13 @@ def fill_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
     a.perlin_perm = _ptr(sc.perlin_perm)
     a.u5_out = _ptr(u5_out)
     a.items_total = eng.items_total
-    a.R, a.sd, a.steps, a.ctrl_den = eng.R, eng.sd, eng.steps, eng.ctrl_den
-    a.root = eng.root
-    a.n_prims = eng.bvh.prims.shape[0]
+    a.R, a.steps, a.ctrl_den = eng.R, eng.steps, eng.ctrl_den
     a.n_sph, a.n_qd = tabs.n_sph, tabs.n_qd
     a.n_prim_rows = tabs.prim.shape[0]
     a.n_mat, a.n_med, a.n_tex = (tabs.mat.shape[0], tabs.med.shape[0],
                                  tabs.tex.shape[0])
     a.n_img, a.img_h, a.img_w = (sc.img_data.shape[0], sc.img_data.shape[1],
                                  sc.img_data.shape[2])
-    pm = eng.bvh.prim_mask
-    a.prim_mask = int(pm[0]) | (int(pm[1]) << 1) | (int(pm[2]) << 2)
     for f in ("has_medium", "has_noise", "has_image", "has_noise_emission",
               "has_noise_medium", "has_image_emission", "has_image_medium"):
         setattr(a, f, int(getattr(fl, f)))
@@ -220,6 +236,7 @@ def fill_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
     a.rr_min_depth, a.use_rr = cfg.rr_min_depth, int(cfg.use_russian_roulette)
     a.sss_steps = cfg.sss_max_steps
     a.npix, a.stride, a.multi = eng.npix, eng.stride, int(eng.multi)
+    a.pix_offset = eng.pix_offset
     a.start_sample, a.n_samples = eng.start_sample, eng.n_samples
     k = [int(x) for x in eng.key.cpu()]
     a.key0, a.key1 = k[0], k[1]
@@ -234,17 +251,78 @@ def fill_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
     return a
 
 
+# Per-lane fields of the lane kernels K7-K9 (closest_hit, ring_hop,
+# tiled_trip): (dtype, trailing shape); ctr is the counter vector.
+LANE_FIELDS = {
+    "origin": (torch.float32, (3,)), "direction": (torch.float32, (3,)),
+    "time": (torch.float32, ()), "color": (torch.float32, (3,)),
+    "throughput": (torch.float32, (3,)), "depth": (torch.int32, ()),
+    "iters": (torch.int32, ()), "alive": (torch.bool, ()),
+    "pixel": (torch.int32, ()), "hit_found": (torch.bool, ()),
+    "hit_pt": (torch.int32, ()), "hit_pi": (torch.int32, ()),
+    "hit_t": (torch.float32, ()), "q_tmin": (torch.float32, ()),
+    "q_active": (torch.bool, ()), "exit_found": (torch.bool, ()),
+    "exit_pt": (torch.int32, ()), "exit_pi": (torch.int32, ()),
+    "exit_t": (torch.float32, ()), "exit_med": (torch.bool, ()),
+    "rec": (torch.float32, (12,)),
+}
+
+
+def set_lanes(a: WaveArgs, n: int, device, ctr: torch.Tensor,
+              **lanes) -> WaveArgs:
+    """Point the per-lane fields of ``a`` at ``lanes`` (every other lane
+    field null) for ``n`` lanes and the counters ``ctr``, keeping the tensors
+    alive with ``a``; raises unless each tensor is contiguous, on ``device``,
+    of its field's dtype and shape."""
+    a._keep_lanes = (dict(lanes), ctr)
+    for f, (dtype, tail) in LANE_FIELDS.items():
+        t = lanes.pop(f, None)
+        if t is not None and (t.device != device or t.dtype != dtype
+                              or tuple(t.shape) != (n, *tail)):
+            raise ValueError(f"lane field {f} must be {dtype} {(n, *tail)} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        setattr(a, f, _ptr(t))
+    if lanes:
+        raise ValueError(f"not a lane field: {sorted(lanes)}")
+    if ctr.device != device or ctr.dtype != torch.int64:
+        raise ValueError(f"ctr must be int64 on {device}")
+    a.ctr = _ptr(ctr)
+    a.R = n
+    return a
+
+
+def query_args(bvh, t_max: float, sd: int) -> WaveArgs:
+    """K7's argument block for a BVH alone (K7 reads no other table),
+    cached on the BVH."""
+    cache = bvh.__dict__.setdefault("_query_args", {})
+    key = (float(t_max), int(sd))
+    if key not in cache:
+        a = WaveArgs()
+        _fill_bvh(a, bvh, int(sd), int(bvh.root))
+        a.t_max = float(t_max)
+        a._keep = bvh
+        cache[key] = a
+    return cache[key]
+
+
 def launch(name: str, eng, ws, args: WaveArgs | None = None) -> None:
     """Launch kernel ``name`` on PyTorch's current stream; count it."""
-    if name not in _LIBS:
-        build()
     if args is None:
         cache = getattr(ws, "_kernel_args", None)
         if cache is None or cache[0] is not eng:
             cache = (eng, make_args(eng, ws))
             ws._kernel_args = cache
         args = cache[1]
-    stream = torch.cuda.current_stream(ws.ctr.device).cuda_stream
+    launch_args(name, args, ws.ctr.device)
+
+
+def launch_args(name: str, args: WaveArgs, device) -> None:
+    """Launch kernel ``name`` with a filled argument block on ``device``'s
+    current stream; count it."""
+    if name not in _LIBS:
+        build()
+    stream = torch.cuda.current_stream(device).cuda_stream
     err = _LIBS[name][1](ctypes.byref(args), _P(stream))
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed with error {err}")
@@ -303,6 +381,21 @@ def host_emulation_ops():
 
     return (tuple(make(n) for n in ("trace_step", "shade", "retire", "spawn")),
             make("megakernel"))
+
+
+def host_emulation_lanes():
+    """The lane code of K7, K9 and K8 compiled for the CPU (tests only):
+    ``{name: op(args)}`` for ``closest_hit``, ``ring_hop``, ``tiled_trip``,
+    ``tiled_trip_rec`` and ``tiled_spawn``, each taking an argument block filled as the
+    kernel's wrapper fills it (CPU pointers)."""
+    lib = host_emulation_lib()
+    ops = {}
+    for n in ("closest_hit", "ring_hop", "tiled_trip", "tiled_trip_rec",
+              "tiled_spawn"):
+        fn = getattr(lib, f"emu_{n}")
+        fn.argtypes = [ctypes.POINTER(WaveArgs)]
+        ops[n] = (lambda f: lambda a: f(ctypes.byref(a)))(fn)
+    return ops
 
 
 def host_emulation_adjoint(full: bool = False):

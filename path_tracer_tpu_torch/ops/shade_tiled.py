@@ -118,6 +118,12 @@ def _front_from_row(row, ptype, ox, oy, oz, dx, dy, dz, time, t):
     return dx * nx + dy * ny + dz * nz < 0.0
 
 
+def prim_medium_t(tabs: ShadeTables, ptype, pidx):
+    """Medium index of the (ptype, pidx) primitives, or -1 (B9)."""
+    row = _prim_rows(tabs, ptype, pidx)
+    return torch.where(ptype >= 0, row[1].to(torch.int32), -1)
+
+
 def prim_medium_front_t(tabs: ShadeTables, ptype, pidx, ox, oy, oz,
                         dx, dy, dz, time, t):
     """(medium id or -1, front-face test) from one prim-row gather (B9)."""
@@ -534,10 +540,14 @@ def medium_sample_t(scene, flags, cfg, med_tab, ox, oy, oz, dx, dy, dz,
 
 def bounce_shade_t(scene, flags, cam, cfg, tabs: ShadeTables, path: PathState,
                    found, ptype, pidx, exit_found, t_exit, exit_is_medium,
-                   rngs, live=None, aux: bool = False):
+                   rngs, rec: HitT | None = None, live=None,
+                   aux: bool = False):
     """One bounce for every lane (emission, medium free flight, scatter, RR).
 
-    ``rngs`` is the :func:`bounce_rng` dict.  ``live`` marks the lanes the
+    ``rngs`` is the :func:`bounce_rng` dict.  ``rec``, when given, is the
+    (R,)-flat hit record to shade in place of refining ``(ptype, pidx)``
+    against ``tabs`` (the pipeline mode refines it on the stage that holds
+    the primitive; every table read here is replicated).  ``live`` marks the lanes the
     caller keeps (only they run the SSS walk; outputs elsewhere are
     unspecified).  With ``aux`` also returns ``{"walk_steps": n}``, the
     walking trips of kept SSS-volumetric lanes.
@@ -557,8 +567,9 @@ def bounce_shade_t(scene, flags, cam, cfg, tabs: ShadeTables, path: PathState,
 
     bg = background_t(cam, dx, dy, dz)
     miss = [col[k] + thr[k] * bg[k] for k in range(3)]
-    rec = refine_hit_t(tabs, ptype, pidx, ox, oy, oz, dx, dy, dz, time,
-                       cfg.t_min)
+    if rec is None:
+        rec = refine_hit_t(tabs, ptype, pidx, ox, oy, oz, dx, dy, dz, time,
+                           cfg.t_min)
     t_hit = rec.t.detach()          # JAX stop_gradient (shade_tiled.py:850)
     zeros = torch.zeros_like(ox)
 

@@ -71,13 +71,13 @@ class WaveState:
     hit_pt: torch.Tensor      # (R,) i32
     hit_pi: torch.Tensor      # (R,) i32
     hit_t: torch.Tensor       # (R,) f32
-    pixel: torch.Tensor       # (R,) i32 local pixel index
+    pixel: torch.Tensor       # (R,) i32 frame pixel index
     sample: torch.Tensor      # (R,) i32
     last: torch.Tensor        # (R,) i32 last sample of the slot's window
     occupied: torch.Tensor    # (R,) bool
     flag: torch.Tensor        # (R,) i32 FL_* hand-off between kernels
-    accum: torch.Tensor       # (npix, 3) f32 radiance sums
-    pix_paths: torch.Tensor   # (npix,) i32 finished paths per pixel
+    accum: torch.Tensor       # (npix, 3) f32 radiance sums of the block
+    pix_paths: torch.Tensor   # (npix,) i32 finished paths per block pixel
     depth_hist: torch.Tensor  # (max_depth+1,) i32
     ctr: torch.Tensor         # (N_COUNTERS,) i64, indices C_* in ops/types
 
@@ -88,17 +88,21 @@ class WaveState:
 
 class WaveEngine:
     """Static parameters of one ``render_batch`` call (the JAX engine's
-    closure): tables, sizes, the work-item rule and the tuning knobs."""
+    closure): tables, sizes, the work-item rule and the tuning knobs.  The
+    pool renders the ``npix`` frame pixels from ``pix_offset`` (the whole
+    frame by default; a data-parallel shard's block otherwise)."""
 
     def __init__(self, scene, flags, bvh, cam, cfg: RenderConfig,
                  start_sample: int, n_samples: int, base_key,
                  queue_size: int, steps_per_wave: int, ctrl_den: int,
-                 sample_stride: int | None = None):
+                 sample_stride: int | None = None, pix_offset: int = 0,
+                 n_pix: int | None = None):
         self.scene, self.flags, self.bvh, self.cam, self.cfg = (
             scene, flags, bvh, cam, cfg)
         self.device = scene.sph_c0.device
         self.key = base_key.to(self.device)
-        self.npix = cfg.width * cfg.height
+        self.pix_offset = int(pix_offset)
+        self.npix = int(n_pix) if n_pix is not None else cfg.width * cfg.height
         self.total = n_samples * self.npix
         self.R = min(queue_size, self.total)
         if sample_stride is not None:
@@ -168,7 +172,7 @@ def retire_plain(eng: WaveEngine, ws: WaveState) -> None:
     else:
         resample = torch.zeros_like(fin)
     retire_m = fin & ~resample
-    px = ws.pixel.long()
+    px = (ws.pixel - eng.pix_offset).long()      # index in the pixel block
     ws.accum.index_add_(0, px[retire_m], ws.color[retire_m])
     ws.pix_paths.index_add_(0, px[fin], torch.ones_like(ws.pixel[fin]))
     ctr = ws.ctr
@@ -201,7 +205,8 @@ def spawn_plain(eng: WaveEngine, ws: WaveState) -> None:
     Empty slots take the next work items in prefix-sum rank order; a work
     item is a (pixel, sample window) with ``stride`` samples, or one
     (pixel, sample) when ``stride`` is 1.  ``FL_RESAMPLE`` slots start the
-    next sample of their window in place, carrying the radiance sum.
+    next sample of their window in place, carrying the radiance sum.  A
+    slot holds its frame pixel (``pix_offset`` + its block index).
     """
     if int(ws.ctr[C_DO_CTRL]) == 0:
         return
@@ -221,7 +226,8 @@ def spawn_plain(eng: WaveEngine, ws: WaveState) -> None:
     else:
         s_idx = eng.start_sample + new_id // npix
         new_last = s_idx
-    pix = W(can, new_id % npix, ws.pixel.long()).to(torch.int32)
+    pix = W(can, new_id % npix + eng.pix_offset, ws.pixel.long()).to(
+        torch.int32)
     smp = W(can, s_idx, W(resample, ws.sample + 1, ws.sample).long()).to(
         torch.int32)
     renew = can | resample
@@ -319,11 +325,16 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
                  start_sample, n_samples: int, base_key,
                  queue_size: int = 4096, steps_per_wave: int = 12,
                  with_stats: bool = False, ctrl_den: int = 8,
-                 sample_stride: int | None = None, plain: bool = False):
+                 sample_stride: int | None = None, plain: bool = False,
+                 pix_offset: int = 0, n_pix: int | None = None):
     """Accumulate ``n_samples`` samples into a copy of ``accum`` (H, W, 3).
 
     Same arguments and result as the JAX ``render_batch``; ``base_key`` is
-    the (2,) key of :mod:`..utils.rng`.  ``plain=True`` runs the plain-torch
+    the (2,) key of :mod:`..utils.rng`.  ``pix_offset``/``n_pix`` select
+    the block of frame pixels ``pix_offset ..`` ``+ n_pix`` (a data-parallel
+    shard): the camera and the RNG take the frame pixel, so a sharded render
+    integrates the sample set of the whole-frame one, and ``accum`` and the
+    result are the block's ``(n_pix, 3)``.  ``plain=True`` runs the plain-torch
     twins on whatever device the tensors are on (the comparison path); the
     default runs the CUDA kernels for CUDA tensors.  With ``with_stats`` the
     stats dict adds ``pixel_paths`` (finished paths per pixel),
@@ -331,10 +342,11 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     """
     eng = WaveEngine(scene, flags, bvh, cam, cfg, start_sample, n_samples,
                      base_key, queue_size, steps_per_wave, ctrl_den,
-                     sample_stride)
+                     sample_stride, pix_offset, n_pix)
     ws = eng.init_state(accum)
     reads = run_waves(eng, ws, plain=plain)
-    image = ws.accum.reshape(cfg.height, cfg.width, 3)
+    image = (ws.accum if n_pix is not None
+             else ws.accum.reshape(cfg.height, cfg.width, 3))
     if with_stats:
         return image, dict(_stats(ws, eng), host_reads=reads)
     return image
@@ -345,17 +357,21 @@ def render_batch_diff(scene, flags, bvh, cam, cfg: RenderConfig, accum,
                       queue_size: int = 4096, steps_per_wave: int = 12,
                       n_waves: int = 256, ctrl_den: int = 8,
                       ckpt_every: int = 1, save_trav: bool = True,
-                      sample_stride: int | None = None):
+                      sample_stride: int | None = None, pix_offset: int = 0,
+                      n_pix: int | None = None):
     """Differentiable wavefront → ``(accum + image, stats)``, the arguments
     and result of the JAX ``render_batch_diff``; ``stats`` is
     :func:`render_batch`'s, with ``paths == total`` for a whole image.
 
     The forward is :func:`render_batch`; gradients with respect to the
     scene's floating fields that require grad come from replaying every
-    (sample, pixel) path (:mod:`.adjoint`): on the card K6, for the colour
-    leaves only (any other leaf raises ``NotImplementedError``), on the CPU
-    autograd of the megakernel twin, for every leaf.  Both integrate the
-    wavefront's sample set, which the RNG folds fix.
+    (sample, pixel) path (:mod:`.adjoint`), for every floating leaf: on the
+    card K6 (its colour instantiation when every leaf is a colour leaf, its
+    full one otherwise), on the CPU autograd of the megakernel twin.  Both
+    integrate the wavefront's sample set, which the RNG folds fix.
+    ``pix_offset``/``n_pix`` render and differentiate a pixel block, as
+    :func:`render_batch` does; ``accum`` and the image are then
+    ``(n_pix, 3)``.
 
     ``n_waves`` keeps its JAX contract, the trip budget of the forward: a
     forward that needs more waves raises (size it with
@@ -373,13 +389,17 @@ def render_batch_diff(scene, flags, bvh, cam, cfg: RenderConfig, accum,
                       stacklevel=2)
     start, n = int(start_sample), int(n_samples)
 
+    shape = ((n_pix, 3) if n_pix is not None
+             else (cfg.height, cfg.width, 3))
+
     def forward(sc):
-        zero = torch.zeros((cfg.height, cfg.width, 3), device=sc.sph_c0.device)
+        zero = torch.zeros(shape, device=sc.sph_c0.device)
         image, stats = render_batch(sc, flags, bvh, cam, cfg, zero, start, n,
                                     base_key, queue_size=queue_size,
                                     steps_per_wave=steps_per_wave,
                                     with_stats=True, ctrl_den=ctrl_den,
-                                    sample_stride=sample_stride)
+                                    sample_stride=sample_stride,
+                                    pix_offset=pix_offset, n_pix=n_pix)
         if int(stats["waves"]) > n_waves:
             raise RuntimeError(
                 f"the forward took {int(stats['waves'])} waves, more than "
@@ -388,5 +408,6 @@ def render_batch_diff(scene, flags, bvh, cam, cfg: RenderConfig, accum,
         return image, stats
 
     image, stats = adjoint.render_diff(scene, flags, bvh, cam, cfg, base_key,
-                                       range(start, start + n), forward)
+                                       range(start, start + n), forward,
+                                       pix_offset, n_pix)
     return accum.to(image.device) + image, stats

@@ -152,4 +152,12 @@ def test_kernel_wrappers_launch_on_card(cuda_device):
                             differentiable=True, spp=1)
     img.sum().backward()
     assert bool(torch.isfinite(qd.grad).all())
-    assert all(v > 0 for v in kernels.LAUNCHES.values())
+    # the tiled engine, and the pipeline mode's kernels on a one-rank ring
+    img = ptt.render_tiled(r.scene, r.flags, r.bvh, r.cam_arrays, r.cfg,
+                           r.key, spp=1)
+    assert bool(torch.isfinite(img).all())
+    sc1, bv1 = ptt.shard_scene(r.scene, 1)
+    img = ptt.render_pp(sc1, r.flags, bv1, r.cam_arrays, r.cfg, r.key,
+                        ptt.make_mesh(1, "p"))
+    assert bool(torch.isfinite(img).all())
+    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES

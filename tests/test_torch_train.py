@@ -8,7 +8,8 @@ gradients and new parameters within atol 2e-5 / rtol 1e-3 (JAX's
 engine-to-engine gradient limit, ``tests/test_integrator_tiled.py:111-112``),
 for ``unbiased`` False and True; one step descends
 (``tests/test_sharding.py:69-84``); ``calibrate_n_waves`` and the
-``n_waves`` contract; the megakernel engine's step equals the wavefront's.
+``n_waves`` contract; the megakernel engine's step (the tiled engine, as
+JAX's) equals the wavefront's.
 """
 import jax
 import jax.numpy as jnp
@@ -102,7 +103,7 @@ def test_train_step_descends_and_engines_agree(setup):
     assert aux1["paths_done"] == aux1["paths_total"] == 32 * 16
     p2, l2, _, _ = step(p1, ts, tb, tc, key, target)
     assert float(l2) < float(l1)
-    mstep = trd.make_train_step(fl, TCfg(**CFG), [torch.device("cpu")],
+    mstep = trd.make_train_step(fl, TCfg(**CFG), trd.make_mesh(1),
                                 engine="megakernel", **KW)
     _, ml, mg, maux = mstep({"tex_c1": ts.tex_c1}, ts, tb, tc, key, target)
     assert maux == {"paths_done": 0, "paths_total": 0}
@@ -134,5 +135,5 @@ def test_calibrate_and_wave_budget(setup):
                                          steps_per_wave=8, n_waves=n,
                                          ckpt_every=4)
     assert int(st2["paths"]) == int(st2["total"])
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(TypeError, match="Mesh"):
         trd.make_train_step(fl, TCfg(**CFG), [0, 1])

@@ -125,12 +125,12 @@ def test_renderer_facade_and_png(tmp_path):
 
 
 def test_unported_paths_raise():
-    """Both engines and SSS scenes construct; what is still queued in
-    ROADMAP.md raises (the data-parallel train step, A.11), and an unknown
-    engine or a backward leaf that is not a floating scene field is
-    refused."""
+    """Both engines and SSS scenes construct; an unknown engine, a
+    backward leaf that is not a floating scene field, a train step given a
+    device list in place of a mesh of ranks, and a mesh of several ranks
+    without a torch.distributed job are refused."""
     from path_tracer_tpu_torch.ops import adjoint
-    from path_tracer_tpu_torch.parallel import make_train_step
+    from path_tracer_tpu_torch.parallel import make_mesh, make_train_step
     world, cam = ptt.scenes.cornell_box()
     assert ptt.Renderer(world, cam, device="cpu").engine == "megakernel"
     assert ptt.RendererFactory.create("cpu", world, cam,
@@ -143,16 +143,22 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="floating SceneArrays leaf"):
         adjoint.kernel_vjp(r.scene, r.flags, r.bvh, r.cam_arrays, r.cfg,
                            r.key, (0,), ["tex_c1", "mat_type"], None)
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(TypeError, match="Mesh"):
         make_train_step(r.flags, r.cfg, [0, 1])
+    with pytest.raises(ValueError, match="torch.distributed job"):
+        make_mesh(2)
 
 
 def test_kernel_wrappers_take_twins_only_for_cpu_tensors():
-    """A CPU state runs the twins and launches no kernel."""
+    """A CPU state runs the twins and launches no kernel (the tiled
+    engine's too)."""
     from path_tracer_tpu_torch.ops import kernels
     world, cam = ptt.scenes.cornell_box()
     cam.img_width = 8
     kernels.reset_launches()
     for engine in ("wavefront", "megakernel"):
-        ptt.Renderer(world, cam, engine=engine, device="cpu").render(spp=1)
+        r = ptt.Renderer(world, cam, engine=engine, device="cpu")
+        r.render(spp=1)
+    ptt.render_tiled(r.scene, r.flags, r.bvh, r.cam_arrays, r.cfg, r.key,
+                     spp=1)
     assert all(v == 0 for v in kernels.LAUNCHES.values())
