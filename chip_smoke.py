@@ -12,18 +12,29 @@ Phases (each prints its own line; any failure exits non-zero):
 3. kernels    — at the full configuration's shapes (vol2_final_scene,
                 800x450, depth 10, 32768 slots, 32 steps per wave) hold each
                 wavefront kernel against its plain-torch twin on the same
-                wave state; hold K5 (megakernel) against its twin on one
-                800x450 sample, per pixel; hold K3 (shade) against its twin
+                wave state (K1 with JAX's adaptive wave exit at chunk 4:
+                lanes and counters exact, one cooperative launch per
+                wave); hold K5
+                (megakernel) against its twin on one 800x450 sample, per
+                pixel; hold K3 (shade) against its twin
                 on a mid-flight wave state of mesh_perlin_sss at 400x225,
                 and K5 against its twin on one 400x225 sample of it: both
                 run the SSS walk there; time each (CUDA events, median of
                 25 launches).
 4. main       — render vol2_final_scene(sphere_cluster=1000) at 800x450,
-                10 spp, depth 10 through Renderer(engine="wavefront") after a
-                warm-up; print wall time, Mrays/s, waves and host reads,
-                three frame walls, and per-kernel device time of another
-                frame (torch.profiler) with the device idle share.
+                10 spp, depth 10 through Renderer(engine="wavefront") (K1-K4
+                in the device wave loop) after a warm-up; print wall time,
+                Mrays/s, waves and host reads, three frame walls, and
+                per-kernel device time of another frame (torch.profiler)
+                with the device idle share.
 5. main-mega  — the same frame through Renderer(engine="megakernel").
+   loop       — (after phase 5) the same frame through the device wave loop
+                and the per-wave host loop: image, counters and depth
+                histogram bit-identical, launches per wave the same; walls,
+                host reads, launches and idle share of each, each profiled
+                frame's kernel runs equal to its launch counts; the image
+                against K5's under the graded rule; the same frame with the
+                adaptive exit off (the exit's device-time cost).
 6. main-sss   — mesh_perlin_sss at 400x225, 64 spp, depth 12, through both
                 engines, with the SSS walk counter.
                 Then K6 (adjoint) against its plain version at 160x90,
@@ -60,9 +71,11 @@ Phases (each prints its own line; any failure exits non-zero):
                 the same vol2_final step on the tiled engine
                 (engine="megakernel": K7 + K8 forward, K6 backward), its
                 first step's gradients against the wavefront step's.
-9. tiled      — (run after phase 6) render_tiled on the vol2_final frame:
-                wall, Mrays/s, per-kernel device time, the image against
-                K5's under the graded rule.
+9. tiled      — (run after phase 6) render_tiled on the vol2_final frame
+                (one captured trip graph replayed per sample): wall,
+                Mrays/s, per-kernel device time, the image against K5's
+                under the graded rule and bit-identical to the eager loop's
+                (render_sample_tiled, every launch from the host).
 10. parallel  — ranks of a gloo job sharing the card, each a process
                 (this script with --rank): 2-rank data-parallel wavefront
                 on the vol2_final frame (image against the one-rank frame,
@@ -77,10 +90,14 @@ Phases (each prints its own line; any failure exits non-zero):
 Phase 3 also holds the tiled engine's kernels against their plain
 versions: K7 (closest_hit), K8 (tiled_trip) and the tiled spawn on every
 lane of an 800x450 vol2_final sample after three trips, K9 (ring_hop) and
-K8's rec variant on one shard of the torus knot sharded two ways.
+K8's rec variant on one shard of the torus knot sharded two ways; and the
+P0 row gather (gather_rows) against torch.index_select at P0's shape.
 
 Each main phase sets the launch counts to 0 just before it runs and reads
-them just after; the table's ``launches`` come from those runs.  The build
+them just after; the table's ``launches`` come from those runs.  Every
+frame profiled under torch.profiler must show, for each kernel, as many
+runs as its wrapper counted (``profile_run``): the counts of launches that
+a CUDA graph replays are measured, not only derived from the waves run.  The build
 phase also holds K3 and K5 at their recorded ptxas resources
 (``PTXAS_EXPECT``): K6's recorder must compile to nothing in them.
 """
@@ -126,11 +143,16 @@ KERNELS = {
                  "path_tracer_tpu/parallel/pipeline.py:63"),
     "tiled_trip_rec": ("path_tracer_tpu_torch/csrc/tiled_trip.cu",
                        "path_tracer_tpu/parallel/pipeline.py:140"),
+    "wave_loop": ("path_tracer_tpu_torch/csrc/wave_loop.cu",
+                  "path_tracer_tpu/ops/wavefront.py:427"),
+    "gather_rows": ("path_tracer_tpu_torch/csrc/gather.cu",
+                    "tools/bench_gather.py:119"),
 }
 TILED_KERNELS = ("closest_hit", "tiled_trip", "tiled_spawn")
 STATE_BYTES = 61                # one lane's path state (PathState)
 REFINE_OPS = 150                # refine_hit of one primitive
 WAVE_KERNELS = ("trace_step", "spawn", "shade", "retire")
+LOOP_KERNELS = WAVE_KERNELS + ("wave_loop",)   # the frame in the device loop
 BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce (threefry at 110)
 WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
 SWEEP_OPS = 60                 # K6's reverse sweep, per tape entry
@@ -147,6 +169,52 @@ PTXAS_EXPECT = {"shade": (110, 104), "megakernel": (112, 368)}
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def is_kernel(key, name):
+    """Whether a profiler event is a run of kernel ``name``."""
+    return key.startswith(f"{name}_kernel")
+
+
+def profile_run(prepare, names, kernels, tag):
+    """``prepare()`` (untimed) returns a callable; run it once under
+    torch.profiler with the launch counts set to 0 just before and read
+    just after → (its result, device ms by kernel, launches by kernel,
+    wall s).
+
+    The profiler counts the runs of each kernel the card executed, and
+    that count must equal the wrappers' LAUNCHES of the same run: inside a
+    CUDA graph the wrappers count from what the graph ran (waves or
+    replays), and this holds them against the kernels the card ran.  CUPTI
+    can lose an activity record (seen once on the H100: 404 of 406 K1
+    runs of an SSS frame), so a run whose counts all lie below or at LAUNCHES is
+    profiled again, three runs at most; a count above LAUNCHES fails at
+    once."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        run = prepare()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {n: kernels.LAUNCHES[n] for n in names}
+        totals, counts = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+        for ev in prof.key_averages():
+            for n in names:
+                if is_kernel(ev.key, n):
+                    totals[n] += ev.device_time_total / 1e3
+                    counts[n] += ev.count
+        if counts == launches or any(counts[n] > launches[n] for n in names):
+            break
+        phase(tag, f"the profiler saw {counts}, fewer than the launches "
+              f"{launches}: profiled again")
+    assert counts == launches, (f"{tag}: the profiler's kernel runs {counts} "
+                                f"!= the wrappers' launches {launches}")
+    return out, totals, launches, wall
 
 
 def graded_agreement(a, b):
@@ -230,28 +298,23 @@ def frame_phase(tag, make, W, H, spp, depth, names, kernels):
     phase(tag, "frame wall s over 3 frames: " + ", ".join(
         f"{w:.4f}" for w in walls) + f" (median {statistics.median(walls):.4f})")
     # Per-kernel device time of one frame: torch.profiler (CUPTI) sums the
-    # device time of each kernel by name.
-    from torch.profiler import ProfilerActivity, profile
-    r2 = make()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r2.render(spp=spp, batch=spp)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    totals, counts = {}, {}
-    for ev in prof.key_averages():
-        for n in names:
-            if ev.key.startswith(f"{n}_kernel"):
-                totals[n] = totals.get(n, 0.0) + ev.device_time_total / 1e3
-                counts[n] = counts.get(n, 0) + ev.count
-    assert all(totals.get(n, 0.0) > 0.0 for n in names), \
+    # device time of each kernel by name, and counts its runs, which must
+    # equal the launches counted in the profiled frame and in the first.
+    def prepare():
+        r2 = make()
+        return lambda: r2.render(spp=spp, batch=spp)
+
+    _, totals, prof_launches, prof_wall = profile_run(prepare, names, kernels,
+                                                      tag)
+    assert all(totals[n] > 0.0 for n in names), \
         f"profiler saw no device time for some kernel: {totals}"
+    assert prof_launches == {n: launches[n] for n in names}, \
+        f"launches differ between two frames: {prof_launches} vs {launches}"
     busy = sum(totals.values())
     idle = 1 - busy / (1e3 * prof_wall)
     phase(tag, "per-kernel device ms over one frame (torch.profiler): "
-          + ", ".join(f"{n}={totals.get(n, 0.0):.2f} ({counts.get(n, 0)} "
-                      f"launches)" for n in names)
+          + ", ".join(f"{n}={totals[n]:.2f} ({prof_launches[n]} "
+                      f"launches, as many runs seen)" for n in names)
           + f"; kernels {busy:.2f} ms of {1e3 * prof_wall:.2f} ms wall under "
           f"the profiler (device idle share {idle:.3f})")
     return dict(r=r, img=img, wall=wall, walls=walls, mrays_ub=mr_ub,
@@ -416,7 +479,7 @@ def main() -> int:
     os.makedirs(RUN_DIR, exist_ok=True)
 
     import path_tracer_tpu_torch as ptt
-    from path_tracer_tpu_torch.ops import adjoint, integrator, kernels
+    from path_tracer_tpu_torch.ops import adjoint, gather, integrator, kernels
     from path_tracer_tpu_torch.ops import wavefront as wf
     from path_tracer_tpu_torch.parallel import (calibrate_n_waves,
                                                 make_train_step)
@@ -425,7 +488,8 @@ def main() -> int:
     from path_tracer_tpu_torch.parallel import pipeline, scene_shard
     from path_tracer_tpu_torch.ops.shade import SceneFlags
     from path_tracer_tpu_torch.ops.types import (C_DEPTH_SUM, C_DO_CTRL,
-                                                 C_DONE, C_N_OCC, C_RAYS,
+                                                 C_DONE, C_EXEC_STEPS,
+                                                 C_N_OCC, C_RAYS,
                                                  C_STACK_OVF, C_TRAV_STEPS,
                                                  C_WALK_STEPS, FL_FINISHED,
                                                  FL_RESAMPLE, MAT_DIELECTRIC,
@@ -510,8 +574,13 @@ def main() -> int:
            / p_ws.best_t.abs().clamp(min=1e-6))[eq]
     err = float((k_ws.best_t - p_ws.best_t)[eq].abs().max())
     steps = int(k_ws.ctr[C_TRAV_STEPS] - snap.ctr[C_TRAV_STEPS])
-    ok = frac >= 0.9999 and float(rel.max()) <= 1e-5 and bool(
-        k_ws.ctr[C_DO_CTRL] == p_ws.ctr[C_DO_CTRL])
+    # The adaptive exit at chunk 4 (JAX's accelerator chunk): every lane's
+    # traversal state and every counter exact, the stack too.
+    exact = (frac == 1.0 and torch.equal(k_ws.best_t, p_ws.best_t)
+             and torch.equal(k_ws.stack, p_ws.stack)
+             and torch.equal(k_ws.ctr, p_ws.ctr))
+    ok = exact and eng.chunk == 4
+    exec_k1 = int(k_ws.ctr[C_EXEC_STEPS] - snap.ctr[C_EXEC_STEPS])
     work = snap.clone()
     ms, pms = time_pair("trace_step", traverse.trace_step_plain, snap, work)
     # Bytes the walk must move: a walking lane reads its ray (origin,
@@ -532,8 +601,10 @@ def main() -> int:
     ops = steps * 220
     results["trace_step"] = dict(ok=ok, err=err, ms=ms, plain_ms=pms,
                                  bytes=byts, ops=ops, library_ms=None)
-    phase("kernels", f"trace_step: match {frac:.6f} of lanes, best_t max rel "
-          f"{float(rel.max()):.2e}, {ms:.3f} ms (twin {pms:.2f} ms) "
+    phase("kernels", f"trace_step (chunk {eng.chunk}): match {frac:.6f} of "
+          f"lanes, best_t max rel {float(rel.max()):.2e}, lanes, stack and "
+          f"counters exact {exact}, steps run {exec_k1} of {eng.steps} "
+          f"(one cooperative launch), {ms:.3f} ms (twin {pms:.2f} ms) "
           f"{'PASS' if ok else 'FAIL'}; bound inputs: walking lanes {n_walk} "
           f"({n_exit} in the exit phase), finished {n_done}, empty {n_empty}, "
           f"walking steps {steps}, stack entries changed {stack_entries}, "
@@ -637,6 +708,27 @@ def main() -> int:
           f"(twin {pms:.2f} ms) {'PASS' if ok else 'FAIL'}")
     del ws, snap, k_ws, p_ws, k3, p3, k4, p4, k2, p2, work
     torch.cuda.empty_cache()
+
+    # P0 gather_rows at the probe's shape (tools/bench_gather.py:105-145):
+    # a (512, 80) table, 16384 random rows, against torch.index_select.
+    g0 = torch.Generator(device=dev).manual_seed(0)
+    gtab = torch.randn((512, 80), device=dev, generator=g0)
+    gidx = torch.randint(0, 512, (16384,), device=dev, generator=g0,
+                         dtype=torch.int32)
+    glib = torch.index_select(gtab, 0, gidx)
+    gerr = float((gather.gather_rows(gtab, gidx) - glib).abs().max())
+    g_ok = torch.equal(gather.gather_rows(gtab, gidx), glib)
+    gms = cuda_ms(lambda: gather.gather_rows(gtab, gidx))
+    gpms = cuda_ms(lambda: gather.gather_rows_plain(gtab, gidx))
+    glms = cuda_ms(lambda: torch.index_select(gtab, 0, gidx))
+    results["gather_rows"] = dict(
+        ok=g_ok, err=gerr, ms=gms, plain_ms=gpms, library_ms=glms, ops=0,
+        bytes=gtab.numel() * 4 + gidx.numel() * 4 + glib.numel() * 4)
+    phase("kernels", f"gather_rows: (512, 80) table, 16384 random rows, equal "
+          f"to index_select {g_ok}, {gms:.4f} ms (plain {gpms:.4f} ms, "
+          f"index_select {glms:.4f} ms, bound "
+          f"{results['gather_rows']['bytes'] / H100_BYTES_PER_S * 1e3:.5f} ms) "
+          f"{'PASS' if g_ok else 'FAIL'}")
 
     def mega_pair(meng, w, h):
         """K5 and its twin on sample 0 from a zero frame: the share of pixels
@@ -1234,7 +1326,7 @@ def main() -> int:
     rec = {}
     rec["main"] = frame_phase(
         "main", lambda: Renderer(world, cam, engine="wavefront", device=dev),
-        W, H, SPP, DEPTH, WAVE_KERNELS, kernels)
+        W, H, SPP, DEPTH, LOOP_KERNELS, kernels)
     png = os.path.join(RUN_DIR, "vol2_final_800x450_10spp.png")
     rec["main"].pop("r").write_image(png)
     main_img = rec["main"].pop("img")
@@ -1250,6 +1342,138 @@ def main() -> int:
     mega_img = rec["main-mega"].pop("img")
     phase("main-mega", f"image mean {float(mega_img.mean()):.5f}, written to "
           f"{png}")
+
+    # --- 5b. the device wave loop against the per-wave host loop ---
+    zero = torch.zeros((H, W, 3), device=dev)
+
+    def fresh_pool():
+        e = wf.WaveEngine(scene, flags, bvh, cam_a, cfg, 0, SPP, key,
+                          queue_size=32768, steps_per_wave=32, ctrl_den=8)
+        return e, e.init_state(zero)
+
+    def wave_frame(loop):
+        """One vol2_final frame through ``loop`` from a fresh pool, the
+        launch counts set to 0 just before → (state, engine, reads, wall,
+        launches)."""
+        e, w = fresh_pool()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        reads = loop(e, w)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return w, e, reads, wall, dict(kernels.LAUNCHES)
+
+    def profiled_frame(loop, tag):
+        """The same frame under torch.profiler, its kernel runs held against
+        its launch counts → (state, engine, launches, device ms by kernel,
+        wall)."""
+        def prepare():
+            e, w = fresh_pool()
+            return lambda: (w, e, loop(e, w))
+
+        (w, e, _), totals, launches, wall = profile_run(
+            prepare, LOOP_KERNELS, kernels, tag)
+        return w, e, launches, totals, wall
+
+    def loop_stats(w, e):
+        st = wf._stats(w, e)
+        out = {k: int(st[k]) for k in ("paths", "rays", "depth_sum", "waves",
+                                       "ctrls", "occ_sum", "trav_steps",
+                                       "exec_steps", "walk_steps", "spawned",
+                                       "stack_overflows")}
+        return out
+
+    runs = {"graph": [], "host": []}
+    for name in ("graph", "host", "host", "graph"):
+        runs[name].append(wave_frame(wf.run_waves_graph if name == "graph"
+                                     else wf.run_waves))
+    (gw, ge, g_reads, _, g_launch), (hw, he, h_reads, _, h_launch) = (
+        runs["graph"][0], runs["host"][0])
+    g_st, h_st = loop_stats(gw, ge), loop_stats(hw, he)
+    same_img = torch.equal(gw.accum, hw.accum)
+    same_ctr = (g_st == h_st and torch.equal(gw.depth_hist, hw.depth_hist)
+                and torch.equal(gw.pix_paths, hw.pix_paths))
+    waves = g_st["waves"]
+    host_waves = h_launch["shade"]          # waves the host loop queued
+    launch_ok = (all(g_launch[n] == waves for n in WAVE_KERNELS)
+                 and g_launch["wave_loop"] == waves + 1
+                 and all(h_launch[n] == host_waves for n in WAVE_KERNELS)
+                 and h_launch["wave_loop"] == 0 and host_waves >= waves)
+    # Profiled, each frame's kernel runs equal its launch counts
+    # (profile_run), so the graph's counts are measured, not inferred.
+    prof_runs = {n: profiled_frame(wf.run_waves_graph if n == "graph"
+                                   else wf.run_waves, f"loop {n}")
+                 for n in ("graph", "host")}
+    prof_ok = (prof_runs["graph"][2] == {n: g_launch[n] for n in LOOP_KERNELS}
+               and prof_runs["host"][2] == {n: h_launch[n]
+                                            for n in LOOP_KERNELS})
+    idle = {n: 1 - sum(r[3].values()) / (1e3 * r[4])
+            for n, r in prof_runs.items()}
+    loop_img = (gw.accum.reshape(H, W, 3) / SPP).cpu().numpy()
+    l_ok, l_outl, l_clean = graded_agreement(loop_img, mega_img)
+    # The adaptive exit's cost: the same frame in the device loop with the
+    # exit off (one chunk of 32 steps per wave, JAX's ADAPTIVE_WAVE=False).
+    traverse.ADAPTIVE_WAVE = False
+    try:
+        off = profiled_frame(wf.run_waves_graph, "loop exit off")
+        off_walls = [off[4]] + [wave_frame(wf.run_waves_graph)[3]
+                                for _ in range(2)]
+    finally:
+        traverse.ADAPTIVE_WAVE = True
+    off_st = loop_stats(off[0], off[1])
+    off_img_same = bool(torch.equal(off[0].accum, gw.accum))
+    loop_ok = (same_img and same_ctr and launch_ok and prof_ok
+               and g_reads == 1 and l_ok
+               and off_st["paths"] == g_st["paths"]
+               and off_st["rays"] == g_st["rays"])
+    walls = {n: [r[3] for r in rs] for n, rs in runs.items()}
+    rec["loop"] = dict(
+        walls=walls, reads={"graph": g_reads, "host": h_reads},
+        launches={"graph": g_launch, "host": h_launch}, stats=g_st,
+        host_waves=host_waves,
+        device_ms={n: r[3] for n, r in prof_runs.items()},
+        profiled_wall_ms={n: 1e3 * r[4] for n, r in prof_runs.items()},
+        idle_share=idle, outliers=l_outl, clean_mean=l_clean,
+        exit_off=dict(stats=off_st, walls=off_walls, device_ms=off[3],
+                      profiled_wall_ms=1e3 * off[4],
+                      image_equal=off_img_same),
+        ok=loop_ok)
+    phase("loop", f"vol2_final {W}x{H} {SPP} spp: device loop vs host loop: "
+          f"image bit-identical {same_img}, counters/histogram/per-pixel "
+          f"paths identical {same_ctr} ({g_st}); one launch per kernel per "
+          f"wave in both, graph {waves} waves + {waves + 1} wave_loop, "
+          f"host {host_waves} waves queued: {launch_ok}; profiled frames' "
+          f"kernel runs equal to these launches: {prof_ok}")
+    phase("loop", "frame walls s: device loop " + ", ".join(
+        f"{x:.4f}" for x in walls["graph"]) + "; host loop " + ", ".join(
+        f"{x:.4f}" for x in walls["host"]) + f"; host reads per frame "
+        f"{g_reads} vs {h_reads}; under the profiler device ms "
+        + "; ".join(f"{n}: " + ", ".join(f"{k}={v:.2f}" for k, v in
+                                         r[3].items())
+                    + f" of {1e3 * r[4]:.2f} ms (idle {idle[n]:.3f})"
+                    for n, r in prof_runs.items()))
+    phase("loop", f"exit off (one 32-step chunk per wave): {off_st['waves']} "
+          f"waves, exec_steps {off_st['exec_steps']}, trav_steps "
+          f"{off_st['trav_steps']}, image bit-identical {off_img_same}; walls "
+          + ", ".join(f"{x:.4f}" for x in off_walls) + "; device ms "
+          + ", ".join(f"{k}={v:.2f}" for k, v in off[3].items())
+          + f" of {1e3 * off[4]:.2f} ms; device loop image vs K5's: "
+          f"outliers {l_outl:.5f}, clean mean {l_clean:.2e} -> "
+          f"{'PASS' if loop_ok else 'FAIL'}")
+    # The plain version of the loop predicate: a host read of the counters
+    # and the live test, as the host loop pays per read.
+    t0 = time.perf_counter()
+    for _ in range(25):
+        ge.live(gw.ctr.cpu())
+    live_host_ms = (time.perf_counter() - t0) / 25 * 1e3
+    prof_g = prof_runs["graph"]
+    results["wave_loop"] = dict(
+        ok=loop_ok, err=float((gw.accum - hw.accum).abs().max()),
+        ms=prof_g[3]["wave_loop"] / max(prof_g[2]["wave_loop"], 1),
+        plain_ms=live_host_ms, library_ms=None, ops=4, bytes=28)
+    del runs, prof_runs, off, gw, hw
+    torch.cuda.empty_cache()
 
     # --- 6. mesh_perlin_sss through both engines ---
     for engine, names in (("wavefront", WAVE_KERNELS),
@@ -1281,18 +1505,52 @@ def main() -> int:
         t0 = time.perf_counter()
         tiled_frame()
         walls.append(time.perf_counter() - t0)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tiled_frame()
-        prof_wall = time.perf_counter() - t0
-    totals = {n: sum(ev.device_time_total / 1e3 for ev in prof.key_averages()
-                     if ev.key.startswith(f"{n}_kernel"))
-              for n in TILED_KERNELS}
+    # Profiled: the replays' kernel runs equal the counted launches.
+    _, totals, prof_launches, prof_wall = profile_run(
+        lambda: tiled_frame, TILED_KERNELS, kernels, "tiled")
+    assert prof_launches == {n: tl_frame[n] for n in TILED_KERNELS}
     idle = 1 - sum(totals.values()) / (1e3 * prof_wall)
     timg_np = timg.detach().cpu().numpy()
     t_ok, t_outl, t_clean = graded_agreement(timg_np, mega_img)
+
+    # The same frame through the eager loop (render_sample_tiled: every
+    # launch queued from the host), which the graph replaces.
+    def eager_frame():
+        e_ = itl.TiledEngine(scene, flags, bvh, cam_a, cfg, key)
+        c_ = itl.new_counters(dev)
+        acc = 0.0
+        for s_ in range(SPP):
+            acc = acc + itl.render_sample_tiled(scene, flags, bvh, cam_a, cfg,
+                                                s_, key, eng=e_, ctr=c_)
+        torch.cuda.synchronize()
+        return acc / SPP, c_
+
+    # Where a graphed frame's host time goes: the capture, then the replays.
+    e_ = itl.TiledEngine(scene, flags, bvh, cam_a, cfg, key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tg_ = itl.TripGraph(e_, W * H, itl.new_counters(dev))
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    all_pix = torch.arange(W * H, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    for s_ in range(SPP):
+        tg_.run(s_, all_pix)
+    torch.cuda.synchronize()
+    t_replays = time.perf_counter() - t0
+    del tg_, e_
+    eager_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eimg, ectr = eager_frame()
+        eager_walls.append(time.perf_counter() - t0)
+    _, e_totals, _, e_prof_wall = profile_run(
+        lambda: eager_frame, TILED_KERNELS, kernels, "tiled eager")
+    e_idle = 1 - sum(e_totals.values()) / (1e3 * e_prof_wall)
+    graph_eager = (torch.equal(timg, eimg)
+                   and int(tstats["trav_steps"]) == int(ectr[C_TRAV_STEPS])
+                   and int(tstats["walk_steps"]) == int(ectr[C_WALK_STEPS]))
+    t_ok = t_ok and graph_eager
     want = {"closest_hit": 2 * cfg.iters * SPP, "tiled_trip": cfg.iters * SPP,
             "tiled_spawn": SPP}
     launch_ok = all(tl_frame[n] == v for n, v in want.items()) and all(
@@ -1305,7 +1563,11 @@ def main() -> int:
                         walk_steps=int(tstats["walk_steps"]),
                         launches=tl_frame, kernel_totals_ms=totals,
                         profiled_wall_ms=1e3 * prof_wall, idle_share=idle,
-                        outliers=t_outl, clean_mean=t_clean, ok=tiled_ok)
+                        outliers=t_outl, clean_mean=t_clean, ok=tiled_ok,
+                        eager=dict(walls=eager_walls, kernel_totals_ms=e_totals,
+                                   profiled_wall_ms=1e3 * e_prof_wall,
+                                   idle_share=e_idle, identical=graph_eager),
+                        capture_s=t_capture, replays_s=t_replays)
     phase("tiled", f"render_tiled vol2_final {W}x{H} {SPP} spp depth {DEPTH} "
           f"({cfg.iters} trips): wall {wall:.4f} s, upper-bound "
           f"{rec['tiled']['mrays_ub']:.3f} Mrays/s, traversal steps "
@@ -1319,8 +1581,36 @@ def main() -> int:
           f"{idle:.3f}); image vs K5's: outliers {t_outl:.5f}, clean mean "
           f"{t_clean:.2e}, launches as expected {launch_ok} -> "
           f"{'PASS' if tiled_ok else 'FAIL'}")
-    del timg, tstats
+    phase("tiled", f"graphed frame vs the eager loop: image and counters "
+          f"bit-identical {graph_eager}; a graph's capture {t_capture:.4f} s, "
+          f"its {SPP} replays {t_replays:.4f} s; eager walls "
+          + ", ".join(f"{w_:.4f}" for w_ in eager_walls)
+          + f" (median {statistics.median(eager_walls):.4f}); eager device ms "
+          + ", ".join(f"{n}={v:.2f}" for n, v in e_totals.items())
+          + f" of {1e3 * e_prof_wall:.2f} ms under the profiler (idle "
+          f"{e_idle:.3f})")
+    del timg, tstats, eimg
     torch.cuda.empty_cache()
+
+    # --- the P0 probe: gather_rows at P0's shape and the node-row widths ---
+    kernels.reset_launches()
+    probe = []
+    for label, tab_, idx_ in (
+            ("P0 random", gtab, gidx),
+            ("P0 sorted", gtab, torch.sort(gidx).values.contiguous()),
+            *((f"width {w_}", torch.randn((4096, w_), device=dev,
+                                          generator=g0),
+               torch.randint(0, 4096, (16384,), device=dev, generator=g0,
+                             dtype=torch.int32)) for w_ in (80, 96, 184))):
+        out_ = gather.gather_rows(tab_, idx_)
+        probe.append((label, tuple(tab_.shape), bool(torch.equal(
+            out_, torch.index_select(tab_, 0, idx_)))))
+    gather_launches = kernels.LAUNCHES["gather_rows"]
+    probe_ok = all(p_[2] for p_ in probe) and gather_launches == len(probe)
+    results["gather_rows"]["ok"] = results["gather_rows"]["ok"] and probe_ok
+    phase("gather", f"P0 probe: {probe}, {gather_launches} launches -> "
+          f"{'PASS' if probe_ok else 'FAIL'} (times: "
+          f"path_tracer_tpu_torch/scripts/bench_gather.py)")
 
     # --- 7. whole-image agreement, kernels vs twins on the card ---
     ws_, hs_ = 160, 90
@@ -1780,6 +2070,7 @@ def main() -> int:
         launches[n] = rec["tiled"]["launches"][n]
     for n in ("ring_hop", "tiled_trip_rec"):
         launches[n] = par_summary["pp"]["launches"][n]
+    launches["gather_rows"] = gather_launches
     table = []
     for n, (srcf, repl) in KERNELS.items():
         res = results[n]
@@ -1806,9 +2097,11 @@ def main() -> int:
     failed = [t["name"] for t in table if not t["pass"]]
     print(json.dumps({"kernels": table}), flush=True)
     tiled_ok = rec["tiled"]["ok"]
-    if failed or not (agree and train_ok and tiled_ok and par_ok):
+    loop_ok = rec["loop"]["ok"]
+    if failed or not (agree and train_ok and tiled_ok and par_ok and loop_ok):
         print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok} "
-              f"tiled={tiled_ok} parallel={par_ok}", file=sys.stderr)
+              f"tiled={tiled_ok} parallel={par_ok} loop={loop_ok}",
+              file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,10 +58,11 @@
 #define C_N_WALK 10
 #define C_N_OCC 11
 #define C_DO_CTRL 12
-#define C_TICKET 13
+#define C_N_ACT_END 13
 #define C_STACK_OVF 14
-#define C_WAVE_MAX 15
+#define C_N_ACT 15
 #define C_WALK_STEPS 16
+#define C_GO 17
 
 // Everything a wave kernel reads or writes.  Mirrored field for field by
 // ops/kernels.py:WaveArgs (ctypes); ptt_wave_args_layout() below exports
@@ -85,7 +86,8 @@ struct WaveArgs {
   float* u5_out;
   long long items_total;
   // sizes and knobs
-  int R, sd, steps, ctrl_den, root, n_prims, n_sph, n_qd, n_prim_rows;
+  int R, sd, steps, chunk, exit_den, ctrl_den, root, n_prims, n_sph, n_qd,
+      n_prim_rows;
   int n_mat, n_med, n_tex, n_img, img_h, img_w;
   int prim_mask, has_medium, has_noise, has_image;
   int has_noise_emission, has_noise_medium, has_image_emission,
@@ -115,6 +117,9 @@ struct WaveArgs {
   const float* exit_t; const bool* exit_med; float* rec;
   // first frame pixel of a pixel block (K2, K4, K5, K6; npix is its size)
   int pix_offset;
+  // the tiled engine's sample index in device memory (null: start_sample),
+  // so that one captured trip graph replays every sample
+  const int* sample_dev;
 };
 
 // Every field of WaveArgs in declaration order.  A name missing from the
@@ -127,8 +132,9 @@ struct WaveArgs {
   X(occupied) X(flag) X(accum) X(pix_paths) X(depth_hist) X(ctr) X(nodes)    \
   X(prims) X(prim_tab) X(mat_tab) X(med_tab) X(tex_tab) X(img_data)          \
   X(img_hw) X(perlin_vec) X(perlin_perm) X(u5_out) X(items_total) X(R)       \
-  X(sd) X(steps) X(ctrl_den) X(root) X(n_prims) X(n_sph) X(n_qd)             \
-  X(n_prim_rows) X(n_mat) X(n_med) X(n_tex) X(n_img) X(img_h) X(img_w)       \
+  X(sd) X(steps) X(chunk) X(exit_den) X(ctrl_den) X(root) X(n_prims)         \
+  X(n_sph) X(n_qd) X(n_prim_rows) X(n_mat) X(n_med) X(n_tex) X(n_img)        \
+  X(img_h) X(img_w)                                                          \
   X(prim_mask) X(has_medium) X(has_noise) X(has_image)                       \
   X(has_noise_emission) X(has_noise_medium) X(has_image_emission)            \
   X(has_image_medium) X(width) X(max_depth) X(iters_cap) X(rr_min_depth)     \
@@ -137,7 +143,7 @@ struct WaveArgs {
   X(dv) X(defocus_u) X(defocus_v) X(defocus_angle) X(bg_color) X(bg_type)   \
   X(delta) X(g_tex) X(g_img) X(g_prim) X(g_mat) X(g_med) X(g_perlin)        \
   X(q_tmin) X(q_active) X(exit_found) X(exit_pt) X(exit_pi) X(exit_t)        \
-  X(exit_med) X(rec) X(pix_offset)
+  X(exit_med) X(rec) X(pix_offset) X(sample_dev)
 
 // Fills names[k], offsets[k] for each field when the arrays are given;
 // returns the number of fields.  Each kernel library exports its own copy.

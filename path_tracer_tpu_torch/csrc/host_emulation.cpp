@@ -31,23 +31,21 @@ static T atomicAdd(T* p, T v) {
 #include "closest_hit.cu"
 #include "tiled_trip.cu"
 
+// K1: the wave's chunks in order, each a loop over the slots and then the
+// epilogue that block 0 runs between the kernel's two grid barriers.
 extern "C" void emu_trace_step(WaveArgs* a) {
-  if (!wave_is_live(*a)) {
-    a->ctr[C_DO_CTRL] = 0;
-    return;
+  if (!wave_runs(*a, true)) return;
+  for (int i = 0; i < a->steps; i += a->chunk) {
+    ChunkCount n{0, 0, 0, 0, 0};
+    for (int lane = 0; lane < a->R; ++lane) trace_lane(*a, lane, n);
+    a->ctr[C_N_ACT] += n.act;
+    a->ctr[C_N_ACT_END] += n.act_end;
+    a->ctr[C_N_READY] += n.ready;
+    a->ctr[C_N_WALK] += n.walk;
+    a->ctr[C_STACK_OVF] += n.ovf;
+    chunk_epilogue(*a, i);
+    if (a->ctr[C_GO] == 0) break;
   }
-  long long longest = 0;
-  for (int i = 0; i < a->R; ++i) {
-    int ready, walk, steps, ovf;
-    trace_lane(*a, i, ready, walk, steps, ovf);
-    a->ctr[C_N_READY] += ready;
-    a->ctr[C_N_WALK] += walk;
-    a->ctr[C_TRAV_STEPS] += steps;
-    a->ctr[C_STACK_OVF] += ovf;
-    if (steps > longest) longest = steps;
-  }
-  a->ctr[C_WAVE_MAX] = longest;
-  wave_epilogue(*a);
 }
 
 extern "C" void emu_shade(WaveArgs* a) {

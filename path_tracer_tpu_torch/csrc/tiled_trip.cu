@@ -13,7 +13,8 @@
 // (hit_found, hit_pt, hit_pi) and, in a medium scene, the exit query's
 // (exit_found, exit_t, exit_pt, exit_pi); exit_med, when given, replaces the
 // medium lookup (the tensor-parallel mode broadcasts it from the shard that
-// owns the exit hit).  The sample is start_sample for every lane.  The rec
+// owns the exit hit).  Every lane takes one sample: start_sample, or
+// *sample_dev when set (a captured trip graph replays each sample).  The rec
 // variant (tiled_trip_rec_kernel) shades the hit record rec of the pipeline
 // mode instead of refining (hit_pt, hit_pi) against the local rows
 // (bounce_shade_t's rec=, shade_tiled.py:775, 785-790).  The SSS walk's
@@ -26,14 +27,18 @@
 //
 // The same source holds the engine's spawn (tiled_spawn_kernel): the first
 // trip's path state, spawn_paths (shade_tiled.py:741, B3) with K2's camera
-// code (camera.cuh), for sample start_sample of each lane's frame pixel.
+// code (camera.cuh), for the sample (as above) of each lane's frame pixel.
 #include "bounce.cuh"
+
+__device__ __forceinline__ int tiled_sample(const WaveArgs& a) {
+  return a.sample_dev != nullptr ? *a.sample_dev : a.start_sample;
+}
 
 // The primary ray of lane i and a fresh path state.
 __device__ __forceinline__ void tiled_spawn_lane(const WaveArgs& a, int i) {
   float o[3], d[3], time, u5[5];
   const int pix = a.pixel[i];
-  primary_ray(a, path_key(a, a.start_sample, pix), pix, o, d, time, u5);
+  primary_ray(a, path_key(a, tiled_sample(a), pix), pix, o, d, time, u5);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     a.origin[3 * i + k] = o[k];
@@ -72,7 +77,7 @@ __device__ __forceinline__ int tiled_lane(const WaveArgs& a, int i) {
                          : medium_of(a, a.exit_pt[i], a.exit_pi[i]) >= 0;
   }
   const Key kit = fold_in(fold_in(fold_in(Key{a.key0, a.key1},
-                                          (uint32_t)a.start_sample),
+                                          (uint32_t)tiled_sample(a)),
                                   (uint32_t)a.pixel[i]),
                           (uint32_t)p.iters);
   int trips;

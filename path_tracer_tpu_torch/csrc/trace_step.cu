@@ -1,32 +1,54 @@
-// K1 trace_step: one wave of suspended BVH4 closest-hit traversal.
+// K1 trace_step: one wave of suspended BVH4 closest-hit traversal, with the
+// adaptive wave exit.
 //
 // Replaces path_tracer_tpu/ops/traverse.py _step_tiled (:334) driven by
-// traversal_steps_batched (:408), plus the wave's control predicate
-// (ops/wavefront.py:451-462).  One thread per slot walks its query up to
-// `steps` steps of traverse.cuh or until done.  The stack lives in device
-// memory (R x sd ints, L1/L2-resident); a push at a full stack is dropped
-// exactly as in the JAX step and counted in ctr[C_STACK_OVF], which the
-// renderer requires to be 0.
+// traversal_steps_batched(adaptive=True) (:408, the exit at :459-490), plus
+// the wave's control predicate (ops/wavefront.py:451-462).  A wave walks in
+// chunks of `chunk` steps (JAX's _unroll(): 4 on an accelerator); the first
+// chunk always runs, and chunk i+1 runs only while i+chunk < steps and more
+// than R / exit_den lanes are still walking.  The rule needs a grid-wide
+// count after every chunk, so a wave is one cooperative launch: its
+// resident grid strides over the slots and takes two grid-wide barriers per
+// chunk, one before block 0 reads the reduced counts and one before every
+// block reads its decision.  (One launch per chunk, the launch boundary as
+// the barrier, gave the same lanes and counters and measured slower per
+// wave and per frame; PERF.md.)
+//
+// The epilogue of a chunk adds its walking lanes x chunk to
+// ctr[C_TRAV_STEPS] and chunk to ctr[C_EXEC_STEPS] and sets ctr[C_GO]; the
+// last chunk that ran evaluates the control predicate into ctr[C_DO_CTRL],
+// which K3/K4/K2 read in the same wave.  A wave is one launch, so a CUDA
+// graph can hold it (csrc/wave_loop.cu).
+//
+// One thread per slot walks its query up to `chunk` steps of traverse.cuh
+// or until done.  Like JAX, every lane whose node pointer is not done walks
+// and counts, occupied or not (an empty slot's pointer is done).  The stack
+// lives in device memory (R x sd ints, L1/L2-resident); a push at a full
+// stack is dropped exactly as in the JAX step and counted in
+// ctr[C_STACK_OVF], which the renderer requires to be 0.
 //
 // Bound: the node-row gathers.  Each step reads one 384-byte row per lane;
 // rows are shared across lanes and stay in the 50 MB L2 (the vol2_final BVH
 // is ~0.6 MB), so the kernel is latency-bound on dependent gathers, not on
-// HBM bandwidth.  The simple design keeps one lane per thread; a shared-
-// memory node cache, warp-level work redistribution and a persistent grid
-// are later work (PERF.md).
-//
-// The last block to finish (atomic ticket) evaluates the control predicate
-// from the block-reduced counts and writes ctr[C_DO_CTRL], which K3/K4/K2
-// read in the same wave.
+// HBM bandwidth.  The chunks add one reload of each walking lane's ray and
+// traversal state per chunk, and two grid barriers per chunk.
 #include "traverse.cuh"
 
+#ifndef PTT_HOST_EMULATION
+#include <cooperative_groups.h>
+#endif
+
+// Lane counts of one chunk: walking at the chunk's start and end (every
+// lane), ready and walking occupied slots after the chunk, dropped pushes.
+struct ChunkCount {
+  int act, act_end, ready, walk, ovf;
+};
+
 __device__ __forceinline__ void trace_lane(const WaveArgs& a, int i,
-                                           int& ready, int& walk,
-                                           int& steps_done, int& ovf) {
-  ready = walk = steps_done = ovf = 0;
-  if (!a.occupied[i]) return;
+                                           ChunkCount& n) {
   int cur = a.cur[i];
   if (cur != PTT_DONE) {
+    ++n.act;
     const TravRay r = trav_ray(
         a.origin[3 * i], a.origin[3 * i + 1], a.origin[3 * i + 2],
         a.direction[3 * i], a.direction[3 * i + 1], a.direction[3 * i + 2],
@@ -35,17 +57,18 @@ __device__ __forceinline__ void trace_lane(const WaveArgs& a, int i,
     float best_t = a.best_t[i];
     int best_pt = a.best_pt[i], best_pi = a.best_pi[i];
     int* stack = a.stack + (size_t)i * a.sd;
-    while (cur != PTT_DONE && steps_done < a.steps) {
-      ++steps_done;
-      trav_step(a, r, cur, stack, sp, best_t, best_pt, best_pi, ovf);
-    }
+    for (int k = 0; k < a.chunk && cur != PTT_DONE; ++k)
+      trav_step(a, r, cur, stack, sp, best_t, best_pt, best_pi, n.ovf);
     a.cur[i] = cur;
     a.sp[i] = sp;
     a.best_t[i] = best_t;
     a.best_pt[i] = best_pt;
     a.best_pi[i] = best_pi;
   }
-  if (cur == PTT_DONE) ready = 1; else walk = 1;
+  if (cur != PTT_DONE) ++n.act_end;
+  if (a.occupied[i]) {
+    if (cur == PTT_DONE) ++n.ready; else ++n.walk;
+  }
 }
 
 // Wave bookkeeping and the control predicate, from the reduced counts.
@@ -61,13 +84,24 @@ __device__ __forceinline__ void wave_epilogue(const WaveArgs& a) {
       (n_ready + (can_spawn ? n_empty : 0)) * a.ctrl_den >= a.R || n_walk == 0;
   c[C_WAVES] = c[C_WAVES] + 1;
   c[C_OCC_SUM] = c[C_OCC_SUM] + n_occ;
-  c[C_EXEC_STEPS] = c[C_EXEC_STEPS] + c[C_WAVE_MAX];
   c[C_CTRLS] = c[C_CTRLS] + (do_ctrl ? 1 : 0);
   c[C_DO_CTRL] = do_ctrl ? 1 : 0;
+}
+
+// After the chunk that starts at step i, from the reduced counts: account
+// the chunk (JAX adds the walking lanes at the chunk's start x chunk), then
+// either let the next chunk run or end the wave.
+__device__ __forceinline__ void chunk_epilogue(const WaveArgs& a, int i) {
+  volatile long long* c = a.ctr;
+  c[C_TRAV_STEPS] = c[C_TRAV_STEPS] + c[C_N_ACT] * a.chunk;
+  c[C_EXEC_STEPS] = c[C_EXEC_STEPS] + a.chunk;
+  const bool go = i + a.chunk < a.steps && c[C_N_ACT_END] * a.exit_den > a.R;
+  c[C_GO] = go ? 1 : 0;
+  if (!go) wave_epilogue(a);
+  c[C_N_ACT] = 0;
+  c[C_N_ACT_END] = 0;
   c[C_N_READY] = 0;
   c[C_N_WALK] = 0;
-  c[C_WAVE_MAX] = 0;
-  c[C_TICKET] = 0;
 }
 
 __device__ __forceinline__ bool wave_is_live(const WaveArgs& a) {
@@ -76,55 +110,70 @@ __device__ __forceinline__ bool wave_is_live(const WaveArgs& a) {
   return spawned < a.items_total || a.ctr[C_N_OCC] > 0;
 }
 
+// Whether the wave runs; a wave with no work left clears the control flag
+// and the chunk flag instead.
+__device__ __forceinline__ bool wave_runs(const WaveArgs& a, bool writer) {
+  if (wave_is_live(a)) return true;
+  if (writer) {
+    a.ctr[C_DO_CTRL] = 0;
+    a.ctr[C_GO] = 0;
+  }
+  return false;
+}
+
 #ifndef PTT_HOST_EMULATION
+// One wave (see the top of the file).
 __global__ void trace_step_kernel(WaveArgs a) {
-  if (!wave_is_live(a)) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) a.ctr[C_DO_CTRL] = 0;
-    return;
-  }
-  __shared__ int s_ready, s_walk, s_max, s_ovf;
-  __shared__ unsigned long long s_steps;
-  __shared__ bool s_last;
-  if (threadIdx.x == 0) {
-    s_ready = s_walk = s_max = s_ovf = 0;
-    s_steps = 0ull;
-  }
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.R) {
-    int ready, walk, steps, ovf;
-    trace_lane(a, i, ready, walk, steps, ovf);
-    if (ready) atomicAdd(&s_ready, 1);
-    if (walk) atomicAdd(&s_walk, 1);
-    if (steps) {
-      atomicAdd(&s_steps, (unsigned long long)steps);
-      atomicMax(&s_max, steps);
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const bool first = blockIdx.x == 0 && threadIdx.x == 0;
+  if (!wave_runs(a, first)) return;
+  __shared__ int s_act, s_act_end, s_ready, s_walk, s_ovf;
+  for (int i = 0; i < a.steps; i += a.chunk) {
+    if (threadIdx.x == 0) s_act = s_act_end = s_ready = s_walk = s_ovf = 0;
+    __syncthreads();
+    ChunkCount n{0, 0, 0, 0, 0};
+    for (int lane = blockIdx.x * blockDim.x + threadIdx.x; lane < a.R;
+         lane += gridDim.x * blockDim.x)
+      trace_lane(a, lane, n);
+    if (n.act) atomicAdd(&s_act, n.act);
+    if (n.act_end) atomicAdd(&s_act_end, n.act_end);
+    if (n.ready) atomicAdd(&s_ready, n.ready);
+    if (n.walk) atomicAdd(&s_walk, n.walk);
+    if (n.ovf) atomicAdd(&s_ovf, n.ovf);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long* c = (unsigned long long*)a.ctr;
+      atomicAdd(c + C_N_ACT, (unsigned long long)s_act);
+      atomicAdd(c + C_N_ACT_END, (unsigned long long)s_act_end);
+      atomicAdd(c + C_N_READY, (unsigned long long)s_ready);
+      atomicAdd(c + C_N_WALK, (unsigned long long)s_walk);
+      if (s_ovf) atomicAdd(c + C_STACK_OVF, (unsigned long long)s_ovf);
     }
-    if (ovf) atomicAdd(&s_ovf, ovf);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long* c = (unsigned long long*)a.ctr;
-    atomicAdd(c + C_N_READY, (unsigned long long)s_ready);
-    atomicAdd(c + C_N_WALK, (unsigned long long)s_walk);
-    atomicAdd(c + C_TRAV_STEPS, s_steps);
-    atomicMax(c + C_WAVE_MAX, (unsigned long long)s_max);
-    if (s_ovf) atomicAdd(c + C_STACK_OVF, (unsigned long long)s_ovf);
-    __threadfence();
-    const unsigned long long t = atomicAdd(c + C_TICKET, 1ull);
-    s_last = (t == gridDim.x - 1);
-  }
-  __syncthreads();
-  if (s_last && threadIdx.x == 0) {
-    __threadfence();
-    wave_epilogue(a);
+    grid.sync();
+    if (first) chunk_epilogue(a, i);
+    grid.sync();
+    if (((volatile long long*)a.ctr)[C_GO] == 0) break;
   }
 }
 
+// A cooperative launch: as many blocks as the slots need, at most as many
+// as fit resident on the card (the wrapper counts one launch).
 extern "C" int ptt_launch_trace_step(const WaveArgs* a, void* stream) {
   const int block = 128;
-  const int grid = (a->R + block - 1) / block;
-  trace_step_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+  if (a->chunk <= 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, trace_step_kernel, block, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int need = (a->R + block - 1) / block;
+  const int grid = need < per_sm * sms ? need : per_sm * sms;
+  void* args[] = {(void*)a};
+  return (int)cudaLaunchCooperativeKernel((void*)trace_step_kernel,
+                                          dim3(grid), dim3(block), args, 0,
+                                          (cudaStream_t)stream);
 }
 #endif

@@ -12,9 +12,12 @@ and finished lanes keep their state.  The keys fold as the megakernel's
 ``trace_ray_scan``'s sample set, lane for lane; that is why the replay of
 :mod:`.adjoint` (K6) is its backward.
 
-On the card one launch of K7 or K8 covers every lane of a chunk, and the
-trip, sample and chunk loops run on the host; the chunk's first state
-comes from ``tiled_spawn`` (``spawn_paths``, B3, with K2's camera code).
+On the card one launch of K7 or K8 covers every lane of a chunk; the
+chunk's first state comes from ``tiled_spawn`` (``spawn_paths``, B3, with
+K2's camera code).  :func:`render_tiled` captures a chunk's spawn and trips
+once as a CUDA graph (:class:`TripGraph`) and replays it for every sample
+and chunk; :func:`render_sample_tiled` is the same work queued launch by
+launch from the host.
 On CPU tensors every wrapper runs its plain-torch version.  The
 pipeline-parallel mode's K9 (``ring_hop``) and the rec variant of K8 live
 beside K7 and K8 (``csrc/closest_hit.cu``, ``csrc/tiled_trip.cu``).
@@ -122,9 +125,21 @@ def closest_hit_batched(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
 # The tiled spawn (B3) and K8: one trip.
 # ---------------------------------------------------------------------------
 
-def tiled_spawn(eng: TiledEngine, sample: int, pix) -> PathState:
+def _set_sample(a: kernels.WaveArgs, sample) -> None:
+    """The lane kernels' sample: an int, or a (1,) int32 card tensor that a
+    replayed graph reads (``sample_dev``)."""
+    if isinstance(sample, torch.Tensor):
+        a.sample_dev = kernels._ptr(sample)
+        a._keep_sample = sample
+    else:
+        a.sample_dev = None
+        a.start_sample = int(sample)
+
+
+def tiled_spawn(eng: TiledEngine, sample, pix) -> PathState:
     """The first trip's state of the lanes ``pix`` (frame pixels) for
-    sample ``sample``: ``spawn_paths``; on the card ``tiled_spawn``."""
+    sample ``sample``: ``spawn_paths``; on the card ``tiled_spawn`` (the
+    sample may then be a (1,) int32 card tensor)."""
     if not pix.is_cuda:
         smp = torch.full_like(pix, int(sample))
         st = spawn_paths(eng.cam, eng.cfg, eng.key, smp, pix)
@@ -140,7 +155,7 @@ def tiled_spawn(eng: TiledEngine, sample: int, pix) -> PathState:
         iters=torch.empty((R,), dtype=torch.int32, device=dev),
         alive=torch.empty((R,), dtype=torch.bool, device=dev))
     a = eng.args()
-    a.start_sample = int(sample)
+    _set_sample(a, sample)
     kernels.set_lanes(a, R, dev, new_counters(dev), pixel=pix.contiguous(),
                       **st._asdict())
     kernels.launch_args("tiled_spawn", a, dev)
@@ -195,11 +210,11 @@ def tiled_trip_plain(eng: TiledEngine, st: PathState, sample: int, pix, hit,
                        for x, y in zip(st, nxt)))
 
 
-def tiled_trip(eng: TiledEngine, st: PathState, sample: int, pix, hit,
+def tiled_trip(eng: TiledEngine, st: PathState, sample, pix, hit,
                ext=None, exit_med=None, rec=None, ctr=None) -> PathState:
     """K8 wrapper (``tiled_trip``, or ``tiled_trip_rec`` with ``rec``): on
-    the card it updates ``st`` in place and returns it; on the CPU the
-    plain version's new state."""
+    the card it updates ``st`` in place and returns it (the sample may be a
+    (1,) int32 card tensor); on the CPU the plain version's new state."""
     if not pix.is_cuda:
         return tiled_trip_plain(eng, st, sample, pix, hit, ext, exit_med, rec,
                                 ctr)
@@ -212,7 +227,7 @@ def tiled_trip(eng: TiledEngine, st: PathState, sample: int, pix, hit,
         lanes.update(exit_found=e_found, exit_pt=e_pt, exit_pi=e_pi,
                      exit_t=t_exit, exit_med=exit_med)
     a = eng.args()
-    a.start_sample = int(sample)
+    _set_sample(a, sample)
     kernels.set_lanes(a, R, dev, ctr if ctr is not None else new_counters(dev),
                       **lanes)
     kernels.launch_args("tiled_trip" if rec is None else "tiled_trip_rec", a,
@@ -250,6 +265,60 @@ def trace_rays_tiled(eng: TiledEngine, path0: PathState, sample: int, pix,
     return s.color
 
 
+class TripGraph:
+    """One chunk of the tiled engine as a CUDA graph (the device form of
+    JAX's ``lax.scan`` over trips, :91-118): ``tiled_spawn``, then
+    ``cfg.iters`` trips of K7, K7 for the exit query in a medium scene, and
+    K8, each launch over every lane of the chunk as in the eager loop.
+    The chunk's pixels and the sample are read from card memory, so one
+    capture replays every (sample, chunk).  Launches count per replay.  The
+    graph holds the engine's tables and ``ctr``; build a new one for a new
+    engine.
+    """
+
+    def __init__(self, eng: TiledEngine, n_lanes: int, ctr):
+        dev = eng.device
+        self.pix = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
+        self.sample = torch.zeros((1,), dtype=torch.int32, device=dev)
+        kernels.build()     # host work before the capture: the libraries and
+        eng.args()          # the argument blocks
+        kernels.query_args(eng.bvh, eng.cfg.t_max,
+                           min(eng.cfg.stack_depth, eng.bvh.max_stack))
+        self.graph = torch.cuda.CUDAGraph()
+        # Captured on a side stream, without torch.cuda.graph's garbage
+        # collection and cache flush before every capture.
+        side, main = torch.cuda.Stream(dev), torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with kernels.captured_launches() as tally, torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                path0 = tiled_spawn(eng, self.sample, self.pix)
+                self.color = trace_rays_tiled(eng, path0, self.sample,
+                                              self.pix, ctr)
+            finally:
+                self.graph.capture_end()
+        main.wait_stream(side)
+        self.tally = dict(tally)
+
+    def run(self, sample: int, pix) -> torch.Tensor:
+        """The chunk's radiance (R, 3) for ``sample`` of the lanes ``pix``;
+        the graph's output, overwritten by the next run."""
+        self.sample.fill_(int(sample))
+        self.pix.copy_(pix)
+        self.graph.replay()
+        kernels.count(self.tally)
+        return self.color
+
+
+def _chunks(pix_idx, n: int, chunk_size: int, dev):
+    """The lanes padded with pixel 0 to whole chunks → (idxs, chunk)."""
+    chunk = min(int(chunk_size), max(n, 1))
+    n_pad = -(-n // chunk) * chunk
+    idxs = torch.cat([pix_idx.to(dev, torch.int32),
+                      torch.zeros((n_pad - n,), dtype=torch.int32, device=dev)])
+    return idxs, chunk
+
+
 def render_sample_tiled(scene, flags, bvh, cam, cfg: RenderConfig,
                         sample_idx: int, base_key, pix_idx=None,
                         chunk_size: int = CHUNK, eng=None, ctr=None):
@@ -258,25 +327,45 @@ def render_sample_tiled(scene, flags, bvh, cam, cfg: RenderConfig,
 
     Lanes run in chunks of ``chunk_size`` (the last padded with pixel 0,
     traced and dropped); the result does not depend on the chunk size.
+    Every launch is queued from the host (the eager loop; :func:`render_tiled`
+    replays a :class:`TripGraph` on the card).
     """
     eng = eng or TiledEngine(scene, flags, bvh, cam, cfg, base_key)
     dev = eng.device
     full = pix_idx is None
     if full:
-        pix_idx = torch.arange(cfg.width * cfg.height, dtype=torch.int32,
-                               device=dev)
+        pix_idx = _frame_pixels(cfg, dev)
     n = pix_idx.shape[0]
-    chunk = min(int(chunk_size), max(n, 1))
-    n_pad = -(-n // chunk) * chunk
-    idxs = torch.cat([pix_idx.to(dev, torch.int32),
-                      torch.zeros((n_pad - n,), dtype=torch.int32, device=dev)])
+    idxs, chunk = _chunks(pix_idx, n, chunk_size, dev)
     out = []
-    for c in range(0, n_pad, chunk):
+    for c in range(0, idxs.shape[0], chunk):
         pix = idxs[c:c + chunk]
         path0 = tiled_spawn(eng, sample_idx, pix)
         out.append(trace_rays_tiled(eng, path0, sample_idx, pix, ctr))
     colors = torch.cat(out)[:n]
     return colors.reshape(cfg.height, cfg.width, 3) if full else colors
+
+
+def _frame_pixels(cfg: RenderConfig, dev):
+    return torch.arange(cfg.width * cfg.height, dtype=torch.int32, device=dev)
+
+
+def _graphed_samples(eng: TiledEngine, spp: int, pix_idx, chunk_size: int,
+                     ctr):
+    """Sum of ``spp`` samples of :func:`render_sample_tiled` through one
+    :class:`TripGraph` replayed per (sample, chunk)."""
+    cfg, dev = eng.cfg, eng.device
+    full = pix_idx is None
+    pix_idx = _frame_pixels(cfg, dev) if full else pix_idx
+    n = pix_idx.shape[0]
+    idxs, chunk = _chunks(pix_idx, n, chunk_size, dev)
+    graph = TripGraph(eng, chunk, ctr)
+    acc = torch.zeros((idxs.shape[0], 3), device=dev)
+    for s in range(spp):
+        for c in range(0, idxs.shape[0], chunk):
+            acc[c:c + chunk] += graph.run(s, idxs[c:c + chunk])
+    acc = acc[:n]
+    return acc.reshape(cfg.height, cfg.width, 3) if full else acc
 
 
 def render_tiled(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
@@ -304,11 +393,14 @@ def render_tiled(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
     def forward(sc):
         eng = TiledEngine(sc, flags, bvh, cam, cfg, base_key)
         ctr = new_counters(dev)
-        acc = 0.0
-        for s in range(spp):
-            acc = acc + render_sample_tiled(sc, flags, bvh, cam, cfg, s,
-                                            base_key, pix, chunk_size, eng,
-                                            ctr)
+        if dev.type != "cuda":
+            acc = 0.0
+            for s in range(spp):
+                acc = acc + render_sample_tiled(sc, flags, bvh, cam, cfg, s,
+                                                base_key, pix, chunk_size,
+                                                eng, ctr)
+        else:
+            acc = _graphed_samples(eng, spp, pix, chunk_size, ctr)
         return acc, {"trav_steps": ctr[C_TRAV_STEPS],
                      "walk_steps": ctr[C_WALK_STEPS]}
 

@@ -2,23 +2,31 @@
 
 Each kernel source (``trace_step.cu``, ``spawn.cu``, ``shade.cu``,
 ``retire.cu``, ``megakernel.cu``, ``adjoint.cu``, ``closest_hit.cu``,
-``tiled_trip.cu``) is compiled by its own ``nvcc`` for ``sm_90a``, all eight
-started together, into a shared library with a plain C interface under the
-git-ignored ``build/torch_ext/`` (file names carry a hash of the sources,
+``tiled_trip.cu``, ``wave_loop.cu``, ``gather.cu``) is compiled by its own
+``nvcc`` for ``sm_90a``, all ten started together, into a shared library
+with a plain C interface under the git-ignored ``build/torch_ext/`` (file
+names carry a hash of the sources,
 so an edit rebuilds).  Three sources hold more than one kernel, each kernel
 with its own launcher: ``adjoint.cu`` K6's colour and full instantiations
 (``adjoint``, ``adjoint_full``), ``closest_hit.cu`` K7 and K9
 (``closest_hit``, ``ring_hop``), ``tiled_trip.cu`` K8, its variant that
 shades an injected hit record and the tiled engine's spawn (``tiled_trip``,
-``tiled_trip_rec``, ``tiled_spawn``).  The libraries are opened with
-``ctypes``; device pointers come from ``tensor.data_ptr()`` and the stream from PyTorch's
-current stream.  Nothing here runs at import time, and nothing falls back:
-a failed build or launch raises.
+``tiled_trip_rec``, ``tiled_spawn``).  Those launchers take the argument
+block ``WaveArgs``; ``wave_loop.cu`` (the device wave loop,
+:func:`.wavefront.run_waves_graph`) and ``gather.cu`` (the row gather,
+:mod:`.gather`) have C interfaces of their own.  The libraries are opened
+with ``ctypes``; device pointers come from ``tensor.data_ptr()`` and the
+stream from PyTorch's current stream.  Nothing here runs at import time,
+and nothing falls back: a failed build or launch raises.
 
 ``LAUNCHES`` counts kernel launches per name; only a launch increments it.
+A launch captured into a CUDA graph counts when the graph runs it
+(:func:`captured_launches`, :func:`count`).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -30,12 +38,14 @@ import time
 
 import torch
 
-SOURCES = ("trace_step", "spawn", "shade", "retire", "megakernel", "adjoint",
-           "closest_hit", "tiled_trip")
+WAVE_SOURCES = ("trace_step", "spawn", "shade", "retire", "megakernel",
+                "adjoint", "closest_hit", "tiled_trip")
+SOURCES = WAVE_SOURCES + ("wave_loop", "gather")
 SECOND = {"adjoint_full": "adjoint", "ring_hop": "closest_hit",
           "tiled_trip_rec": "tiled_trip", "tiled_spawn": "tiled_trip"}
-NAMES = SOURCES + tuple(SECOND)
-SOURCE_OF = {n: n for n in SOURCES} | SECOND
+NAMES = WAVE_SOURCES + tuple(SECOND)      # launchers taking WaveArgs
+OWN_API = {"wave_loop": "wave_loop", "gather_rows": "gather"}
+SOURCE_OF = {n: n for n in WAVE_SOURCES} | SECOND | OWN_API
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -43,9 +53,10 @@ BUILD_DIR = os.path.join(_REPO, "build", "torch_ext")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {n: 0 for n in NAMES}
+LAUNCHES = {n: 0 for n in NAMES + tuple(OWN_API)}
 BUILD_LOG: dict = {}
 _LIBS: dict = {}
+_TALLY: collections.Counter | None = None   # launches of a graph capture
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,8 +77,9 @@ class WaveArgs(ctypes.Structure):
             "img_data", "img_hw", "perlin_vec", "perlin_perm", "u5_out")]
         + [("items_total", ctypes.c_longlong)]
         + [(n, _I) for n in (
-            "R", "sd", "steps", "ctrl_den", "root", "n_prims", "n_sph", "n_qd",
-            "n_prim_rows", "n_mat", "n_med", "n_tex", "n_img", "img_h", "img_w",
+            "R", "sd", "steps", "chunk", "exit_den", "ctrl_den", "root",
+            "n_prims", "n_sph", "n_qd", "n_prim_rows", "n_mat", "n_med",
+            "n_tex", "n_img", "img_h", "img_w",
             "prim_mask", "has_medium", "has_noise", "has_image",
             "has_noise_emission", "has_noise_medium", "has_image_emission",
             "has_image_medium", "width", "max_depth", "iters_cap",
@@ -82,7 +94,7 @@ class WaveArgs(ctypes.Structure):
                              "g_med", "g_perlin", "q_tmin", "q_active",
                              "exit_found", "exit_pt", "exit_pi", "exit_t",
                              "exit_med", "rec")]
-        + [("pix_offset", _I)])
+        + [("pix_offset", _I), ("sample_dev", _P)])
 
 
 def _nvcc() -> str:
@@ -107,7 +119,7 @@ def build(verbose: bool = False) -> dict:
 
     Returns ``{source: seconds}`` of the compile wall time (0 when cached).
     """
-    if len(_LIBS) == len(NAMES):
+    if len(_LIBS) == len(SOURCE_OF):
         return {n: 0.0 for n in SOURCES}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = _source_hash()
@@ -138,7 +150,18 @@ def build(verbose: bool = False) -> dict:
         fn.argtypes = [ctypes.POINTER(WaveArgs), _P]
         fn.restype = _I
         _LIBS[n] = (lib, fn)
+    for n, src in OWN_API.items():
+        _LIBS[n] = (ctypes.CDLL(os.path.join(BUILD_DIR, f"{src}-{tag}.so")),
+                    None)
     return secs
+
+
+def library(name: str):
+    """The built library of ``wave_loop`` or ``gather_rows`` (builds on
+    first use)."""
+    if name not in _LIBS:
+        build()
+    return _LIBS[name][0]
 
 
 def check_layout(lib, mirror=WaveArgs) -> None:
@@ -223,6 +246,9 @@ def fill_args(eng, ws=None, u5_out: torch.Tensor | None = None) -> WaveArgs:
     a.u5_out = _ptr(u5_out)
     a.items_total = eng.items_total
     a.R, a.steps, a.ctrl_den = eng.R, eng.steps, eng.ctrl_den
+    from .traverse import ADAPTIVE_EXIT_DEN, wave_chunk
+    a.chunk = wave_chunk(eng.steps, eng.chunk) if eng.steps > 0 else 1
+    a.exit_den = ADAPTIVE_EXIT_DEN
     a.n_sph, a.n_qd = tabs.n_sph, tabs.n_qd
     a.n_prim_rows = tabs.prim.shape[0]
     a.n_mat, a.n_med, a.n_tex = (tabs.mat.shape[0], tabs.med.shape[0],
@@ -317,20 +343,44 @@ def launch(name: str, eng, ws, args: WaveArgs | None = None) -> None:
     launch_args(name, args, ws.ctr.device)
 
 
-def launch_args(name: str, args: WaveArgs, device) -> None:
-    """Launch kernel ``name`` with a filled argument block on ``device``'s
-    current stream; count it."""
+def launch_args(name: str, args: WaveArgs, device, stream=None) -> None:
+    """Launch kernel ``name`` with a filled argument block on ``stream`` (a
+    raw CUDA stream handle; default ``device``'s current stream); count it."""
     if name not in _LIBS:
         build()
-    stream = torch.cuda.current_stream(device).cuda_stream
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
     err = _LIBS[name][1](ctypes.byref(args), _P(stream))
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed with error {err}")
-    LAUNCHES[name] += 1
+    count({name: 1})
+
+
+def count(launches, times: int = 1) -> None:
+    """Add ``launches`` ({name: n}) ``times`` to :data:`LAUNCHES`, or to the
+    tally of the capture in progress."""
+    for n, k in launches.items():
+        if _TALLY is not None:
+            _TALLY[n] += k * times
+        else:
+            LAUNCHES[n] += k * times
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within the block, launches go to the returned tally instead of
+    :data:`LAUNCHES`: a graph capture records kernels without running them,
+    and whoever replays the graph counts the tally per replay."""
+    global _TALLY
+    saved, _TALLY = _TALLY, collections.Counter()
+    try:
+        yield _TALLY
+    finally:
+        _TALLY = saved
 
 
 def reset_launches() -> None:
-    for n in NAMES:
+    for n in LAUNCHES:
         LAUNCHES[n] = 0
 
 

@@ -12,11 +12,11 @@ batched functions here, applied to a batch of rays), the full hit record
 ``no_grad``), which gives ``ro``/``rd`` the zero gradient of JAX's
 ``traverse_bvh`` custom VJP.
 
-:func:`trace_step` is kernel K1 (``csrc/trace_step.cu``): one launch walks
-every occupied wavefront slot up to ``steps_per_wave`` steps and evaluates
-the wave's control predicate.  :func:`trace_step_plain` is its plain-torch
-twin with the same signature; the wrapper takes the twin only for CPU
-tensors.
+:func:`trace_step` is kernel K1 (``csrc/trace_step.cu``): one wave walks
+every wavefront slot in chunks under JAX's adaptive exit (one cooperative
+launch per wave) and evaluates the wave's control predicate.
+:func:`trace_step_plain` is its plain-torch twin with the same signature;
+the wrapper takes the twin only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -43,6 +43,24 @@ _SORT_NET = {
 }
 _DONE = -(2 ** 30)
 INNER_STEPS = 8   # steps per check of the per-ray walk (traverse.py:124)
+# Steps per chunk of the adaptive wave (traverse.py:132-137): 4 on the card,
+# as JAX's on its accelerator, 1 on the CPU, as JAX's there.
+UNROLL = 4
+# The adaptive wave exit (traverse.py:141-144): a wave stops once no more
+# than 1/ADAPTIVE_EXIT_DEN of the pool is still walking.
+ADAPTIVE_WAVE = True
+ADAPTIVE_EXIT_DEN = 4
+
+
+def _unroll(device) -> int:
+    return UNROLL if torch.device(device).type != "cpu" else 1
+
+
+def wave_chunk(n_steps: int, chunk: int) -> int:
+    """Steps per chunk of an adaptive wave of ``n_steps``: ``chunk``, or all
+    ``n_steps`` in one chunk where JAX runs its fixed loop (the exit off, or
+    ``n_steps <= chunk``)."""
+    return chunk if ADAPTIVE_WAVE and n_steps > chunk else n_steps
 
 
 class TravState(NamedTuple):
@@ -143,12 +161,19 @@ def _step(bvh: PackedBVH, s: TravState, rox, roy, roz, ivx, ivy, ivz,
 
 
 def traversal_steps_batched(bvh: PackedBVH, s: TravState, ro, rd, time,
-                            t_min, n_steps: int, count_steps: bool = False):
-    """Run ``n_steps`` masked steps on an (R,)-batched :class:`TravState`.
+                            t_min, n_steps: int, count_steps: bool = False,
+                            adaptive: bool = False, chunk: int = 1):
+    """Run masked steps on an (R,)-batched :class:`TravState`.
 
-    A step on a finished lane is a no-op, so stopping once every lane is
-    done gives the same state.  With ``count_steps`` also returns the
-    walking-lane step count and the steps executed.
+    Without ``adaptive``: ``n_steps`` steps; a step on a finished lane is a
+    no-op, so stopping once every lane is done gives the same state, and
+    ``count_steps`` counts the walking lanes of each step and the steps run.
+    With ``adaptive`` (the wavefront's wave, JAX :459-490): chunks of
+    ``chunk`` steps (:func:`wave_chunk`); the first always runs, and the
+    next runs while fewer than ``n_steps`` steps have run and more than
+    ``R / ADAPTIVE_EXIT_DEN`` lanes (occupied or not) are walking.
+    ``count_steps`` then returns the walking lanes at each chunk's start
+    times ``chunk`` and the steps run, a multiple of ``chunk``.
     """
     R = s.cur.shape[0]
     dev = s.cur.device
@@ -159,16 +184,33 @@ def traversal_steps_batched(bvh: PackedBVH, s: TravState, ro, rd, time,
     time = _lanes(time, R, torch.float32, dev)
     t_min = _lanes(t_min, R, torch.float32, dev)
     iota = torch.arange(s.stack.shape[1], dtype=torch.int32, device=dev)[None]
+
+    def step(st):
+        return _step(bvh, st, rox, roy, roz, ivx, ivy, ivz, rdx, rdy, rdz,
+                     rr, time, t_min, iota)
+
     lane_steps = 0
     executed = 0
+    if adaptive:
+        chunk = wave_chunk(n_steps, chunk)
+        while executed < n_steps:
+            n_act = int((s.cur != _DONE).sum())
+            if executed > 0 and n_act * ADAPTIVE_EXIT_DEN <= R:
+                break
+            lane_steps += n_act * chunk
+            executed += chunk
+            for _ in range(chunk):
+                if not bool((s.cur != _DONE).any()):
+                    break
+                s = step(s)
+        return (s, lane_steps, executed) if count_steps else s
     for _ in range(n_steps):
         n_act = int((s.cur != _DONE).sum())
         if n_act == 0:
             break
         lane_steps += n_act
         executed += 1
-        s = _step(bvh, s, rox, roy, roz, ivx, ivy, ivz, rdx, rdy, rdz, rr,
-                  time, t_min, iota)
+        s = step(s)
     return (s, lane_steps, executed) if count_steps else s
 
 
@@ -321,11 +363,11 @@ def first_hit_brute(scene: SceneArrays, ro, rd, time, t_min, t_max):
 def trace_step_plain(eng, ws) -> None:
     """Plain twin of K1 on a :class:`~.wavefront.WaveState` (in place).
 
-    Walks every slot up to ``eng.steps`` steps (MAIN queries from
-    ``t_min``, volume-exit queries from ``hit_t + 1e-4``), then evaluates the
-    wave's control predicate into ``ws.ctr``: ``waves``/``ctrls``/
-    ``occ_sum`` bookkeeping and the ``do_ctrl`` flag the control kernels
-    read (``ops/wavefront.py:451-462``).
+    Walks every slot in chunks of ``eng.chunk`` steps under the adaptive
+    exit (MAIN queries from ``t_min``, volume-exit queries from ``hit_t +
+    1e-4``), then evaluates the wave's control predicate into ``ws.ctr``:
+    ``waves``/``ctrls``/``occ_sum`` bookkeeping and the ``do_ctrl`` flag
+    the control kernels read (``ops/wavefront.py:451-462``).
     """
     ctr = ws.ctr
     spawned = min(int(ctr[C_SPAWNED]), eng.items_total)
@@ -339,7 +381,7 @@ def trace_step_plain(eng, ws) -> None:
     trv = TravState(ws.cur, ws.stack, ws.sp, ws.best_t, ws.best_pt, ws.best_pi)
     trv, lane_steps, executed = traversal_steps_batched(
         eng.bvh, trv, ws.origin, ws.direction, ws.time, t_min_q, eng.steps,
-        count_steps=True)
+        count_steps=True, adaptive=True, chunk=eng.chunk)
     for name, v in zip(("cur", "stack", "sp", "best_t", "best_pt", "best_pi"),
                        trv):
         getattr(ws, name).copy_(v)

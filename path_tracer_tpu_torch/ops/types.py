@@ -219,13 +219,14 @@ C_WAVES = 4        # waves executed while work remained
 C_CTRLS = 5        # waves that ran the control kernels
 C_OCC_SUM = 6      # Σ occupied slots over waves
 C_TRAV_STEPS = 7   # walking-lane traversal steps
-C_EXEC_STEPS = 8   # Σ over waves of the longest lane walk in the wave
-C_N_READY = 9      # per-wave scratch (trace_step)
-C_N_WALK = 10      # per-wave scratch (trace_step)
+C_EXEC_STEPS = 8   # traversal steps the waves ran (chunks run x chunk)
+C_N_READY = 9      # per-chunk scratch (trace_step)
+C_N_WALK = 10      # per-chunk scratch (trace_step)
 C_N_OCC = 11       # occupied slots now
 C_DO_CTRL = 12     # this wave runs the control kernels
-C_TICKET = 13      # last-block ticket of trace_step
+C_N_ACT_END = 13   # per-chunk scratch: lanes walking at the chunk's end
 C_STACK_OVF = 14   # pushes dropped at a full stack (must stay 0)
-C_WAVE_MAX = 15    # per-wave scratch: longest lane walk (trace_step)
+C_N_ACT = 15       # per-chunk scratch: lanes walking at the chunk's start
 C_WALK_STEPS = 16  # SSS-volumetric walking trips of kept lanes (B6)
-N_COUNTERS = 17
+C_GO = 17          # the wave's next trace_step chunk runs (adaptive exit)
+N_COUNTERS = 18

@@ -14,10 +14,15 @@ wave machine of ``_make_engine`` (:135-467).  One wave is four kernels:
 4. K2 :func:`spawn` — hand the next (pixel, sample-window) work items to
    empty slots and start their camera rays.
 
-K3, K4 and K2 return at once when ``do_ctrl`` is 0.  The wave loop itself
-(B8) is a host loop that reads the counters back once every
-``CHECK_EVERY`` waves, through pinned memory; nothing per wave crosses to
-the host.  On CPU tensors every kernel wrapper runs its plain-torch twin.
+K3, K4 and K2 return at once when ``do_ctrl`` is 0.  On the card the wave
+loop (B8', JAX's ``lax.while_loop(live, wave)``) runs on the device: one
+CUDA graph per frame whose conditional WHILE node repeats a wave while
+``live`` holds (``csrc/wave_loop.cu``, :func:`run_waves_graph`); the host
+launches it once and reads the counters once.  :func:`run_waves` is the
+same loop driven from the host, a wave's launches at a time, reading the
+counters every ``CHECK_EVERY`` waves (the comparison path, and the loop of
+the plain-torch twins).  On CPU tensors every kernel wrapper runs its
+plain-torch twin.
 
 :func:`render_batch_diff` is the differentiable wavefront: the forward is
 :func:`render_batch` (K1-K4 on the card), the backward replays each
@@ -33,6 +38,7 @@ backend fuses multiply-adds, which can flip a near-``t_min`` self-hit).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import warnings
 from dataclasses import dataclass
@@ -41,7 +47,8 @@ import torch
 
 from . import adjoint, kernels
 from .shade_tiled import make_tables, shade, shade_plain, spawn_paths
-from .traverse import _DONE, trace_step, trace_step_plain, traversal_init_batched
+from .traverse import (_DONE, _unroll, trace_step, trace_step_plain,
+                       traversal_init_batched)
 from .types import (C_CTRLS, C_DEPTH_SUM, C_DO_CTRL, C_DONE, C_EXEC_STEPS,
                     C_N_OCC, C_OCC_SUM, C_RAYS, C_SPAWNED, C_STACK_OVF,
                     C_TRAV_STEPS, C_WALK_STEPS, C_WAVES, FL_FINISHED,
@@ -96,10 +103,12 @@ class WaveEngine:
                  start_sample: int, n_samples: int, base_key,
                  queue_size: int, steps_per_wave: int, ctrl_den: int,
                  sample_stride: int | None = None, pix_offset: int = 0,
-                 n_pix: int | None = None):
+                 n_pix: int | None = None, chunk: int | None = None):
         self.scene, self.flags, self.bvh, self.cam, self.cfg = (
             scene, flags, bvh, cam, cfg)
         self.device = scene.sph_c0.device
+        # Steps per chunk of the adaptive wave exit (JAX's _unroll()).
+        self.chunk = int(chunk) if chunk else _unroll(self.device)
         self.key = base_key.to(self.device)
         self.pix_offset = int(pix_offset)
         self.npix = int(n_pix) if n_pix is not None else cfg.width * cfg.height
@@ -265,13 +274,15 @@ def spawn(eng: WaveEngine, ws: WaveState) -> None:
 # ---------------------------------------------------------------------------
 
 KERNELS = (trace_step, shade, retire, spawn)
+WAVE_NAMES = ("trace_step", "shade", "retire", "spawn")   # one wave, in order
 PLAIN = (trace_step_plain, shade_plain, retire_plain, spawn_plain)
 CHECK_EVERY = 8          # waves between host reads of the counters
 MAX_WAVES = 1_000_000    # a frame that has not drained by then is a bug
 
 
 def run_waves(eng: WaveEngine, ws: WaveState, plain: bool = False) -> int:
-    """Run waves until no work is left; returns the number of host reads.
+    """Run waves from the host until no work is left; returns the number of
+    host reads.
 
     On the card the counters are copied to pinned memory every
     ``CHECK_EVERY`` waves and the copy is read one period later, so the host
@@ -308,6 +319,68 @@ def run_waves(eng: WaveEngine, ws: WaveState, plain: bool = False) -> int:
     raise RuntimeError(f"wavefront did not drain within {MAX_WAVES} waves")
 
 
+def _wave_loop_lib():
+    lib = kernels.library("wave_loop")
+    if not hasattr(lib, "_typed"):
+        P, LL = ctypes.c_void_p, ctypes.c_longlong
+        lib.ptt_wave_loop_begin.argtypes = [P, LL, LL, ctypes.POINTER(P),
+                                            ctypes.POINTER(P)]
+        lib.ptt_wave_loop_end.argtypes = [P, P, LL, LL]
+        lib.ptt_wave_loop_launch.argtypes = [P, P]
+        lib.ptt_wave_loop_free.argtypes = [P]
+        for f in ("begin", "end", "launch", "free"):
+            getattr(lib, f"ptt_wave_loop_{f}").restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"the device wave loop: {what} failed with CUDA "
+                           f"error {err}")
+
+
+def run_waves_graph(eng: WaveEngine, ws: WaveState) -> int:
+    """Run waves on the device until no work is left; returns the host
+    reads (1).
+
+    Captures one wave (K1, K3, K4, K2) from the state's persistent
+    tensors into the body of a CUDA graph's WHILE node, whose condition the
+    device evaluates after every wave (``live``); launches the graph once
+    and copies the counters to the host once.  Launches count per wave the
+    loop ran (``ctr[C_WAVES]``); ``wave_loop`` counts its predicate kernel,
+    run once before the loop and once per wave.  A failed capture or launch
+    raises; so does a frame that has not drained within ``MAX_WAVES``.
+    """
+    dev = ws.ctr.device
+    lib = _wave_loop_lib()
+    args = kernels.make_args(eng, ws)
+    ctr = ctypes.c_void_p(ws.ctr.data_ptr())
+    loop, stream = ctypes.c_void_p(), ctypes.c_void_p()
+    try:
+        _check(lib.ptt_wave_loop_begin(ctr, eng.items_total, MAX_WAVES,
+                                       ctypes.byref(loop), ctypes.byref(stream)),
+               "building the graph")
+        with kernels.captured_launches() as per_wave:
+            for name in WAVE_NAMES:
+                kernels.launch_args(name, args, dev, stream=stream.value)
+        _check(lib.ptt_wave_loop_end(loop, ctr, eng.items_total, MAX_WAVES),
+               "capturing the wave")
+        waves0 = ws.ctr[C_WAVES].clone()
+        _check(lib.ptt_wave_loop_launch(
+            loop, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
+            "launching the graph")
+        host = torch.cat([ws.ctr, waves0[None]]).cpu()   # the one host read
+    finally:
+        lib.ptt_wave_loop_free(loop)
+    waves = int(host[C_WAVES] - host[-1])
+    kernels.count(per_wave, waves)
+    kernels.count({"wave_loop": waves + 1})
+    if eng.live(host):
+        raise RuntimeError(f"wavefront did not drain within {MAX_WAVES} waves")
+    return 1
+
+
 def _stats(ws: WaveState, eng: WaveEngine) -> dict:
     ctr = ws.ctr
     return {"paths": ctr[C_DONE], "rays": ctr[C_RAYS],
@@ -335,8 +408,9 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     shard): the camera and the RNG take the frame pixel, so a sharded render
     integrates the sample set of the whole-frame one, and ``accum`` and the
     result are the block's ``(n_pix, 3)``.  ``plain=True`` runs the plain-torch
-    twins on whatever device the tensors are on (the comparison path); the
-    default runs the CUDA kernels for CUDA tensors.  With ``with_stats`` the
+    twins on whatever device the tensors are on (the comparison path, a
+    host loop); the default runs the CUDA kernels in the device wave loop
+    (:func:`run_waves_graph`) for CUDA tensors.  With ``with_stats`` the
     stats dict adds ``pixel_paths`` (finished paths per pixel),
     ``stack_overflows`` (must be 0) and ``host_reads``.
     """
@@ -344,7 +418,10 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
                      base_key, queue_size, steps_per_wave, ctrl_den,
                      sample_stride, pix_offset, n_pix)
     ws = eng.init_state(accum)
-    reads = run_waves(eng, ws, plain=plain)
+    if ws.ctr.is_cuda and not plain:
+        reads = run_waves_graph(eng, ws)
+    else:
+        reads = run_waves(eng, ws, plain=plain)
     image = (ws.accum if n_pix is not None
              else ws.accum.reshape(cfg.height, cfg.width, 3))
     if with_stats:

@@ -12,6 +12,7 @@ otherwise).  Not ported yet: checkpoints, metrics files and ``autotune``
 from __future__ import annotations
 
 import time as _time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -85,8 +86,16 @@ class RenderStats:
         return out
 
 
+# RenderConfig fields that only the wavefront engine reads.
+WAVEFRONT_KNOBS = ("sample_stride", "queue_size", "steps_per_wave",
+                   "ctrl_den")
+
+
 class Renderer:
-    """Compile once, render progressively on ``device`` (default CUDA)."""
+    """Compile once, render progressively on ``device`` (default CUDA).
+
+    The megakernel ignores :data:`WAVEFRONT_KNOBS` and warns when ``cfg``
+    sets any of them."""
 
     ENGINES = ("megakernel", "wavefront")
 
@@ -104,6 +113,10 @@ class Renderer:
             samples_per_pixel=camera.samples_per_pixel,
             max_depth=camera.max_depth)
         self.engine = engine
+        knobs = [k for k in WAVEFRONT_KNOBS if getattr(self.cfg, k)]
+        if engine == "megakernel" and knobs:
+            warnings.warn(f"Renderer(engine='megakernel') ignores the "
+                          f"wavefront knobs {', '.join(knobs)}", stacklevel=2)
         self.scene = compile_scene(world, device=self.device)
         self.flags = SceneFlags.from_scene(self.scene)
         t1 = _time.perf_counter()

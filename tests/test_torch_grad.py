@@ -283,9 +283,8 @@ def test_render_batch_diff_matches_jax(diff_setup):
     np.testing.assert_allclose(img.detach().numpy(), np.asarray(ref["img"]),
                                atol=ATOL)
     jst = ref["stats"]
-    # (``waves`` counts the port's own schedule: K1 walks up to
-    # steps_per_wave steps without JAX's adaptive early exit.)
-    for k in ("paths", "total", "spawned", "rays", "depth_sum", "walk_steps"):
+    for k in ("paths", "total", "spawned", "rays", "depth_sum", "walk_steps",
+              "waves", "ctrls", "occ_sum", "trav_steps", "exec_steps"):
         assert int(st[k]) == int(jst[k]), k
     assert int(st["paths"]) == int(st["total"]) == 16 * 8
     np.testing.assert_array_equal(st["depth_hist"].numpy(),

@@ -160,4 +160,10 @@ def test_kernel_wrappers_launch_on_card(cuda_device):
     img = ptt.render_pp(sc1, r.flags, bv1, r.cam_arrays, r.cfg, r.key,
                         ptt.make_mesh(1, "p"))
     assert bool(torch.isfinite(img).all())
+    # the P0 row gather
+    from path_tracer_tpu_torch.ops import gather
+    rows = gather.gather_rows(r.bvh.nodes.contiguous(),
+                              torch.zeros((4,), dtype=torch.int32,
+                                          device=cuda_device))
+    assert torch.equal(rows, r.bvh.nodes[[0, 0, 0, 0]])
     assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES

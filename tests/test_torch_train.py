@@ -112,6 +112,20 @@ def test_train_step_descends_and_engines_agree(setup):
                                atol=ATOL, rtol=RTOL)
 
 
+def test_calibrate_n_waves_matches_jax(setup):
+    """The wave schedule follows JAX's adaptive exit, so the budget sized
+    on the same setup is JAX's."""
+    scene, flags, bvh, cam = setup["j"]
+    ts, tb, tc = setup["t"]
+    key = jax.random.key(3)
+    want = jrd.calibrate_n_waves(scene, flags, bvh, cam, JCfg(**CFG), key,
+                                 spp=2, queue_size=256, steps_per_wave=8)
+    got = trd.calibrate_n_waves(ts, TFlags.from_scene(ts), tb, tc,
+                                TCfg(**CFG), _tkey(key), spp=2,
+                                queue_size=256, steps_per_wave=8)
+    assert got == want
+
+
 def test_calibrate_and_wave_budget(setup):
     scene, flags, bvh, cam = setup["j"]
     ts, tb, tc = setup["t"]

@@ -16,6 +16,19 @@ counters to just above the measured gaps: ``rays`` within 0.3% (measured
 9 of 3893, 0.23%) and the depth histogram's L1 distance within 1.5% of the
 paths (measured 12 of 1152, 1.04%); 4 of 576 pixels (0.69%) are outliers,
 at stride 1 and 2 alike.
+
+The wave schedule (``waves``, ``ctrls``, ``occ_sum``, ``trav_steps``,
+``exec_steps``: K1's twin runs JAX's adaptive wave exit at JAX's CPU chunk
+of 1) equals JAX's exactly on the Cornell scenes.  On vol2_final_scene the
+9 segments that take another branch also move the schedule, each counter
+by what those segments cost, and each is held to its own measured gap
+with modest room (``SCHED_GAP``; measured at stride 1 / stride 2: waves
+107 vs 106 / equal, exec_steps 216 vs 215 / equal, ctrls equal, trav_steps
+21440 vs 21507 both, 0.31%, occ_sum 6830 vs 6939, 1.57% / 7582 vs 7681,
+1.29%).  The gap is the FMA path divergence of ROADMAP.md C, not the exit
+rule: the Cornell cases, held exactly, catch a wrong exit threshold (a
+threshold of 3 or 5 in place of 4 moves their waves, ctrls, occ_sum and
+exec_steps).
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +47,11 @@ from path_tracer_tpu_torch.ops.shade import SceneFlags as TFlags
 from path_tracer_tpu_torch.ops.types import RenderConfig as TCfg
 
 W, H, SPP = 32, 18, 2
+# Largest |port - JAX| allowed per schedule counter on vol2_final_scene,
+# from the measured gaps above: whole waves and steps (chunk 1), a
+# fraction of JAX's value for the sums over slots and lanes.
+SCHED_GAP = {"waves": 1, "ctrls": 0, "exec_steps": 2, "trav_steps": 0.004,
+             "occ_sum": 0.02}
 CASES = [("cornell_box", None), ("cornell_box", 2), ("cornell_smoke", None),
          ("cornell_smoke", 2), ("vol2_final_scene", None),
          ("vol2_final_scene", 2)]
@@ -74,13 +92,19 @@ def test_render_batch_matches_jax(name, stride):
     assert (tst["pixel_paths"].numpy() == SPP).all()
     assert np.isfinite(timg).all()
     jh, th = np.asarray(jst["depth_hist"]), tst["depth_hist"].numpy()
+    sched = ("waves", "ctrls", "occ_sum", "trav_steps", "exec_steps")
     if name.startswith("cornell"):
+        for k in sched:
+            assert int(tst[k]) == int(jst[k]), k
         assert int(tst["rays"]) == int(jst["rays"])
         np.testing.assert_array_equal(th, jh)
         np.testing.assert_allclose(timg, jimg, rtol=1e-5, atol=1e-5)
     else:
         assert abs(int(tst["rays"]) - int(jst["rays"])) <= 0.003 * int(jst["rays"])
         assert np.abs(th - jh).sum() <= 0.015 * jh.sum()
+        for k, gap in SCHED_GAP.items():
+            limit = gap * int(jst[k]) if isinstance(gap, float) else gap
+            assert abs(int(tst[k]) - int(jst[k])) <= limit, k
         per_pix = np.abs(timg - jimg).max(-1) / SPP
         assert (per_pix > 1e-3).mean() <= 0.01
         clean = per_pix[per_pix <= 1e-3]
