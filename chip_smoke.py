@@ -76,6 +76,25 @@ Phases (each prints its own line; any failure exits non-zero):
                 Mrays/s, per-kernel device time, the image against K5's
                 under the graded rule and bit-identical to the eager loop's
                 (render_sample_tiled, every launch from the host).
+9b. bvh8     — (after phase 8) vol2_final over a BVH8
+                (build_from_scene(branching=8)): K1 (lanes, stack and
+                counters exact), K5, K7, K9 (torus knot shard) and both K6
+                instantiations at K = 8 against their plain versions at the
+                full configuration, timed; the 800x450, 10-spp frame through
+                the megakernel, the device wave loop and the tiled engine at
+                K = 4 and K = 8 (three walls, Mrays/s, traversal steps per
+                segment, dropped pushes, device ms per kernel, launches and
+                instantiation launches held against the profiler's kernel
+                runs), each K = 8 frame under the graded rule of the K = 4
+                frame and each engine at K = 8 against its plain path at
+                160x90; the vol2_final train step at K = 8 (colour and full
+                K6), its gradients against the BVH4 step's.
+9c. stack     — the per-thread arrays beyond their local 64 entries: K5 and
+                K7 with a 70-entry stack (max_stack raised) bit-equal to
+                the local stack, the full K6 with stack, tape and walk
+                record in per-pixel buffers against its plain version, and a
+                Cornell train step at max_depth 60 (68 trips, the colour K6's
+                tape in the per-pixel buffer).
 10. parallel  — ranks of a gloo job sharing the card, each a process
                 (this script with --rank): 2-rank data-parallel wavefront
                 on the vol2_final frame (image against the one-rank frame,
@@ -84,8 +103,11 @@ Phases (each prints its own line; any failure exits non-zero):
                 rank's), 2-rank tensor- and pipeline-parallel renders
                 of the 102,400-triangle torus knot at 800x800 (against the
                 one-rank tiled image, tests/test_tp_scale.py's graded
-                rule), and DP x TP on a 2x2 grid on vol2_final at 400x225.
-11. the JSON kernel table, then the JSON result line.
+                rule), the same two modes over BVH8 shards, and DP x TP on a
+                2x2 grid on vol2_final at 400x225.
+11. the JSON kernel table (every kernel, then every instantiation timed in
+    phases 9b-9c: ``<kernel>_k8``, ``<kernel>_k4_global``, with its ptxas
+    registers, stack frame and spills), then the JSON result line.
 
 Phase 3 also holds the tiled engine's kernels against their plain
 versions: K7 (closest_hit), K8 (tiled_trip) and the tiled spawn on every
@@ -156,6 +178,10 @@ LOOP_KERNELS = WAVE_KERNELS + ("wave_loop",)   # the frame in the device loop
 BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce (threefry at 110)
 WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
 SWEEP_OPS = 60                 # K6's reverse sweep, per tape entry
+# fp32 ops of one traversal step by node width: K slab tests, K inline leaf
+# tests and the compare-swap network (5 comparators at K = 4, 19 at 8);
+# the K = 8 step does twice the per-child work of the K = 4 one.
+STEP_OPS = {4: 220, 8: 440}
 # What the gradient needs beyond the forward (counted as K5's replay): per
 # tape entry the bounce's transpose (about as many operations as the
 # bounce), per SSS walk trip the walk's reverse.  The full K6's recompute of
@@ -171,16 +197,48 @@ def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
 
-def is_kernel(key, name):
-    """Whether a profiler event is a run of kernel ``name``."""
-    return key.startswith(f"{name}_kernel")
+# The walking kernels' instantiations (kernels.instance): each row's name,
+# the kernel it instantiates and its template arguments as a demangled name
+# spells them.  The first of each kernel is the one earlier tables time.
+INSTANCES = {
+    "trace_step_k4": ("trace_step", "4"), "trace_step_k8": ("trace_step", "8"),
+    **{f"{n}_k{k}{'_global' if g else ''}": (n, f"{k}, {str(g).lower()}")
+       for n in ("megakernel", "closest_hit", "ring_hop", "adjoint",
+                 "adjoint_full")
+       for k in (4, 8) for g in (False, True)},
+}
 
 
-def profile_run(prepare, names, kernels, tag):
+def mangled_targs(targs):
+    """Template arguments as the Itanium ABI mangles them: "8, false" ->
+    "ILi8ELb0EE"."""
+    return "I" + "".join(
+        f"Lb{int(a == 'true')}E" if a in ("true", "false") else f"Li{a}E"
+        for a in targs.split(", ")) + "E"
+
+
+def is_kernel(key, name, targs=None):
+    """Whether a profiler event is a run of kernel ``name``, of its
+    instantiation ``<targs>`` where given (e.g. ``"8, false"``); the name
+    demangled (``void megakernel_kernel<8, false>(WaveArgs)``) or not."""
+    base = f"{name}_kernel"
+    if key.startswith("_Z"):
+        head = f"_Z{len(base)}{base}"
+        if targs is not None:
+            return key.startswith(head + mangled_targs(targs))
+        return key.startswith(head) and key[len(head):len(head) + 1] in "I8"
+    k = key[5:] if key.startswith("void ") else key
+    if targs is not None:
+        return k.startswith(f"{base}<{targs}>")
+    return k.startswith(base + "(") or k.startswith(base + "<")
+
+
+def profile_run(prepare, names, kernels, tag, insts=()):
     """``prepare()`` (untimed) returns a callable; run it once under
     torch.profiler with the launch counts set to 0 just before and read
     just after → (its result, device ms by kernel, launches by kernel,
-    wall s).
+    wall s).  The runs of each instantiation in ``insts`` (names of
+    ``INSTANCES``) must equal its count in ``kernels.INSTANCES`` too.
 
     The profiler counts the runs of each kernel the card executed, and
     that count must equal the wrappers' LAUNCHES of the same run: inside a
@@ -202,18 +260,30 @@ def profile_run(prepare, names, kernels, tag):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = {n: kernels.LAUNCHES[n] for n in names}
+        i_launches = {i: kernels.INSTANCES[i] for i in insts}
         totals, counts = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+        i_counts = dict.fromkeys(insts, 0)
         for ev in prof.key_averages():
             for n in names:
                 if is_kernel(ev.key, n):
                     totals[n] += ev.device_time_total / 1e3
                     counts[n] += ev.count
-        if counts == launches or any(counts[n] > launches[n] for n in names):
+            for i in insts:
+                if is_kernel(ev.key, *INSTANCES[i]):
+                    i_counts[i] += ev.count
+        if (counts == launches and i_counts == i_launches) or any(
+                counts[n] > launches[n] for n in names):
             break
         phase(tag, f"the profiler saw {counts}, fewer than the launches "
-              f"{launches}: profiled again")
+              f"{launches}: profiled again (its kernel names and runs: "
+              + ", ".join(f"{ev.key} x{ev.count}" for ev in
+                          prof.key_averages() if any(
+                              is_kernel(ev.key, n) for n in names)) + ")")
     assert counts == launches, (f"{tag}: the profiler's kernel runs {counts} "
                                 f"!= the wrappers' launches {launches}")
+    assert i_counts == i_launches, (
+        f"{tag}: the profiler's runs of the instantiations {i_counts} != the "
+        f"wrappers' counts {i_launches}")
     return out, totals, launches, wall
 
 
@@ -242,21 +312,27 @@ def cuda_ms(fn, reps=25, setup=None):
     return statistics.median(times)
 
 
-def ptxas_resources(log, name):
-    """(registers, stack frame bytes) of ``<name>_kernel`` in a ptxas -v log."""
-    regs = frame = None
+def ptxas_resources(log, name, targs=None):
+    """(registers, stack frame bytes, spill stores, spill loads) of
+    ``<name>_kernel`` in a ptxas -v log: of its instantiation ``<targs>``
+    (e.g. ``"8, false"``) where given, else of its only (or last) entry."""
+    tag = f"{name}_kernel" + (mangled_targs(targs) if targs else "")
+    regs = frame = stores = loads = None
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if f"{name}_kernel" not in line:
+        if tag not in line:
             continue
         if "Function properties" in line and i + 1 < len(lines):
-            frame = int(lines[i + 1].split("bytes stack frame")[0].split()[-1])
+            props = lines[i + 1].split(",")
+            frame = int(props[0].split("bytes stack frame")[0].split()[-1])
+            stores = int(props[1].split("bytes spill stores")[0].split()[-1])
+            loads = int(props[2].split("bytes spill loads")[0].split()[-1])
         if "Compiling entry function" in line:
             for nxt in lines[i + 1:]:
                 if "Used" in nxt and "registers" in nxt:
                     regs = int(nxt.split("Used")[1].split("registers")[0])
                     break
-    return regs, frame
+    return regs, frame, stores, loads
 
 
 def frame_phase(tag, make, W, H, spp, depth, names, kernels):
@@ -363,7 +439,8 @@ def vol2(dev, w=800, h=450, spp=10, depth=10):
 
 
 # Rank jobs of the parallel phase: (world size, job names).
-RANK_RUNS = ((2, ("dp_wavefront", "dp_mega", "dp_train", "tp", "pp")),
+RANK_RUNS = ((2, ("dp_wavefront", "dp_mega", "dp_train", "tp", "pp", "tp8",
+                  "pp8")),
              (4, ("dp_tp",)))
 DP_TP = dict(w=400, h=225, spp=2, depth=10)
 TRAIN_SPP, TRAIN_LR = 4, 1e-9
@@ -425,12 +502,13 @@ def rank_main(argv) -> int:
             out["n_waves"] = n_waves
             run = lambda: step(params, sc, bvh, ca,  # noqa: E731
                                rng.fold_in(key, 0), target)
-        elif job in ("tp", "pp"):
-            axis = "t" if job == "tp" else "p"
+        elif job in ("tp", "pp", "tp8", "pp8"):
+            axis = "t" if job.startswith("tp") else "p"
             mesh = par.make_mesh(world, axis)
             sc, fl, _, ca, cf = torus_knot(dev)
-            sc_s, bv_s = par.shard_scene(sc, world)
-            fn = par.render_tp if job == "tp" else par.render_pp
+            sc_s, bv_s = par.shard_scene(sc, world,
+                                         8 if job.endswith("8") else 4)
+            fn = par.render_tp if axis == "t" else par.render_pp
             run = lambda: fn(sc_s, fl, bv_s, ca, cf, key, mesh,  # noqa: E731
                              axis=axis)
         elif job == "dp_tp":
@@ -449,6 +527,7 @@ def rank_main(argv) -> int:
         torch.cuda.synchronize()
         out["wall"] = time.perf_counter() - t0
         out["launches"] = dict(kernels.LAUNCHES)
+        out["instances"] = dict(kernels.INSTANCES)
         if job == "dp_wavefront":
             out["image"], out["stats"] = res[0].cpu(), {
                 k: v.cpu() for k, v in res[1].items()}
@@ -508,20 +587,31 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 phase("build", f"{n}: {line.strip()}")
+    ptxas = {}
     for n, want in PTXAS_EXPECT.items():
         if n not in kernels.BUILD_LOG:
             phase("build", f"{n}: built earlier in this process, not checked")
             continue
-        got = ptxas_resources(kernels.BUILD_LOG[n], n)
+        got = ptxas_resources(kernels.BUILD_LOG[n], n,
+                              INSTANCES["megakernel_k4"][1]
+                              if n == "megakernel" else None)[:2]
         phase("build", f"{n}: (registers, stack frame) {got}, recorded {want} "
               f"{'PASS' if got == want else 'FAIL'}")
         assert got == want, f"{n} ptxas resources changed: {got} != {want}"
-    for n in ("adjoint", "adjoint_full", "closest_hit", "ring_hop",
-              "tiled_trip", "tiled_trip_rec", "tiled_spawn"):
+    for n in ("tiled_trip", "tiled_trip_rec", "tiled_spawn"):
         src = kernels.SOURCE_OF[n]
         if src in kernels.BUILD_LOG:
             phase("build", f"{n}: (registers, stack frame) "
-                  f"{ptxas_resources(kernels.BUILD_LOG[src], n)}")
+                  f"{ptxas_resources(kernels.BUILD_LOG[src], n)[:2]}")
+    # Every instantiation of the walking kernels: registers, stack frame and
+    # spills (a spill is recorded, not hidden).
+    for inst, (n, targs) in INSTANCES.items():
+        src = kernels.SOURCE_OF[n]
+        if src in kernels.BUILD_LOG:
+            ptxas[inst] = ptxas_resources(kernels.BUILD_LOG[src], n, targs)
+            phase("build", f"{inst} ({n}_kernel<{targs}>): (registers, stack "
+                  f"frame, spill stores, spill loads) {ptxas[inst]}")
+            assert ptxas[inst][0] is not None, f"no ptxas entry for {inst}"
 
     # --- 3. kernel vs twin at the full configuration's shapes ---
     dev = torch.device("cuda")
@@ -1050,13 +1140,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # K6 adjoint against its plain version (autograd of the twin's replay)
-    def prepare(world_, cam_, w, h, spp, depth):
+    def prepare(world_, cam_, w, h, spp, depth, branching=4):
         cam_.aspect_ratio, cam_.img_width = w / h, w
         sc_ = ptt.compile_scene(world_, device=dev)
         fl_ = SceneFlags.from_scene(sc_)
         cf_ = RenderConfig(width=w, height=h, samples_per_pixel=spp,
                            max_depth=depth)
-        return sc_, fl_, ptt.build_from_scene(sc_), cam_.initialize(device=dev), cf_
+        return (sc_, fl_, ptt.build_from_scene(sc_, branching),
+                cam_.initialize(device=dev), cf_)
 
     def adjoint_pair(sc_, fl_, bv_, ca_, cf_, samples, seed, full=False):
         """K6 (the colour or the ``full`` instantiation) and its plain
@@ -1119,8 +1210,8 @@ def main() -> int:
         out["bytes"] = tab_bytes + npx * 12 + 2 * g_bytes
         sweep, walk = ((FULL_SWEEP_OPS, WALK_TRIP_OPS + FULL_WALK_OPS) if full
                        else (SWEEP_OPS, WALK_TRIP_OPS))
-        out["ops"] = (ctr["trav_steps"] * 220 + ctr["rays"] * (BOUNCE_OPS
-                                                              + sweep)
+        out["ops"] = (ctr["trav_steps"] * STEP_OPS[bv_.branching]
+                      + ctr["rays"] * (BOUNCE_OPS + sweep)
                       + ctr["walk_steps"] * walk + npx * (8 * 110 + 60))
         return dict(out, g=gk, **ctr)
 
@@ -1592,6 +1683,320 @@ def main() -> int:
     del timg, tstats, eimg
     torch.cuda.empty_cache()
 
+    # --- 9b. BVH8 rows: the walking kernels at K = 8, K = 4 beside them ---
+    bv8 = ptt.build_from_scene(scene, branching=8)
+    assert bv8.branching == 8 and bv8.nodes.shape[1] == 184
+    node8 = bv8.nodes.numel() * 4
+    phase("bvh8", f"vol2_final BVH8 {tuple(bv8.nodes.shape)} rows, "
+          f"max_stack {bv8.max_stack} (BVH4 {tuple(bvh.nodes.shape)}, "
+          f"max_stack {bvh.max_stack}); node bytes {node8} (BVH4 "
+          f"{node_bytes})")
+    inst_rows = {}    # kernel-table rows of the instantiations timed here
+
+    # The frame through each engine over the BVH4 and the BVH8: walls,
+    # Mrays/s, traversal steps per segment, dropped pushes, device ms per
+    # kernel and launches against the profiler's kernel runs.
+    def k_frame(engine, bvh_):
+        names = {"wavefront": LOOP_KERNELS, "megakernel": ("megakernel",),
+                 "tiled": TILED_KERNELS}[engine]
+        insts = [f"{n}_k{bvh_.branching}" for n in
+                 {"wavefront": ("trace_step",), "megakernel": ("megakernel",),
+                  "tiled": ("closest_hit",)}[engine]]
+
+        def run():
+            if engine == "tiled":
+                return ptt.render_tiled(scene, flags, bvh_, cam_a, cfg, key,
+                                        spp=SPP, with_stats=True)
+            if engine == "wavefront":
+                img_, st_ = wf.render_batch(
+                    scene, flags, bvh_, cam_a, cfg, zero, 0, SPP, key,
+                    queue_size=32768, steps_per_wave=32, with_stats=True)
+            else:
+                img_, st_ = integrator.render_batch(
+                    scene, flags, bvh_, cam_a, cfg, zero, 0, SPP, key,
+                    with_stats=True)
+            return img_ / SPP, st_
+
+        run()                                       # warm-up
+        walls = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            img_, st_ = run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                img0 = img_
+                stats_ = {k_: int(v) for k_, v in st_.items()
+                          if torch.is_tensor(v) and v.ndim == 0}
+                launches_ = {n: kernels.LAUNCHES[n] for n in names}
+                inst_ = {n: kernels.INSTANCES[n] for n in insts}
+        def prepare_frame():
+            if engine != "wavefront":
+                return run
+            # As the loop phase profiles it: the pool made before the
+            # profiler starts, the device loop under it.
+            e_ = wf.WaveEngine(scene, flags, bvh_, cam_a, cfg, 0, SPP, key,
+                               queue_size=32768, steps_per_wave=32,
+                               ctrl_den=8)
+            w_ = e_.init_state(zero)
+            return lambda: wf.run_waves_graph(e_, w_)
+
+        _, totals, prof_launches, prof_wall = profile_run(
+            prepare_frame, names, kernels,
+            f"bvh8 {engine} K={bvh_.branching}", insts)
+        return dict(img=img0, stats=stats_, walls=walls, launches=launches_,
+                    instances=inst_, device_ms=totals,
+                    profiled_launches=prof_launches,
+                    profiled_wall_ms=1e3 * prof_wall,
+                    idle_share=1 - sum(totals.values()) / (1e3 * prof_wall))
+
+    rec8, bvh8_ok = {}, True
+    for engine in ("wavefront", "megakernel", "tiled"):
+        rec8[engine] = {k_: k_frame(engine, b_) for k_, b_ in ((4, bvh),
+                                                               (8, bv8))}
+        for k_, r_ in rec8[engine].items():
+            st_ = r_["stats"]
+            rays = (st_["rays"] if "rays" in st_     # tiled: K5's sample set
+                    else rec8["megakernel"][k_]["stats"]["rays"])
+            wall_ = statistics.median(r_["walls"])
+            r_.update(rays=rays, wall=wall_,
+                      mrays_ub=W * H * SPP * DEPTH / wall_ / 1e6,
+                      mrays_measured=rays / wall_ / 1e6,
+                      steps_per_segment=st_["trav_steps"] / rays)
+            ok_ = (st_["stack_overflows"] == 0
+                   and r_["launches"] == r_["profiled_launches"]
+                   and all(v > 0 for v in r_["instances"].values())
+                   and bool(torch.isfinite(r_["img"]).all()))
+            bvh8_ok = bvh8_ok and ok_
+            phase("bvh8", f"{engine} K={k_} 800x450 {SPP} spp: walls "
+                  + ", ".join(f"{w_:.4f}" for w_ in r_["walls"])
+                  + f" s (median {wall_:.4f}), upper-bound "
+                  f"{r_['mrays_ub']:.3f} Mrays/s, measured "
+                  f"{r_['mrays_measured']:.3f} Mrays/s ({rays} segments), "
+                  f"trav_steps {st_['trav_steps']} = "
+                  f"{r_['steps_per_segment']:.4f} per segment, "
+                  f"stack_overflows {st_['stack_overflows']}; device ms "
+                  + ", ".join(f"{n}={v:.3f}" for n, v in
+                              r_["device_ms"].items())
+                  + f" (idle {r_['idle_share']:.3f}); launches "
+                  f"{r_['launches']} {r_['instances']} = the profiler's "
+                  f"kernel runs -> {'PASS' if ok_ else 'FAIL'}")
+        a_, b_ = (rec8[engine][k_].pop("img").cpu().numpy() for k_ in (4, 8))
+        g_ok, outl, clean = graded_agreement(b_, a_)
+        # One sample set, and every query's t equal at both widths (below):
+        # a pixel moves only where a path met an exact tie of two
+        # primitives, which the two trees break in another order.  The
+        # clean pixels must agree as the graded rule asks.
+        c_ok = clean < 1e-5
+        bvh8_ok = bvh8_ok and c_ok
+        rec8[engine]["k8_vs_k4"] = dict(graded_rule=g_ok, outliers=outl,
+                                        clean_mean=clean, ok=c_ok)
+        phase("bvh8", f"{engine}: K=8 frame vs K=4 frame (one sample set): "
+              f"outliers {outl:.5f} (graded rule {g_ok}), clean mean "
+              f"{clean:.2e} -> {'PASS' if c_ok else 'FAIL'}")
+        torch.cuda.empty_cache()
+
+    # Only exact ties move a hit: K7 over the BVH4 and over the BVH8 on the
+    # same lanes, the camera rays and three more trips of every pixel of
+    # the frame: found and t equal on every lane; where the primitive
+    # differs, t is the same, so the two trees broke a tie differently.
+    teng4 = itl.TiledEngine(scene, flags, bvh, cam_a, cfg, key)
+    tst = itl.tiled_spawn(teng4, 0, tpix)
+    n_q = n_tie = 0
+    tie_ok = True
+    for _ in range(4):
+        h4 = query(tst, t_min_v, tst.alive)
+        h8 = query(tst, t_min_v, tst.alive, bvh_=bv8)
+        tie_ok = (tie_ok and torch.equal(h4[0], h8[0])
+                  and torch.equal(h4[3], h8[3]))
+        n_q += int(tst.alive.sum())
+        n_tie += int(((h4[1] != h8[1]) | (h4[2] != h8[2])).sum())
+        e4 = query(tst, h4[3] + 1e-4, tst.alive & h4[0])
+        tst = itl.tiled_trip(teng4, tst, 0, tpix, h4[:3], e4)
+    bvh8_ok = bvh8_ok and tie_ok
+    rec8["ties"] = dict(ok=tie_ok, queries=n_q, other_primitive=n_tie)
+    phase("bvh8", f"K7 over the BVH4 and the BVH8 on the same {n_q} queries "
+          f"(camera rays and 3 trips of every pixel): found and t equal on "
+          f"every lane {tie_ok}; {n_tie} queries ({n_tie / n_q:.5f}) took "
+          f"another primitive at the same t (exact ties) -> "
+          f"{'PASS' if tie_ok else 'FAIL'}")
+    del teng4, tst, h4, h8, e4
+    torch.cuda.empty_cache()
+
+    # Each engine at K = 8 against its own plain path at 160x90, 2 spp (the
+    # tiled engine integrates the megakernel's sample set: its plain path
+    # is the megakernel twin).
+    sc_8, fl_8, bv_8, ca_8, cf_8 = prepare(
+        *ptt.scenes.vol2_final_scene(sphere_cluster=1000), 160, 90, 2, DEPTH,
+        branching=8)
+    z8 = torch.zeros((90, 160, 3), device=dev)
+    small8 = {}
+    for plain in (False, True):
+        small8[("wavefront", plain)] = wf.render_batch(
+            sc_8, fl_8, bv_8, ca_8, cf_8, z8, 0, 2, key, queue_size=32768,
+            steps_per_wave=32, with_stats=True, plain=plain)
+        small8[("megakernel", plain)] = integrator.render_batch(
+            sc_8, fl_8, bv_8, ca_8, cf_8, z8, 0, 2, key, with_stats=True,
+            plain=plain)
+    small8[("tiled", False)] = ptt.render_tiled(sc_8, fl_8, bv_8, ca_8, cf_8,
+                                                key, spp=2, with_stats=True)
+    small8[("tiled", False)] = (small8[("tiled", False)][0] * 2,
+                                small8[("tiled", False)][1])
+    small8[("tiled", True)] = small8[("megakernel", True)]
+    for engine in ("wavefront", "megakernel", "tiled"):
+        (ik, sk_), (ip, sp_) = small8[(engine, False)], small8[(engine, True)]
+        g_ok, outl, clean = graded_agreement(ik.cpu().numpy() / 2,
+                                             ip.cpu().numpy() / 2)
+        same = [k_ for k_ in ("paths", "rays", "trav_steps", "walk_steps",
+                              "stack_overflows") if k_ in sk_ and k_ in sp_
+                and int(sk_[k_]) != int(sp_[k_])]
+        if engine == "tiled":      # the tiled walks differ from K5's
+            same = [k_ for k_ in same if k_ not in ("trav_steps",
+                                                    "walk_steps")]
+        ok_ = g_ok and not same
+        bvh8_ok = bvh8_ok and ok_
+        rec8[f"{engine} 160x90"] = dict(ok=ok_, outliers=outl,
+                                        clean_mean=clean, counters_differ=same)
+        phase("bvh8", f"{engine} K=8 160x90 2 spp vs its plain path: "
+              f"outliers {outl:.5f}, clean mean {clean:.2e}, counters "
+              f"that differ {same} -> {'PASS' if ok_ else 'FAIL'}")
+    del small8, sc_8, bv_8
+    torch.cuda.empty_cache()
+
+    # K1 at K = 8 on a mid-flight pool: lanes, stack and counters exact.
+    eng8 = wf.WaveEngine(scene, flags, bv8, cam_a, cfg, 0, SPP, key,
+                         queue_size=32768, steps_per_wave=32, ctrl_den=8)
+    ws8 = eng8.init_state(torch.zeros((H, W, 3), device=dev))
+    for _ in range(48):
+        for op in wf.KERNELS:
+            op(eng8, ws8)
+    torch.cuda.synchronize()
+    snap = ws8.clone()
+    k_ws, p_ws = snap.clone(), snap.clone()
+    kernels.launch("trace_step", eng8, k_ws)
+    traverse.trace_step_plain(eng8, p_ws)
+    torch.cuda.synchronize()
+    exact8 = all(torch.equal(getattr(k_ws, f), getattr(p_ws, f))
+                 for f in ("cur", "sp", "best_pt", "best_pi", "best_t",
+                           "stack", "ctr"))
+    steps8 = int(k_ws.ctr[C_TRAV_STEPS] - snap.ctr[C_TRAV_STEPS])
+    work = snap.clone()
+    ms1 = cuda_ms(lambda: kernels.launch("trace_step", eng8, work),
+                  setup=lambda: restore(work, snap))
+    pms1 = cuda_ms(lambda: traverse.trace_step_plain(eng8, work), reps=5,
+                   setup=lambda: restore(work, snap))
+    walking = snap.occupied & (snap.cur != traverse._DONE)
+    n_walk = int(walking.sum())
+    n_exit = int((walking & (snap.phase == PH_EXIT)).sum())
+    n_done = int((snap.occupied & ~walking).sum())
+    stack_entries = int((k_ws.sp - snap.sp)[walking].abs().sum())
+    byts = (node8 + n_walk * (32 + 21 + 20) + n_exit * 4 + n_done * 5
+            + (eng8.R - n_walk - n_done) + stack_entries * 4)
+    inst_rows["trace_step_k8"] = dict(ok=exact8, err=0.0, ms=ms1,
+                                      plain_ms=pms1, bytes=byts,
+                                      ops=steps8 * STEP_OPS[8],
+                                      library_ms=None)
+    phase("bvh8", f"trace_step K=8 (chunk {eng8.chunk}): lanes, stack and "
+          f"counters exact {exact8}, walking lanes {n_walk}, steps "
+          f"{steps8}, {ms1:.4f} ms (twin {pms1:.2f} ms) "
+          f"{'PASS' if exact8 else 'FAIL'}")
+    del ws8, snap, k_ws, p_ws, work
+    torch.cuda.empty_cache()
+
+    # K5 at K = 8: one 800x450 sample against its twin.
+    m8 = mega_pair(integrator.MegaEngine(scene, flags, bv8, cam_a, cfg, key),
+                   W, H)
+    byts = node8 + prim_bytes + W * H * (12 + 4 + 4 + 24)
+    ops = (m8["trav_steps"] * STEP_OPS[8] + m8["rays"] * BOUNCE_OPS
+           + m8["walk_steps"] * WALK_TRIP_OPS + W * H * (8 * 110 + 60))
+    inst_rows["megakernel_k8"] = dict(ok=m8["ok"], err=m8["err"], ms=m8["ms"],
+                                      plain_ms=m8["plain_ms"], bytes=byts,
+                                      ops=ops, library_ms=None)
+    phase("bvh8", mega_line("K=8 vol2_final 800x450", m8)
+          + f" (K=4: {m['trav_steps']} steps, {m['ms']:.3f} ms) "
+          f"{'PASS' if m8['ok'] else 'FAIL'}")
+
+    # K7 at K = 8 after three trips of the tiled engine, as phase 3.
+    steps7_k4, steps9_k4 = steps7, steps9
+    teng8 = itl.TiledEngine(scene, flags, bv8, cam_a, cfg, key)
+    tst = itl.tiled_spawn(teng8, 0, tpix)
+    for _ in range(3):
+        h_ = query(tst, t_min_v, tst.alive, bvh_=bv8)
+        e_ = query(tst, h_[3] + 1e-4, tst.alive & h_[0], bvh_=bv8)
+        tst = itl.tiled_trip(teng8, tst, 0, tpix, h_[:3], e_)
+    live = tst.alive.clone()
+    c_k, c_p = itl.new_counters(dev), itl.new_counters(dev)
+    hk = query(tst, t_min_v, live, ctr=c_k, bvh_=bv8)
+    hp = query(tst, t_min_v, live, plain=True, ctr=c_p, bvh_=bv8)
+    eq7 = all(torch.equal(a_, b_) for a_, b_ in zip(hk, hp))
+    ok7 = eq7 and torch.equal(c_k, c_p)
+    ms7 = cuda_ms(lambda: query(tst, t_min_v, live, bvh_=bv8))
+    pms7 = cuda_ms(lambda: query(tst, t_min_v, live, plain=True, bvh_=bv8),
+                   reps=1)
+    steps7 = int(c_k[C_TRAV_STEPS])
+    inst_rows["closest_hit_k8"] = dict(
+        ok=ok7, err=float((hk[3] - hp[3]).abs().max()), ms=ms7,
+        plain_ms=pms7, bytes=node8 + NL * 14 + int(live.sum()) * 32,
+        ops=steps7 * STEP_OPS[8], library_ms=None)
+    phase("bvh8", f"closest_hit K=8: {int(live.sum())} live lanes after 3 "
+          f"trips, hits, t and counters exact {ok7}, traversal steps {steps7}"
+          f" (K=4: {steps7_k4}), {ms7:.4f} ms (plain {pms7:.1f} ms) "
+          f"{'PASS' if ok7 else 'FAIL'}")
+    del teng8, tst, hk, hp, live
+    torch.cuda.empty_cache()
+
+    # K9 at K = 8: shard 0 of the torus knot sharded two ways with BVH8s.
+    sc_kt8, bv_kt8 = scene_shard.shard_scene(sc_k, 2, branching=8)
+    sc_l8, bv_l8 = scene_shard.local_shard(sc_kt8, bv_kt8, 0)
+    keng8 = itl.TiledEngine(sc_l8, fl_k, bv_l8, ca_k, cf_k, key)
+    kst8 = itl.tiled_spawn(keng8, 0, kpix)
+    kk = tuple(x.clone() for x in carry0)
+    kp = tuple(x.clone() for x in carry0)
+    c9k, c9p = itl.new_counters(dev), itl.new_counters(dev)
+    ray8 = (kst8.origin, kst8.direction, kst8.time, kt_min, kst8.alive)
+    pipeline.ring_hop(keng8, *ray8, *kk, ctr=c9k)
+    pipeline.ring_hop_plain(keng8, *ray8, *kp, ctr=c9p)
+    ok9 = (torch.equal(kk[0], kp[0]) and torch.equal(kk[1], kp[1])
+           and torch.allclose(kk[2], kp[2], rtol=1e-4, atol=1e-4)
+           and torch.equal(c9k, c9p))
+    work9 = tuple(x.clone() for x in carry0)
+    ms9 = cuda_ms(lambda: pipeline.ring_hop(keng8, *ray8, *work9),
+                  setup=lambda: restore_state(work9, carry0))
+    pms9 = cuda_ms(lambda: pipeline.ring_hop_plain(keng8, *ray8, *work9),
+                   setup=lambda: restore_state(work9, carry0), reps=1)
+    n_hit9, steps9 = int(kk[0].sum()), int(c9k[C_TRAV_STEPS])
+    inst_rows["ring_hop_k8"] = dict(
+        ok=ok9, err=float((kk[2] - kp[2]).abs().max()), ms=ms9,
+        plain_ms=pms9,
+        bytes=bv_l8.nodes.numel() * 4 + KL * 33 + n_hit9 * (4 + 64 + 53),
+        ops=steps9 * STEP_OPS[8] + n_hit9 * REFINE_OPS, library_ms=None)
+    phase("bvh8", f"ring_hop K=8: torus knot shard 0 of 2, {n_hit9} hits, "
+          f"found, t and counters exact, record within 1e-4 {ok9}, steps "
+          f"{steps9} (K=4: {steps9_k4}), "
+          f"{ms9:.4f} ms (plain {pms9:.1f} ms) {'PASS' if ok9 else 'FAIL'}")
+    del keng8, kst8, kk, kp, work9, sc_kt8, bv_kt8
+    torch.cuda.empty_cache()
+
+    # K6 at K = 8: the colour and the full instantiation on one 800x450
+    # sample against the plain path.
+    r8c = adjoint_pair(scene, flags, bv8, cam_a, cfg, (0,), 3)
+    r8c.pop("g")
+    r8f = adjoint_pair(scene, flags, bv8, cam_a, cfg, (0,), 3, full=True)
+    r8f.pop("g")
+    for inst, r_ in (("adjoint_k8", r8c), ("adjoint_full_k8", r8f)):
+        ok_ = r_["rel"] <= 1e-3
+        inst_rows[inst] = dict(ok=ok_, err=r_["err"], ms=r_["ms"],
+                               plain_ms=r_["plain_ms"], bytes=r_["bytes"],
+                               ops=r_["ops"], library_ms=None)
+        phase("bvh8", f"{inst}: vol2_final 800x450 one sample, K6 vs plain "
+              f"rel L2 {r_['rel']:.2e}, {r_['ms']:.3f} ms (bound "
+              f"{bound_ms(r_['bytes'], r_['ops']):.5f} ms; traversal steps "
+              f"{r_['trav_steps']}), K5 on the same sample {r_['k5_ms']:.3f} "
+              f"ms, plain {r_['plain_ms']:.1f} ms {'PASS' if ok_ else 'FAIL'}")
+
+
     # --- the P0 probe: gather_rows at P0's shape and the node-row widths ---
     kernels.reset_launches()
     probe = []
@@ -1702,13 +2107,15 @@ def main() -> int:
         return wrapped
 
     def train_phase(tag, world_, cam_, w, h, spp, depth, inits, lr,
-                    engine="wavefront"):
+                    engine="wavefront", branching=4):
         """Three make_train_step steps after a warm-up on the leaves of
-        ``inits`` ({leaf: its start from the truth}); the launch counts
-        are set to 0 just before the three and read just after.  The
-        forward time is the engine's renders (``render_batch`` or
-        ``render_tiled``)."""
-        sc_, fl_, bv_, ca_, cf_ = prepare(world_, cam_, w, h, spp, depth)
+        ``inits`` ({leaf: its start from the truth}) over a BVH of
+        ``branching``-wide nodes; the launch counts are set to 0 just
+        before the three and read just after (``launches`` also holds the
+        walking kernels' instantiations).  The forward time is the engine's
+        renders (``render_batch`` or ``render_tiled``)."""
+        sc_, fl_, bv_, ca_, cf_ = prepare(world_, cam_, w, h, spp, depth,
+                                          branching)
         zero_ = torch.zeros((h, w, 3), device=dev)
         target = wf.render_batch(sc_, fl_, bv_, ca_, cf_, zero_, 0, 32,
                                  rng.key(10_000, device=dev),
@@ -1748,7 +2155,7 @@ def main() -> int:
                                  grad_finite=all(bool(torch.isfinite(g).all())
                                                  for g in grads.values()),
                                  grads=grads))
-            launches_ = dict(kernels.LAUNCHES)
+            launches_ = dict(kernels.LAUNCHES, **kernels.INSTANCES)
         finally:
             setattr(fmod, fname, real_rb)
             adjoint.kernel_vjp = real_vjp
@@ -1933,6 +2340,216 @@ def main() -> int:
           f"{r6['k5_ms']:.3f} ms, plain {r6['plain_ms']:.1f} ms "
           f"{'PASS' if ok6 else 'FAIL'}")
 
+    # --- 9b (continued). The train step at K = 8: vol2_final 4 spp on the
+    # colour leaf (the colour K6) and on the leaves that move rays (the full
+    # K6).  Step 0's gradients beside the BVH4 step's (one sample set; the
+    # paths that meet an exact tie differ, so this is reported, not held:
+    # K6 at K = 8 is held against its plain version above).
+    _, _, _, _, _, rows8c, tl8c = train_phase(
+        "bvh8-train-colour", *ptt.scenes.vol2_final_scene(sphere_cluster=1000),
+        W, H, TRAIN_SPP, DEPTH, {"tex_c1": lambda x: 0.9 * x}, 1e-3,
+        branching=8)
+    _, _, _, _, _, rows8f, tl8f = train_phase(
+        "bvh8-train", *ptt.scenes.vol2_final_scene(sphere_cluster=1000), W, H,
+        TRAIN_SPP, DEPTH, inits_v, TRAIN_LR, branching=8)
+    g8 = rows8f[0]["grads"]
+    rel8 = {n: float((g8[n] - g_w[n]).norm() / g_w[n].norm().clamp(min=1e-30))
+            for n in g_w}
+    train8_ok = (tl8c.get("adjoint_k8", 0) == 3 * TRAIN_SPP
+                 and tl8f.get("adjoint_full_k8", 0) == 3 * TRAIN_SPP
+                 and tl8f.get("trace_step_k8", 0) > 0
+                 and all(r_["paths_done"] == r_["paths_total"]
+                         and r_["grad_finite"] and np.isfinite(r_["loss"])
+                         for r_ in rows8c + rows8f))
+    for r_ in rows8c + rows8f:
+        r_.pop("grads")
+    bvh8_ok = bvh8_ok and train8_ok
+    rec8["train"] = dict(colour=dict(rows=rows8c, launches=tl8c),
+                         full=dict(rows=rows8f, launches=tl8f), grad_rel=rel8)
+    phase("bvh8-train", f"vol2_final {W}x{H} {TRAIN_SPP} spp K=8: paths done, "
+          f"finite gradients; step 0 gradients vs the BVH4 step's, rel L2 "
+          f"per leaf "
+          + ", ".join(f"{n} {v:.2e}" for n, v in rel8.items())
+          + f"; K6 launches per step colour "
+          f"{tl8c.get('adjoint_k8', 0) / 3:g}, full "
+          f"{tl8f.get('adjoint_full_k8', 0) / 3:g} -> "
+          f"{'PASS' if train8_ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+
+    # --- 9c. the per-thread arrays beyond their local sizes ---
+    # K5, K7, K9 and K6 with a 70-entry stack (max_stack and stack_depth
+    # raised; the walk needs no more than the tree's depth), at K = 4 and
+    # K = 8: K5, K7 and K9 bit-equal to the local stack; K6 (float atomics
+    # add in another order every run) against the plain path at K = 4 and
+    # against its local instantiation at K = 8.  Then a Cornell train step
+    # at max_depth 60 (68 trips: the tape in the per-pixel buffer).
+    DEEP = 70
+    stack_ok = True
+    deep_ms = {}
+    for k_, bv_w in ((4, bvh), (8, bv8)):
+        bv_d = dataclasses.replace(bv_w, max_stack=DEEP)
+        cfg_d = dataclasses.replace(cfg, stack_depth=DEEP)
+        # K5: one 800x450 sample
+        meng_l = integrator.MegaEngine(scene, flags, bv_w, cam_a, cfg, key)
+        meng_d = integrator.MegaEngine(scene, flags, bv_d, cam_a, cfg_d, key)
+        ml, md = meng_l.init_state(zero), meng_d.init_state(zero)
+        kernels.reset_launches()
+        integrator.megakernel(meng_l, ml, 0)
+        integrator.megakernel(meng_d, md, 0)
+        torch.cuda.synchronize()
+        inst = f"megakernel_k{k_}_global"
+        n_ = kernels.INSTANCES[inst]
+        eq = (meng_d.sd == DEEP and n_ == 1 and all(
+            torch.equal(getattr(ml, f), getattr(md, f))
+            for f in ("color", "iters", "depth", "accum", "depth_hist",
+                      "ctr")))
+        ms_d = cuda_ms(lambda: integrator.megakernel(meng_d, md, 0))
+        ms_l = cuda_ms(lambda: integrator.megakernel(meng_l, ml, 0))
+        base = results["megakernel"] if k_ == 4 else inst_rows["megakernel_k8"]
+        inst_rows[inst] = dict(ok=eq, err=0.0, ms=ms_d,
+                               plain_ms=base["plain_ms"], bytes=base["bytes"],
+                               ops=base["ops"], library_ms=None, launches=n_)
+        deep_ms[inst] = dict(ms=ms_d, local_ms=ms_l)
+        phase("stack", f"{inst}: one 800x450 sample bit-equal to the local "
+              f"stack's {eq}, {ms_d:.3f} ms (local {ms_l:.3f} ms) "
+              f"{'PASS' if eq else 'FAIL'}")
+        stack_ok = stack_ok and eq
+        del meng_l, meng_d, ml, md
+        # K7: the camera rays of the frame
+        teng_l = itl.TiledEngine(scene, flags, bv_w, cam_a, cfg, key)
+        stl = itl.tiled_spawn(teng_l, 0, tpix)
+        qa = (stl.origin, stl.direction, stl.time, t_min_v, cfg.t_max)
+        c_l, c_d = itl.new_counters(dev), itl.new_counters(dev)
+        kernels.reset_launches()
+        h_l = itl.closest_hit_batched(bv_w, *qa, cfg.stack_depth,
+                                      active=stl.alive, ctr=c_l)
+        h_d = itl.closest_hit_batched(bv_d, *qa, DEEP, active=stl.alive,
+                                      ctr=c_d)
+        torch.cuda.synchronize()
+        inst = f"closest_hit_k{k_}_global"
+        n_ = kernels.INSTANCES[inst]
+        eq = (n_ == 1 and torch.equal(c_l, c_d)
+              and all(torch.equal(x_, y_) for x_, y_ in zip(h_l, h_d)))
+        ms_d = cuda_ms(lambda: itl.closest_hit_batched(
+            bv_d, *qa, DEEP, active=stl.alive))
+        ms_l = cuda_ms(lambda: itl.closest_hit_batched(
+            bv_w, *qa, cfg.stack_depth, active=stl.alive))
+        pms_d = cuda_ms(lambda: itl.closest_hit_plain(
+            bv_d, *qa, DEEP, active=stl.alive), reps=1)
+        inst_rows[inst] = dict(
+            ok=eq, err=0.0, ms=ms_d, plain_ms=pms_d, launches=n_,
+            bytes=bv_w.nodes.numel() * 4 + NL * 14 + int(stl.alive.sum()) * 32,
+            ops=int(c_d[C_TRAV_STEPS]) * STEP_OPS[k_], library_ms=None)
+        deep_ms[inst] = dict(ms=ms_d, local_ms=ms_l)
+        phase("stack", f"{inst}: the camera rays of the frame, hits and "
+              f"counters bit-equal to the local stack's {eq}, {ms_d:.4f} ms "
+              f"(local {ms_l:.4f} ms) {'PASS' if eq else 'FAIL'}")
+        stack_ok = stack_ok and eq
+        del teng_l, stl, h_l, h_d
+        # K9: shard 0 of the torus knot sharded two ways
+        sc_s, bv_s = (sc_l, bv_l) if k_ == 4 else (sc_l8, bv_l8)
+        outs = []
+        kernels.reset_launches()
+        for bv_q, sd_q in ((bv_s, cf_k.stack_depth),
+                           (dataclasses.replace(bv_s, max_stack=DEEP), DEEP)):
+            keng_q = itl.TiledEngine(
+                sc_s, fl_k, bv_q, ca_k,
+                dataclasses.replace(cf_k, stack_depth=sd_q), key)
+            kst_q = itl.tiled_spawn(keng_q, 0, kpix)
+            ray_q = (kst_q.origin, kst_q.direction, kst_q.time, kt_min,
+                     kst_q.alive)
+            carry_q = tuple(x.clone() for x in carry0)
+            c_q = itl.new_counters(dev)
+            pipeline.ring_hop(keng_q, *ray_q, *carry_q, ctr=c_q)
+            n_ = kernels.INSTANCES[f"ring_hop_k{k_}_global"]
+            work_q = tuple(x.clone() for x in carry0)
+            outs.append((carry_q, c_q, cuda_ms(
+                lambda: pipeline.ring_hop(keng_q, *ray_q, *work_q),
+                setup=lambda: restore_state(work_q, carry0))))
+        inst = f"ring_hop_k{k_}_global"
+        eq = (n_ == 1 and torch.equal(outs[0][1], outs[1][1])
+              and all(torch.equal(x_, y_)
+                      for x_, y_ in zip(outs[0][0], outs[1][0])))
+        base = results["ring_hop"] if k_ == 4 else inst_rows["ring_hop_k8"]
+        inst_rows[inst] = dict(ok=eq, err=0.0, ms=outs[1][2],
+                               plain_ms=base["plain_ms"], bytes=base["bytes"],
+                               ops=base["ops"], library_ms=None, launches=n_)
+        deep_ms[inst] = dict(ms=outs[1][2], local_ms=outs[0][2])
+        phase("stack", f"{inst}: torus knot shard 0, found, t, record and "
+              f"counters bit-equal to the local stack's {eq}, "
+              f"{outs[1][2]:.4f} ms (local {outs[0][2]:.4f} ms) "
+              f"{'PASS' if eq else 'FAIL'}")
+        stack_ok = stack_ok and eq
+        del outs
+        torch.cuda.empty_cache()
+        # K6 with stack, tape and walk record in the per-pixel buffers,
+        # against its local instantiation (held against the plain path in
+        # phases 3 and 9b; float atomics add in another order every run):
+        # the full one at K = 4 (the colour one's buffers run in the Cornell
+        # step below), both at K = 8.
+        delta6 = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (W * H, 3)).astype(np.float32)).to(dev)
+        for full in ((True,) if k_ == 4 else (False, True)):
+            inst = f"adjoint{'_full' if full else ''}_k{k_}_global"
+            gs = []
+            kernels.reset_launches()
+            for bv_q, cf_q in ((bv_w, cfg), (bv_d, cfg_d)):
+                eng_q = integrator.MegaEngine(scene, flags, bv_q, cam_a, cf_q,
+                                              key)
+                ms_q = eng_q.init_state(zero)
+                g_q = adjoint.grad_buffers(scene)
+                adjoint.adjoint(eng_q, ms_q, 0, delta6, g_q, full)
+                n_ = kernels.INSTANCES[inst]
+                scratch = adjoint.grad_buffers(scene)
+                gs.append((torch.cat([x.flatten() for x in g_q]), cuda_ms(
+                    lambda: adjoint.adjoint(eng_q, ms_q, 0, delta6, scratch,
+                                            full), reps=5)))
+            rel = float((gs[1][0] - gs[0][0]).norm()
+                        / gs[0][0].norm().clamp(min=1e-30))
+            ok_ = rel <= 1e-5 and n_ == 1
+            base = (results["adjoint_full"] if k_ == 4 else
+                    inst_rows["adjoint_full_k8" if full else "adjoint_k8"])
+            inst_rows[inst] = dict(ok=ok_, err=float(
+                (gs[1][0] - gs[0][0]).abs().max()), ms=gs[1][1],
+                plain_ms=base["plain_ms"], bytes=base["bytes"],
+                ops=base["ops"], library_ms=None, launches=n_)
+            deep_ms[inst] = dict(ms=gs[1][1], local_ms=gs[0][1])
+            phase("stack", f"{inst}: vol2_final 800x450 one sample against "
+                  f"the local instantiation, rel L2 {rel:.2e} (atomics add in "
+                  f"another order), {gs[1][1]:.3f} ms (local {gs[0][1]:.3f} "
+                  f"ms) {'PASS' if ok_ else 'FAIL'}")
+            stack_ok = stack_ok and ok_
+            del gs
+            torch.cuda.empty_cache()
+    world_c60, cam_c60 = ptt.scenes.cornell_box()
+    sc_60, fl_60, bv_60, ca_60, cf_60, rows60, tl60 = train_phase(
+        "stack-train", world_c60, cam_c60, 800, 800, 4, 60,
+        {"tex_c1": perturb_rows}, 0.08)
+    assert cf_60.iters == 68
+    del sc_60, bv_60
+    # K6 against the plain path on one sample at 400x400 (the plain path's
+    # autograd keeps every trip of the 68).
+    r60 = adjoint_pair(*prepare(*ptt.scenes.cornell_box(), 400, 400, 4, 60),
+                       (0,), 2)
+    r60.pop("g")
+    n60 = tl60.get("adjoint_k4_global", 0)
+    ok60 = (r60["rel"] <= 1e-3 and n60 == 3 * 4
+            and all(r_["paths_done"] == r_["paths_total"]
+                    and r_["grad_finite"] for r_ in rows60))
+    for r_ in rows60:
+        r_.pop("grads")
+    inst_rows["adjoint_k4_global"] = dict(
+        ok=ok60, err=r60["err"], ms=r60["ms"], plain_ms=r60["plain_ms"],
+        bytes=r60["bytes"], ops=r60["ops"], library_ms=None, launches=n60)
+    phase("stack-train", f"cornell_box 800x800 4 spp max_depth 60 "
+          f"({cf_60.iters} trips): paths_done == paths_total, finite gradients, K6 (tape "
+          f"in the per-pixel buffer) launches {n60}; one 400x400 sample K6 "
+          f"vs plain rel L2 {r60['rel']:.2e}, {r60['ms']:.3f} ms, plain "
+          f"{r60['plain_ms']:.1f} ms -> {'PASS' if ok60 else 'FAIL'}")
+    stack_ok = stack_ok and ok60
+    rec_stack = dict(train=dict(rows=rows60, launches=tl60), ms=deep_ms)
+    torch.cuda.empty_cache()
+
     # --- 10. ranks of a gloo job sharing the card ---
     rank_dir = os.path.join(RUN_DIR, "ranks")
     os.makedirs(rank_dir, exist_ok=True)
@@ -1970,6 +2587,9 @@ def main() -> int:
         for job in jobs:
             par_rec[job] = [torch.load(os.path.join(rank_dir, f"{job}.{r}.pt"))
                             for r in range(world_n)]
+            for r in range(world_n):     # keep the frames out of RUN_DIR
+                os.remove(os.path.join(rank_dir, f"{job}.{r}.pt"))
+    os.remove(os.path.join(rank_dir, "train_inputs.pt"))
 
     def tp_rule(a, b):
         """tests/test_tp_scale.py:63-65: pixels off by more than 1e-4 at
@@ -2043,21 +2663,30 @@ def main() -> int:
     # TP, PP and DP x TP against the one-rank tiled images.
     expect = {"tp": ("closest_hit", "tiled_trip", "tiled_spawn"),
               "pp": ("ring_hop", "tiled_trip_rec", "tiled_spawn"),
-              "dp_tp": ("closest_hit", "tiled_trip", "tiled_spawn")}
-    for job, ref_ in (("tp", tp_ref), ("pp", tp_ref), ("dp_tp", dptp_ref)):
+              "dp_tp": ("closest_hit", "tiled_trip", "tiled_spawn"),
+              "tp8": ("closest_hit_k8", "tiled_trip", "tiled_spawn"),
+              "pp8": ("ring_hop_k8", "tiled_trip_rec", "tiled_spawn")}
+    for job, ref_ in (("tp", tp_ref), ("pp", tp_ref), ("dp_tp", dptp_ref),
+                      ("tp8", tp_ref), ("pp8", tp_ref)):
         outs = par_rec[job]
         rule_ok, outl, clean = tp_rule(outs[0]["image"].numpy(), ref_)
         lj = summed_launches(job)
+        lj.update({i: sum(o["instances"].get(i, 0) for o in outs)
+                   for i in INSTANCES})
+        lj = {n: v for n, v in lj.items() if v}
         ok_j = (rule_ok and all(torch.equal(o["image"], outs[0]["image"])
                                 for o in outs)
-                and all(lj[n] > 0 for n in expect[job]))
+                and all(lj.get(n, 0) > 0 for n in expect[job]))
         phase("parallel", f"{job} {len(outs)} ranks: per-rank wall "
               + ", ".join(f"{o['wall']:.4f}" for o in outs)
               + f" s; vs the one-rank tiled image: outliers {outl:.5f}, clean "
               f"mean {clean:.2e}; launches {lj} -> {'PASS' if ok_j else 'FAIL'}")
         par_ok = par_ok and ok_j
     par_summary = {job: dict(walls=[o["wall"] for o in outs],
-                             launches=summed_launches(job))
+                             launches=summed_launches(job),
+                             instances={i: sum(o["instances"].get(i, 0)
+                                               for o in outs)
+                                        for i in INSTANCES})
                    for job, outs in par_rec.items()}
 
     # --- 11. the kernel table ---
@@ -2071,18 +2700,40 @@ def main() -> int:
     for n in ("ring_hop", "tiled_trip_rec"):
         launches[n] = par_summary["pp"]["launches"][n]
     launches["gather_rows"] = gather_launches
+    # The instantiations timed in phases 9b-9c, each with the launches of
+    # the run on its path: the K = 8 frames, train steps and PP job; the
+    # Part A runs.
+    launches["trace_step_k8"] = rec8["wavefront"][8]["instances"][
+        "trace_step_k8"]
+    launches["megakernel_k8"] = rec8["megakernel"][8]["instances"][
+        "megakernel_k8"]
+    launches["closest_hit_k8"] = rec8["tiled"][8]["instances"][
+        "closest_hit_k8"]
+    launches["ring_hop_k8"] = par_summary["pp8"]["instances"]["ring_hop_k8"]
+    launches["adjoint_k8"] = tl8c.get("adjoint_k8", 0)
+    launches["adjoint_full_k8"] = tl8f.get("adjoint_full_k8", 0)
+    for n, r_ in inst_rows.items():
+        results[n] = r_
+        if "launches" in r_:
+            launches[n] = r_["launches"]
     table = []
-    for n, (srcf, repl) in KERNELS.items():
+    rows_ = [(n, *v) for n, v in KERNELS.items()] + [
+        (n, *KERNELS[INSTANCES[n][0]]) for n in inst_rows]
+    for n, srcf, repl in rows_:
         res = results[n]
         t_bytes = res["bytes"] / H100_BYTES_PER_S * 1e3
         t_ops = res["ops"] / H100_F32_OPS_PER_S * 1e3
-        table.append({
+        row = {
             "name": n, "route": "cuda", "source": srcf, "replaces": repl,
             "launches": launches[n], "max_abs_err": res["err"],
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": res["library_ms"], "pass": bool(res["ok"])})
+            "library_ms": res["library_ms"],
+            "pass": bool(res["ok"]) and launches[n] > 0}
+        if n in ptxas:
+            row["ptxas"] = list(ptxas[n])
+        table.append(row)
     with open(os.path.join(RUN_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "frames": rec,
                    "shade_sss": results["shade"]["sss"],
@@ -2092,15 +2743,18 @@ def main() -> int:
                    "adjoint_full": {k: results["adjoint_full"][k]
                                     for k in ("rows", "fd")},
                    "train": train_rec, "parallel": par_summary,
+                   "bvh8": rec8, "stack": rec_stack, "ptxas": ptxas,
                    "kernels": table},
                   f, indent=1, default=str)
     failed = [t["name"] for t in table if not t["pass"]]
     print(json.dumps({"kernels": table}), flush=True)
     tiled_ok = rec["tiled"]["ok"]
     loop_ok = rec["loop"]["ok"]
-    if failed or not (agree and train_ok and tiled_ok and par_ok and loop_ok):
+    if failed or not (agree and train_ok and tiled_ok and par_ok and loop_ok
+                      and bvh8_ok and stack_ok):
         print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok} "
-              f"tiled={tiled_ok} parallel={par_ok} loop={loop_ok}",
+              f"tiled={tiled_ok} parallel={par_ok} loop={loop_ok} "
+              f"bvh8={bvh8_ok} stack={stack_ok}",
               file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -32,8 +32,14 @@
 // One thread per pixel of a block (frame pixels pix_offset .. + npix; delta
 // is the block's (npix, 3)), one launch per sample, as K5: the thread replays
 // its path with K5's code (path.cuh, bounce.cuh with a recorder) and the
-// same key folds, recording one tape entry per trip in local memory (at
-// most iters_cap <= PTT_TAPE_MAX), then sweeps the tape in reverse.
+// same key folds, recording one tape entry per trip, then sweeps the tape in
+// reverse.  Each instantiation is one of the node width K (4 or 8,
+// WaveArgs.branching) and of where the per-thread arrays live: local
+// memory when the walk's stack (sd), the tape (iters_cap entries) and, for
+// the full instantiation, the SSS walk record (sss_steps trips) fit
+// PTT_MEGA_STACK / PTT_TAPE_MAX / PTT_WALK_MAX, else the wrapper's
+// per-pixel buffers WaveArgs.stack, tape and walk (kGlobal; the wrapper
+// splits a frame whose buffers would not fit its budget into pixel blocks).
 //
 // Contributions go to the block's copy of the small gradient tables in
 // shared memory where they fit (48 KB: textures, then materials, media, the
@@ -53,7 +59,6 @@
 #include "bounce_adj.cuh"
 #include "path.cuh"
 
-#define PTT_TAPE_MAX 64
 #define PTT_ADJ_SMEM_FLOATS 12288   // 48 KB of shared gradient tables
 
 struct TapeEntry {
@@ -129,13 +134,14 @@ struct TripTape {
 
 // Replay sample a.start_sample of pixel pix and add its colour-leaf
 // gradients to the sink.
+template <int K>
 __device__ __forceinline__ void adjoint_pixel(const WaveArgs& a, int pix,
                                               int* stack, TapeEntry* tape,
                                               const GradSink& sink) {
   MegaCount c{0, 0, 0};
   Tape rec{tape, 0};
   PathRegs p;
-  trace_path(a, a.pix_offset + pix, stack, c, p, &rec);
+  trace_path<K>(a, a.pix_offset + pix, stack, c, p, &rec);
   const float d[3] = {a.delta[3 * (size_t)pix], a.delta[3 * (size_t)pix + 1],
                       a.delta[3 * (size_t)pix + 2]};
   // Colour leaf src (texture.cuh texture_src), component k.
@@ -162,14 +168,16 @@ __device__ __forceinline__ void adjoint_pixel(const WaveArgs& a, int pix,
 }
 
 // Replay sample a.start_sample of pixel pix and add the gradients of every
-// leaf to the sink.
+// leaf to the sink; with kGlobal the SSS walks record into `wrec`.
+template <int K, bool kGlobal>
 __device__ __forceinline__ void adjoint_pixel_full(const WaveArgs& a, int pix,
                                                    int* stack, TripIn* trips,
-                                                   const GradSink& sink) {
+                                                   const GradSink& sink,
+                                                   float* wrec) {
   MegaCount c{0, 0, 0};
   TripTape rec{trips, 0};
   PathRegs p;
-  trace_path(a, a.pix_offset + pix, stack, c, p, &rec);
+  trace_path<K>(a, a.pix_offset + pix, stack, c, p, &rec);
   const Key key_p = path_key(a, a.start_sample, a.pix_offset + pix);
   const float d[3] = {a.delta[3 * (size_t)pix], a.delta[3 * (size_t)pix + 1],
                       a.delta[3 * (size_t)pix + 2]};
@@ -177,8 +185,8 @@ __device__ __forceinline__ void adjoint_pixel_full(const WaveArgs& a, int pix,
 #pragma unroll
   for (int k = 0; k < 3; ++k) adj.o[k] = adj.d[k] = adj.thr[k] = 0.0f;
   for (int j = rec.n - 1; j >= 0; --j) {
-    bounce_adj(a, trips[j], p.time, fold_in(key_p, (uint32_t)j), d, adj,
-               sink);
+    bounce_adj<kGlobal>(a, trips[j], p.time, fold_in(key_p, (uint32_t)j), d,
+                        adj, sink, wrec);
   }
 }
 
@@ -193,6 +201,46 @@ __device__ __forceinline__ GradSink global_sink(const WaveArgs& a) {
   return GradSink{a.g_tex, a.g_img, a.g_prim, a.g_mat, a.g_med, a.g_perlin};
 }
 
+// Whether a launch takes the instantiation with per-pixel buffers (the
+// wrapper's rule too: ops/adjoint.py).
+__host__ __device__ __forceinline__ bool adjoint_global(const WaveArgs& a,
+                                                       bool full) {
+  return a.sd > PTT_MEGA_STACK || a.iters_cap > PTT_TAPE_MAX ||
+         (full && a.sss_steps > PTT_WALK_MAX);
+}
+
+// Pixel pix of the block (full or colour, local or per-pixel arrays).
+template <int K, bool kGlobal, bool kFull>
+__device__ __forceinline__ void adjoint_lane(const WaveArgs& a, int pix,
+                                             const GradSink& sink) {
+  if constexpr (kGlobal) {
+    int* stack = a.stack + (size_t)pix * a.sd;
+    if constexpr (kFull) {
+      TripIn* trips = (TripIn*)a.tape + (size_t)pix * a.iters_cap;
+      adjoint_pixel_full<K, true>(a, pix, stack, trips, sink,
+                                  a.walk + (size_t)pix * a.sss_steps * 4);
+    } else {
+      TapeEntry* tape = (TapeEntry*)a.tape + (size_t)pix * a.iters_cap;
+      adjoint_pixel<K>(a, pix, stack, tape, sink);
+    }
+  } else {
+    int stack[PTT_MEGA_STACK];
+    if constexpr (kFull) {
+      TripIn trips[PTT_TAPE_MAX];
+      adjoint_pixel_full<K, false>(a, pix, stack, trips, sink, nullptr);
+    } else {
+      TapeEntry tape[PTT_TAPE_MAX];
+      adjoint_pixel<K>(a, pix, stack, tape, sink);
+    }
+  }
+}
+
+// Bytes of one tape entry of the colour (full 0) or the full instantiation:
+// the wrapper sizes WaveArgs.tape by it.
+extern "C" int ptt_adjoint_entry_bytes(int full) {
+  return full ? (int)sizeof(TripIn) : (int)sizeof(TapeEntry);
+}
+
 #ifndef PTT_HOST_EMULATION
 __device__ __forceinline__ void flush_table(const float* s, float* g, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -200,7 +248,7 @@ __device__ __forceinline__ void flush_table(const float* s, float* g, int n) {
   }
 }
 
-template <bool kFull>
+template <int K, bool kGlobal, bool kFull>
 __device__ __forceinline__ void adjoint_block(const WaveArgs& a,
                                               const SmemPlan& plan) {
   extern __shared__ float s_g[];
@@ -213,16 +261,7 @@ __device__ __forceinline__ void adjoint_block(const WaveArgs& a,
   if (plan.med >= 0) sink.med = s_g + plan.med;
   if (plan.perlin >= 0) sink.perlin = s_g + plan.perlin;
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix < a.npix) {
-    int stack[PTT_MEGA_STACK];
-    if constexpr (kFull) {
-      TripIn trips[PTT_TAPE_MAX];
-      adjoint_pixel_full(a, pix, stack, trips, sink);
-    } else {
-      TapeEntry tape[PTT_TAPE_MAX];
-      adjoint_pixel(a, pix, stack, tape, sink);
-    }
-  }
+  if (pix < a.npix) adjoint_lane<K, kGlobal, kFull>(a, pix, sink);
   __syncthreads();
   if (plan.tex >= 0) flush_table(s_g + plan.tex, a.g_tex, a.n_tex * 9);
   if (plan.img >= 0) {
@@ -233,12 +272,14 @@ __device__ __forceinline__ void adjoint_block(const WaveArgs& a,
   if (plan.perlin >= 0) flush_table(s_g + plan.perlin, a.g_perlin, 256 * 4);
 }
 
+template <int K, bool kGlobal>
 __global__ void adjoint_kernel(WaveArgs a, SmemPlan plan) {
-  adjoint_block<false>(a, plan);
+  adjoint_block<K, kGlobal, false>(a, plan);
 }
 
+template <int K, bool kGlobal>
 __global__ void adjoint_full_kernel(WaveArgs a, SmemPlan plan) {
-  adjoint_block<true>(a, plan);
+  adjoint_block<K, kGlobal, true>(a, plan);
 }
 
 // Tables in order of priority, each kept in shared memory if it still fits.
@@ -260,18 +301,34 @@ static SmemPlan plan_smem(const WaveArgs* a, bool full) {
   return p;
 }
 
-static int launch_adjoint(const WaveArgs* a, void* stream, bool full) {
-  if (a->sd > PTT_MEGA_STACK || a->iters_cap > PTT_TAPE_MAX ||
-      (full && a->sss_steps > PTT_WALK_MAX))
-    return (int)cudaErrorInvalidValue;
+template <int K, bool kGlobal>
+static void launch_adjoint_k(const WaveArgs* a, void* stream, bool full) {
   const SmemPlan plan = plan_smem(a, full);
   const int block = 128;
   const int grid = (a->npix + block - 1) / block;
   const size_t smem = sizeof(float) * (size_t)plan.floats;
   if (full) {
-    adjoint_full_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(*a, plan);
+    adjoint_full_kernel<K, kGlobal>
+        <<<grid, block, smem, (cudaStream_t)stream>>>(*a, plan);
   } else {
-    adjoint_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(*a, plan);
+    adjoint_kernel<K, kGlobal>
+        <<<grid, block, smem, (cudaStream_t)stream>>>(*a, plan);
+  }
+}
+
+static int launch_adjoint(const WaveArgs* a, void* stream, bool full) {
+  const bool global = adjoint_global(*a, full);
+  if ((global && (a->stack == nullptr || a->tape == nullptr ||
+                  (full && a->sss_steps > 0 && a->walk == nullptr))) ||
+      (a->branching != 4 && a->branching != 8))
+    return (int)cudaErrorInvalidValue;
+  if (a->npix == 0) return 0;
+  if (a->branching == 4) {
+    if (global) launch_adjoint_k<4, true>(a, stream, full);
+    else launch_adjoint_k<4, false>(a, stream, full);
+  } else {
+    if (global) launch_adjoint_k<8, true>(a, stream, full);
+    else launch_adjoint_k<8, false>(a, stream, full);
   }
   return (int)cudaGetLastError();
 }

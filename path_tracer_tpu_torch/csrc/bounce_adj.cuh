@@ -202,12 +202,15 @@ __device__ __forceinline__ void reflect_adj(const float* ui, const float* n,
 }
 
 // One trip's transpose; adj holds the adjoint of the trip's outputs on
-// entry and of its inputs on return.
+// entry and of its inputs on return.  With kGlobal the SSS walk's record is
+// the pixel's buffer `wrec` (sss_adj.cuh).
+template <bool kGlobal>
 __device__ __forceinline__ void bounce_adj(const WaveArgs& a,
                                            const TripIn& in, float time,
                                            Key kit, const float* delta,
                                            PathAdj& adj,
-                                           const GradSink& sink) {
+                                           const GradSink& sink,
+                                           float* wrec) {
   const float* o = in.o;
   const float* d = in.d;
   const float* thr = in.thr;
@@ -433,8 +436,9 @@ __device__ __forceinline__ void bounce_adj(const WaveArgs& a,
       if (mtype == MAT_SSS_VOLUMETRIC) {
         const float sigma_t = fmaxp(mrow[5] + mrow[6], 1e-6f);
         WalkAdj wa;
-        sss_walk_adj(fold_in(ks, 1u), a.sss_steps, p, n, ui, sigma_t, mrow[6],
-                     mrow[4], n_ob, n_db, wa);
+        sss_walk_adj<kGlobal>(fold_in(ks, 1u), a.sss_steps, p, n, ui,
+                              sigma_t, mrow[6], mrow[4], n_ob, n_db, wa,
+                              wrec);
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
           pb[k] += wa.h[k];

@@ -4,9 +4,11 @@
 // K7 replaces path_tracer_tpu/ops/integrator_tiled.py closest_hit_batched
 // (:46), the query of the tiled engine (B12) and, per shard, of the
 // tensor-parallel mode (parallel/scene_shard.py _traverse_tp, :121; B14).
-// One thread per lane runs the per-ray BVH4 walk of traverse.cuh from the
-// lane's own start q_tmin (the main query's t_min, or the volume-exit
-// query's t_hit + 1e-4) to completion, with K5's local stack; a lane that is
+// One thread per lane runs the per-ray walk of traverse.cuh through a BVH4 or
+// a BVH8 from the lane's own start q_tmin (the main query's t_min, or the
+// volume-exit query's t_hit + 1e-4) to completion, with K5's stack (a local
+// array up to PTT_MEGA_STACK entries, else the wrapper's per-lane buffer
+// WaveArgs.stack; four instantiations of each kernel); a lane that is
 // not q_active does not walk and reports no hit (found false, pt = pi = -1,
 // t = t_max).  It writes hit_found, hit_pt, hit_pi and hit_t.
 //
@@ -21,12 +23,13 @@
 // ctr[C_TRAV_STEPS] and ctr[C_STACK_OVF].
 //
 // Bound: as K5's walk, dependent node-row gathers (one 384-byte row per
-// step, the rows L2-resident) and divergence between lanes whose walks end
-// after different numbers of steps; ~220 fp32 ops per step.  The simple
-// design keeps one lane per thread and a 64-entry local stack.
+// step at K = 4, 736 at K = 8, the rows L2-resident) and divergence between
+// lanes whose walks end after different numbers of steps; ~220 fp32 ops per
+// step at K = 4.  The simple design keeps one lane per thread.
 #include "path.cuh"
 
 // The query of lane i: walked to completion from its start, or no hit.
+template <int K>
 __device__ __forceinline__ void query_lane(const WaveArgs& a, int i,
                                            int* stack, MegaCount& c,
                                            int& pt, int& pi, float& t) {
@@ -38,15 +41,16 @@ __device__ __forceinline__ void query_lane(const WaveArgs& a, int i,
   const float d[3] = {a.direction[3 * i], a.direction[3 * i + 1],
                       a.direction[3 * i + 2]};
   const float t_min = a.q_tmin != nullptr ? a.q_tmin[i] : a.t_min;
-  trav_full(a, o, d, a.time[i], t_min, stack, t, pt, pi, c);
+  trav_full<K>(a, o, d, a.time[i], t_min, stack, t, pt, pi, c);
 }
 
 // K7's lane: the query's result.
+template <int K>
 __device__ __forceinline__ void closest_hit_lane(const WaveArgs& a, int i,
                                                  int* stack, MegaCount& c) {
   int pt, pi;
   float t;
-  query_lane(a, i, stack, c, pt, pi, t);
+  query_lane<K>(a, i, stack, c, pt, pi, t);
   a.hit_found[i] = pt >= 0;
   a.hit_pt[i] = pt;
   a.hit_pi[i] = pi;
@@ -54,11 +58,12 @@ __device__ __forceinline__ void closest_hit_lane(const WaveArgs& a, int i,
 }
 
 // K9's lane: the query, merged into the carried best where it is closer.
+template <int K>
 __device__ __forceinline__ void ring_hop_lane(const WaveArgs& a, int i,
                                               int* stack, MegaCount& c) {
   int pt, pi;
   float t;
-  query_lane(a, i, stack, c, pt, pi, t);
+  query_lane<K>(a, i, stack, c, pt, pi, t);
   if (!(pt >= 0 && t < a.hit_t[i])) return;
   const float t_min = a.q_tmin != nullptr ? a.q_tmin[i] : a.t_min;
   const Hit h = refine_hit(a, pt, pi, a.origin[3 * i], a.origin[3 * i + 1],
@@ -77,19 +82,20 @@ __device__ __forceinline__ void ring_hop_lane(const WaveArgs& a, int i,
 }
 
 #ifndef PTT_HOST_EMULATION
-template <bool kHop>
+template <int K, bool kGlobal, bool kHop>
 __device__ __forceinline__ void query_block(const WaveArgs& a) {
   __shared__ unsigned long long s_steps, s_ovf;
   if (threadIdx.x == 0) s_steps = s_ovf = 0ull;
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < a.R) {
-    int stack[PTT_MEGA_STACK];
+    int local[kGlobal ? 1 : PTT_MEGA_STACK];
+    int* stack = kGlobal ? a.stack + (size_t)i * a.sd : local;
     MegaCount c{0, 0, 0};
     if constexpr (kHop) {
-      ring_hop_lane(a, i, stack, c);
+      ring_hop_lane<K>(a, i, stack, c);
     } else {
-      closest_hit_lane(a, i, stack, c);
+      closest_hit_lane<K>(a, i, stack, c);
     }
     if (c.trav_steps) atomicAdd(&s_steps, (unsigned long long)c.trav_steps);
     if (c.ovf) atomicAdd(&s_ovf, (unsigned long long)c.ovf);
@@ -102,19 +108,40 @@ __device__ __forceinline__ void query_block(const WaveArgs& a) {
   }
 }
 
-__global__ void closest_hit_kernel(WaveArgs a) { query_block<false>(a); }
+template <int K, bool kGlobal>
+__global__ void closest_hit_kernel(WaveArgs a) {
+  query_block<K, kGlobal, false>(a);
+}
 
-__global__ void ring_hop_kernel(WaveArgs a) { query_block<true>(a); }
+template <int K, bool kGlobal>
+__global__ void ring_hop_kernel(WaveArgs a) {
+  query_block<K, kGlobal, true>(a);
+}
 
-static int launch_query(const WaveArgs* a, void* stream, bool hop) {
-  if (a->sd > PTT_MEGA_STACK) return (int)cudaErrorInvalidValue;
-  if (a->R == 0) return 0;
+template <int K, bool kGlobal>
+static void launch_query_k(const WaveArgs* a, void* stream, bool hop) {
   const int block = 128;
   const int grid = (a->R + block - 1) / block;
   if (hop) {
-    ring_hop_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
+    ring_hop_kernel<K, kGlobal><<<grid, block, 0, (cudaStream_t)stream>>>(*a);
   } else {
-    closest_hit_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
+    closest_hit_kernel<K, kGlobal><<<grid, block, 0, (cudaStream_t)stream>>>(
+        *a);
+  }
+}
+
+static int launch_query(const WaveArgs* a, void* stream, bool hop) {
+  const bool global = a->sd > PTT_MEGA_STACK;
+  if ((global && a->stack == nullptr) ||
+      (a->branching != 4 && a->branching != 8))
+    return (int)cudaErrorInvalidValue;
+  if (a->R == 0) return 0;
+  if (a->branching == 4) {
+    if (global) launch_query_k<4, true>(a, stream, hop);
+    else launch_query_k<4, false>(a, stream, hop);
+  } else {
+    if (global) launch_query_k<8, true>(a, stream, hop);
+    else launch_query_k<8, false>(a, stream, hop);
   }
   return (int)cudaGetLastError();
 }

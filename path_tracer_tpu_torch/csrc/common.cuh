@@ -19,11 +19,28 @@
 // --- constants (ops/types.py) ---
 #define PTT_DONE (-(1 << 30))
 #define PTT_EMPTY_SLOT (1 << 23)
-#define PTT_NODE_ROW 96
-#define PTT_PTR_OFF 24
-#define PTT_PAYLOAD 32
 #define PTT_PRIM_ROW 16
 #define PTT_INF 1e30f
+// Per-thread arrays of the walking kernels (K5, K6, K7, K9) kept in local
+// memory up to these sizes; beyond them a launch takes the instantiation
+// whose arrays live in the wrapper's per-lane buffers (WaveArgs stack, tape,
+// walk).
+#define PTT_MEGA_STACK 64
+#define PTT_TAPE_MAX 64
+#define PTT_WALK_MAX 64
+
+// Node-row layout of a K-wide BVH (ops/types.py bvh_layout): K boxes
+// [0, 6K), K child pointers from `ptr`, K embedded 16-float leaf payloads
+// from `pay` (7K rounded up to a multiple of 8); `row` floats in all.
+// K = 4: 24 / 32 / 96; K = 8: 48 / 56 / 184.
+template <int K>
+struct NodeLayout {
+  static_assert(K == 4 || K == 8, "BVH4 or BVH8 rows");
+  static constexpr int ptr = 6 * K;
+  static constexpr int pay = (7 * K + 7) / 8 * 8;
+  static constexpr int row = pay + PTT_PRIM_ROW * K;
+};
+
 // Floats per hit record of the pipeline mode: t, p(3), n(3), front, u, v,
 // mat, medium (ops/integrator_tiled.py REC_FIELDS).
 #define PTT_REC 12
@@ -86,8 +103,8 @@ struct WaveArgs {
   float* u5_out;
   long long items_total;
   // sizes and knobs
-  int R, sd, steps, chunk, exit_den, ctrl_den, root, n_prims, n_sph, n_qd,
-      n_prim_rows;
+  int R, sd, branching, steps, chunk, exit_den, ctrl_den, root, n_prims,
+      n_sph, n_qd, n_prim_rows;
   int n_mat, n_med, n_tex, n_img, img_h, img_w;
   int prim_mask, has_medium, has_noise, has_image;
   int has_noise_emission, has_noise_medium, has_image_emission,
@@ -120,6 +137,12 @@ struct WaveArgs {
   // the tiled engine's sample index in device memory (null: start_sample),
   // so that one captured trip graph replays every sample
   const int* sample_dev;
+  // per-lane buffers of the walking kernels' arrays beyond the local sizes
+  // above (null when the launch fits them): the walk's stack is `stack`
+  // (R x sd ints, as K1's); K6's trip record (npix x iters_cap entries of
+  // TapeEntry or TripIn, adjoint.cu) and SSS walk record (npix x sss_steps
+  // x 4 floats, sss_adj.cuh)
+  void* tape; float* walk;
 };
 
 // Every field of WaveArgs in declaration order.  A name missing from the
@@ -132,7 +155,7 @@ struct WaveArgs {
   X(occupied) X(flag) X(accum) X(pix_paths) X(depth_hist) X(ctr) X(nodes)    \
   X(prims) X(prim_tab) X(mat_tab) X(med_tab) X(tex_tab) X(img_data)          \
   X(img_hw) X(perlin_vec) X(perlin_perm) X(u5_out) X(items_total) X(R)       \
-  X(sd) X(steps) X(chunk) X(exit_den) X(ctrl_den) X(root) X(n_prims)         \
+  X(sd) X(branching) X(steps) X(chunk) X(exit_den) X(ctrl_den) X(root) X(n_prims)         \
   X(n_sph) X(n_qd) X(n_prim_rows) X(n_mat) X(n_med) X(n_tex) X(n_img)        \
   X(img_h) X(img_w)                                                          \
   X(prim_mask) X(has_medium) X(has_noise) X(has_image)                       \
@@ -143,7 +166,7 @@ struct WaveArgs {
   X(dv) X(defocus_u) X(defocus_v) X(defocus_angle) X(bg_color) X(bg_type)   \
   X(delta) X(g_tex) X(g_img) X(g_prim) X(g_mat) X(g_med) X(g_perlin)        \
   X(q_tmin) X(q_active) X(exit_found) X(exit_pt) X(exit_pi) X(exit_t)        \
-  X(exit_med) X(rec) X(pix_offset) X(sample_dev)
+  X(exit_med) X(rec) X(pix_offset) X(sample_dev) X(tape) X(walk)
 
 // Fills names[k], offsets[k] for each field when the arrays are given;
 // returns the number of fields.  Each kernel library exports its own copy.

@@ -2,17 +2,23 @@
 //
 // The CUDA sources keep each kernel's per-slot work in a __device__
 // function (trace_lane, shade_lane, retire_lane, spawn_lane, mega_pixel,
-// adjoint_pixel, adjoint_pixel_full) and only the grid plumbing in the
-// __global__ wrapper.  Compiled by a host C++ compiler with
-// PTT_HOST_EMULATION defined, the same per-slot code runs here in a
-// loop over slots, so the CPU test suite holds the kernel sources — not only
-// their plain-torch twins — against the JAX package's engine.
+// adjoint_pixel, adjoint_pixel_full, closest_hit_lane, ring_hop_lane,
+// tiled_lane) and only the grid plumbing in the __global__ wrapper.
+// Compiled by a host C++ compiler with PTT_HOST_EMULATION defined, the same
+// per-slot code runs here in a loop over slots, so the CPU test suite holds
+// the kernel sources — not only their plain-torch twins — against the JAX
+// package's engine.  Each walking function runs the instantiation its
+// kernel's launcher picks: the node width from WaveArgs.branching (4 or 8),
+// and the per-thread arrays in local memory or in the caller's per-lane
+// buffers (WaveArgs stack, tape, walk) by the same size rule.  Each entry
+// returns 0, or 1 where the launcher would refuse the arguments.
 //   g++ -O1 -std=c++17 -ffp-contract=off -shared -fPIC -o emu.so host_emulation.cpp
 #define PTT_HOST_EMULATION
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __noinline__
 #define __global__
@@ -31,13 +37,20 @@ static T atomicAdd(T* p, T v) {
 #include "closest_hit.cu"
 #include "tiled_trip.cu"
 
+// Whether a walking kernel takes a's node width, and its stack placement.
+static bool walk_args_ok(const WaveArgs* a, bool global) {
+  return (a->branching == 4 || a->branching == 8) &&
+         !(global && a->stack == nullptr);
+}
+
 // K1: the wave's chunks in order, each a loop over the slots and then the
 // epilogue that block 0 runs between the kernel's two grid barriers.
-extern "C" void emu_trace_step(WaveArgs* a) {
+template <int K>
+static void emu_trace_step_k(WaveArgs* a) {
   if (!wave_runs(*a, true)) return;
   for (int i = 0; i < a->steps; i += a->chunk) {
     ChunkCount n{0, 0, 0, 0, 0};
-    for (int lane = 0; lane < a->R; ++lane) trace_lane(*a, lane, n);
+    for (int lane = 0; lane < a->R; ++lane) trace_lane<K>(*a, lane, n);
     a->ctr[C_N_ACT] += n.act;
     a->ctr[C_N_ACT_END] += n.act_end;
     a->ctr[C_N_READY] += n.ready;
@@ -48,26 +61,42 @@ extern "C" void emu_trace_step(WaveArgs* a) {
   }
 }
 
-extern "C" void emu_shade(WaveArgs* a) {
-  if (a->ctr[C_DO_CTRL] == 0) return;
+extern "C" int emu_trace_step(WaveArgs* a) {
+  if (a->chunk <= 0 || !walk_args_ok(a, false)) return 1;
+  if (a->branching == 4) emu_trace_step_k<4>(a); else emu_trace_step_k<8>(a);
+  return 0;
+}
+
+extern "C" int emu_shade(WaveArgs* a) {
+  if (a->ctr[C_DO_CTRL] == 0) return 0;
   for (int i = 0; i < a->R; ++i) shade_lane(*a, i);
+  return 0;
 }
 
-extern "C" void emu_retire(WaveArgs* a) {
-  if (a->ctr[C_DO_CTRL] == 0) return;
+extern "C" int emu_retire(WaveArgs* a) {
+  if (a->ctr[C_DO_CTRL] == 0) return 0;
   for (int i = 0; i < a->R; ++i) retire_lane(*a, i);
+  return 0;
 }
 
-extern "C" void emu_spawn(WaveArgs* a) {
-  if (a->ctr[C_DO_CTRL] == 0) return;
+extern "C" int emu_spawn(WaveArgs* a) {
+  if (a->ctr[C_DO_CTRL] == 0) return 0;
   for (int i = 0; i < a->R; ++i) spawn_lane(*a, i);
+  return 0;
 }
 
-extern "C" void emu_megakernel(WaveArgs* a) {
+// The stack of lane i: a local array, or row i of the per-lane buffer.
+#define PTT_EMU_STACK(i)                                          \
+  int local_stack[PTT_MEGA_STACK];                                \
+  int* stack = a->sd > PTT_MEGA_STACK ? a->stack + (size_t)(i) * a->sd \
+                                      : local_stack
+
+template <int K>
+static void emu_megakernel_k(WaveArgs* a) {
   for (int pix = 0; pix < a->npix; ++pix) {
-    int stack[PTT_MEGA_STACK];
+    PTT_EMU_STACK(pix);
     MegaCount c{0, 0, 0};
-    mega_pixel(*a, pix, stack, c);
+    mega_pixel<K>(*a, pix, stack, c);
     const int dc = clampi(a->depth[pix], 0, a->max_depth);
     a->depth_hist[dc] += 1;
     a->ctr[C_DONE] += 1;
@@ -79,52 +108,82 @@ extern "C" void emu_megakernel(WaveArgs* a) {
   }
 }
 
-extern "C" void emu_adjoint(WaveArgs* a) {
+extern "C" int emu_megakernel(WaveArgs* a) {
+  if (!walk_args_ok(a, a->sd > PTT_MEGA_STACK)) return 1;
+  if (a->branching == 4) emu_megakernel_k<4>(a); else emu_megakernel_k<8>(a);
+  return 0;
+}
+
+// K6 over the block's pixels in order, by the launcher's instantiation.
+template <int K, bool kFull>
+static void emu_adjoint_k(WaveArgs* a) {
   const GradSink sink = global_sink(*a);
+  const bool global = adjoint_global(*a, kFull);
   for (int pix = 0; pix < a->npix; ++pix) {
-    int stack[PTT_MEGA_STACK];
-    TapeEntry tape[PTT_TAPE_MAX];
-    adjoint_pixel(*a, pix, stack, tape, sink);
+    if (global) {
+      adjoint_lane<K, true, kFull>(*a, pix, sink);
+    } else {
+      adjoint_lane<K, false, kFull>(*a, pix, sink);
+    }
   }
 }
 
-extern "C" void emu_adjoint_full(WaveArgs* a) {
-  const GradSink sink = global_sink(*a);
-  for (int pix = 0; pix < a->npix; ++pix) {
-    int stack[PTT_MEGA_STACK];
-    TripIn trips[PTT_TAPE_MAX];
-    adjoint_pixel_full(*a, pix, stack, trips, sink);
-  }
+template <bool kFull>
+static int emu_adjoint_any(WaveArgs* a) {
+  if (adjoint_global(*a, kFull) &&
+      (a->tape == nullptr || (kFull && a->sss_steps > 0 && a->walk == nullptr)))
+    return 1;
+  if (!walk_args_ok(a, adjoint_global(*a, kFull))) return 1;
+  if (a->branching == 4) emu_adjoint_k<4, kFull>(a);
+  else emu_adjoint_k<8, kFull>(a);
+  return 0;
+}
+
+extern "C" int emu_adjoint(WaveArgs* a) { return emu_adjoint_any<false>(a); }
+
+extern "C" int emu_adjoint_full(WaveArgs* a) {
+  return emu_adjoint_any<true>(a);
 }
 
 // K7 and K9: one query per lane; steps and dropped pushes into the counters.
-template <bool kHop>
-static void emu_query(WaveArgs* a) {
+template <int K, bool kHop>
+static void emu_query_k(WaveArgs* a) {
   for (int i = 0; i < a->R; ++i) {
-    int stack[PTT_MEGA_STACK];
+    PTT_EMU_STACK(i);
     MegaCount c{0, 0, 0};
     if (kHop) {
-      ring_hop_lane(*a, i, stack, c);
+      ring_hop_lane<K>(*a, i, stack, c);
     } else {
-      closest_hit_lane(*a, i, stack, c);
+      closest_hit_lane<K>(*a, i, stack, c);
     }
     a->ctr[C_TRAV_STEPS] += c.trav_steps;
     a->ctr[C_STACK_OVF] += c.ovf;
   }
 }
 
-extern "C" void emu_closest_hit(WaveArgs* a) { emu_query<false>(a); }
+template <bool kHop>
+static int emu_query(WaveArgs* a) {
+  if (!walk_args_ok(a, a->sd > PTT_MEGA_STACK)) return 1;
+  if (a->branching == 4) emu_query_k<4, kHop>(a);
+  else emu_query_k<8, kHop>(a);
+  return 0;
+}
 
-extern "C" void emu_ring_hop(WaveArgs* a) { emu_query<true>(a); }
+extern "C" int emu_closest_hit(WaveArgs* a) { return emu_query<false>(a); }
 
-extern "C" void emu_tiled_trip(WaveArgs* a) {
+extern "C" int emu_ring_hop(WaveArgs* a) { return emu_query<true>(a); }
+
+extern "C" int emu_tiled_trip(WaveArgs* a) {
   for (int i = 0; i < a->R; ++i) a->ctr[C_WALK_STEPS] += tiled_lane<false>(*a, i);
+  return 0;
 }
 
-extern "C" void emu_tiled_spawn(WaveArgs* a) {
+extern "C" int emu_tiled_spawn(WaveArgs* a) {
   for (int i = 0; i < a->R; ++i) tiled_spawn_lane(*a, i);
+  return 0;
 }
 
-extern "C" void emu_tiled_trip_rec(WaveArgs* a) {
+extern "C" int emu_tiled_trip_rec(WaveArgs* a) {
   for (int i = 0; i < a->R; ++i) a->ctr[C_WALK_STEPS] += tiled_lane<true>(*a, i);
+  return 0;
 }

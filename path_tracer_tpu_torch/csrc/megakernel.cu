@@ -14,9 +14,11 @@
 // JAX frame's add order (acc + sample, in sample order) with no float
 // atomics.
 //
-// The stack is a per-thread local array of PTT_MEGA_STACK entries used up to
-// sd = min(stack_depth, max_stack) (the host raises if sd is larger); a
-// push at a full stack is dropped as in JAX and counted in C_STACK_OVF.
+// Four instantiations: the node width K (4 or 8, WaveArgs.branching) and
+// where the walk's stack lives.  Up to sd = min(stack_depth, max_stack) =
+// PTT_MEGA_STACK entries it is a per-thread local array; a deeper stack
+// lives in the wrapper's per-pixel buffer (WaveArgs.stack, npix x sd ints).
+// A push at a full stack is dropped as in JAX and counted in C_STACK_OVF.
 // Counters (rays = sum of iters, clipped depth sum and histogram, walk
 // trips, traversal steps, overflows) are reduced per block in shared memory,
 // then added with one atomic per block.
@@ -30,10 +32,11 @@
 // Sample a.start_sample of block pixel pix, frame pixel pix_offset + pix
 // (trace_path); writes the pixel's colour, iters and depth and adds the
 // colour to the block's frame entry.
+template <int K>
 __device__ __forceinline__ void mega_pixel(const WaveArgs& a, int pix,
                                            int* stack, MegaCount& c) {
   PathRegs p;
-  trace_path(a, a.pix_offset + pix, stack, c, p);
+  trace_path<K>(a, a.pix_offset + pix, stack, c, p);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     a.color[3 * pix + k] = p.col[k];
@@ -44,6 +47,7 @@ __device__ __forceinline__ void mega_pixel(const WaveArgs& a, int pix,
 }
 
 #ifndef PTT_HOST_EMULATION
+template <int K, bool kGlobal>
 __global__ void megakernel_kernel(WaveArgs a) {
   extern __shared__ int s_hist[];  // max_depth + 1 bins
   __shared__ unsigned long long s_rays, s_dsum, s_steps, s_walk, s_ovf, s_done;
@@ -52,9 +56,13 @@ __global__ void megakernel_kernel(WaveArgs a) {
   __syncthreads();
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix < a.npix) {
-    int stack[PTT_MEGA_STACK];
     MegaCount c{0, 0, 0};
-    mega_pixel(a, pix, stack, c);
+    if constexpr (kGlobal) {
+      mega_pixel<K>(a, pix, a.stack + (size_t)pix * a.sd, c);
+    } else {
+      int stack[PTT_MEGA_STACK];
+      mega_pixel<K>(a, pix, stack, c);
+    }
     const int dc = clampi(a.depth[pix], 0, a.max_depth);
     atomicAdd(&s_hist[dc], 1);
     atomicAdd(&s_done, 1ull);
@@ -79,12 +87,27 @@ __global__ void megakernel_kernel(WaveArgs a) {
   }
 }
 
-extern "C" int ptt_launch_megakernel(const WaveArgs* a, void* stream) {
-  if (a->sd > PTT_MEGA_STACK) return (int)cudaErrorInvalidValue;
+template <int K, bool kGlobal>
+static void launch_mega(const WaveArgs* a, void* stream) {
   const int block = 128;
   const int grid = (a->npix + block - 1) / block;
   const size_t smem = sizeof(int) * (size_t)(a->max_depth + 1);
-  megakernel_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(*a);
+  megakernel_kernel<K, kGlobal><<<grid, block, smem, (cudaStream_t)stream>>>(
+      *a);
+}
+
+extern "C" int ptt_launch_megakernel(const WaveArgs* a, void* stream) {
+  const bool global = a->sd > PTT_MEGA_STACK;
+  if ((global && a->stack == nullptr) ||
+      (a->branching != 4 && a->branching != 8))
+    return (int)cudaErrorInvalidValue;
+  if (a->branching == 4) {
+    if (global) launch_mega<4, true>(a, stream);
+    else launch_mega<4, false>(a, stream);
+  } else {
+    if (global) launch_mega<8, true>(a, stream);
+    else launch_mega<8, false>(a, stream);
+  }
   return (int)cudaGetLastError();
 }
 #endif

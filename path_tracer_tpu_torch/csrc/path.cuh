@@ -13,14 +13,14 @@
 #include "bounce.cuh"
 #include "traverse.cuh"
 
-#define PTT_MEGA_STACK 64
-
 struct MegaCount {
   long long trav_steps;
   int walk_trips, ovf;
 };
 
-// Closest hit from (o, d, time) at t_min, walked to completion.
+// Closest hit from (o, d, time) at t_min, walked to completion through a
+// K-wide BVH.
+template <int K>
 __device__ __forceinline__ void trav_full(const WaveArgs& a, const float* o,
                                           const float* d, float time,
                                           float t_min, int* stack,
@@ -33,12 +33,12 @@ __device__ __forceinline__ void trav_full(const WaveArgs& a, const float* o,
   int sp = 0;
   while (cur != PTT_DONE) {
     ++c.trav_steps;
-    trav_step(a, r, cur, stack, sp, best_t, best_pt, best_pi, c.ovf);
+    trav_step<K>(a, r, cur, stack, sp, best_t, best_pt, best_pi, c.ovf);
   }
 }
 
 // Sample a.start_sample of pixel pix, traced into p.
-template <class Rec = NoTape>
+template <int K, class Rec = NoTape>
 __device__ __forceinline__ void trace_path(const WaveArgs& a, int pix,
                                            int* stack, MegaCount& c,
                                            PathRegs& p, Rec* tape = nullptr) {
@@ -56,15 +56,15 @@ __device__ __forceinline__ void trace_path(const WaveArgs& a, int pix,
   while (p.alive && p.iters < a.iters_cap) {
     float best_t;
     int best_pt, best_pi;
-    trav_full(a, p.o, p.d, p.time, a.t_min, stack, best_t, best_pt, best_pi,
-              c);
+    trav_full<K>(a, p.o, p.d, p.time, a.t_min, stack, best_t, best_pt,
+                 best_pi, c);
     const bool found = best_pt >= 0;
     bool exit_found = false, exit_is_medium = false;
     float t_exit = 0.0f;
     if (a.has_medium && found && medium_of(a, best_pt, best_pi) >= 0) {
       int e_pt, e_pi;
-      trav_full(a, p.o, p.d, p.time, best_t + 1e-4f, stack, t_exit, e_pt,
-                e_pi, c);
+      trav_full<K>(a, p.o, p.d, p.time, best_t + 1e-4f, stack, t_exit, e_pt,
+                   e_pi, c);
       exit_found = e_pt >= 0;
       exit_is_medium = medium_of(a, e_pt, e_pi) >= 0;
     }

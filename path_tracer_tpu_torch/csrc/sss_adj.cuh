@@ -4,8 +4,10 @@
 // (path_tracer_tpu/ops/shade_tiled.py:515-578).
 //
 // The walk re-runs forward with the forward's code and draws, keeping each
-// trip's heading and step length (4 floats, PTT_WALK_MAX trips; the start
-// points are not needed: d p2_i / d pos_i is the identity), then reverses:
+// trip's heading and step length (4 floats per trip; the start points are
+// not needed: d p2_i / d pos_i is the identity) in a local record of
+// PTT_WALK_MAX trips, or with kGlobal in the caller's per-pixel buffer of
+// sss_steps trips (`wrec`, 4 floats each), then reverses:
 // trip i moves pos_{i+1} = pos_i + wd_i t_i with t_i = -log u / sigma_t,
 // and a kept trip turns wd_{i+1} =
 // direction_from_cos(u2, sample_hg(u5, g), wd_i).  The exit and absorb
@@ -17,19 +19,25 @@
 #include "adjoint_ops.cuh"
 #include "sss.cuh"
 
-#define PTT_WALK_MAX 64
-
 struct WalkAdj {
   float h[3], n[3], ui[3];
   float sigma_t, g;
 };
 
+template <bool kGlobal>
 __device__ __noinline__ void sss_walk_adj(Key wk, int steps, const float* h,
                                           const float* n, const float* ui,
                                           float sigma_t, float sigma_a,
                                           float g, const float* opb,
-                                          const float* odb, WalkAdj& out) {
-  float wd_t[PTT_WALK_MAX][3], t_t[PTT_WALK_MAX];
+                                          const float* odb, WalkAdj& out,
+                                          float* wrec) {
+  float wd_l[kGlobal ? 1 : PTT_WALK_MAX][3], t_l[kGlobal ? 1 : PTT_WALK_MAX];
+  auto wd_t = [&](int i) -> float* {
+    if constexpr (kGlobal) return wrec + 4 * i; else return wd_l[i];
+  };
+  auto t_t = [&](int i) -> float& {
+    if constexpr (kGlobal) return wrec[4 * i + 3]; else return t_l[i];
+  };
   float pos[3], wd[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -38,16 +46,16 @@ __device__ __noinline__ void sss_walk_adj(Key wk, int steps, const float* h,
   }
   int trips = 0;
   bool exited = false;
-  for (int i = 0; i < steps && i < PTT_WALK_MAX; ++i) {
+  for (int i = 0; i < steps && (kGlobal || i < PTT_WALK_MAX); ++i) {
     const uint32_t b = 6u * (uint32_t)i;
     const float t = -logf(fmaxp(uniform_at(wk, b), 1e-10f)) / sigma_t;
     float p2[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      wd_t[i][k] = wd[k];
+      wd_t(i)[k] = wd[k];
       p2[k] = pos[k] + wd[k] * t;
     }
-    t_t[i] = t;
+    t_t(i) = t;
     ++trips;
     const float ex = p2[0] - h[0], ey = p2[1] - h[1], ez = p2[2] - h[2];
     const float dist = sqrtf(ex * ex + ey * ey + ez * ez);
@@ -86,7 +94,7 @@ __device__ __noinline__ void sss_walk_adj(Key wk, int steps, const float* h,
       const float u5 = uniform_at(wk, b + 5u);
       float ab[3] = {0.0f, 0.0f, 0.0f};
       const float cb = direction_from_cos_adj(uniform_at(wk, b + 2u),
-                                              sample_hg(u5, g), wd_t[i], wdb,
+                                              sample_hg(u5, g), wd_t(i), wdb,
                                               ab);
       out.g += cb * sample_hg_dg(u5, g);
 #pragma unroll
@@ -96,10 +104,10 @@ __device__ __noinline__ void sss_walk_adj(Key wk, int steps, const float* h,
       for (int k = 0; k < 3; ++k) wdb_i[k] = 0.0f;
     }
     // p2_i = pos_i + wd_i t_i
-    const float tb = dot3(p2b, wd_t[i]);
+    const float tb = dot3(p2b, wd_t(i));
 #pragma unroll
-    for (int k = 0; k < 3; ++k) wdb_i[k] += p2b[k] * t_t[i];
-    out.sigma_t += tb * (-t_t[i] / sigma_t);
+    for (int k = 0; k < 3; ++k) wdb_i[k] += p2b[k] * t_t(i);
+    out.sigma_t += tb * (-t_t(i) / sigma_t);
 #pragma unroll
     for (int k = 0; k < 3; ++k) wdb[k] = wdb_i[k];
     // pos_i = p2_{i-1} (i > 0), or h - 1e-3 n: p2b carries over

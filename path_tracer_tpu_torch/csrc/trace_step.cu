@@ -1,5 +1,6 @@
-// K1 trace_step: one wave of suspended BVH4 closest-hit traversal, with the
-// adaptive wave exit.
+// K1 trace_step: one wave of suspended closest-hit traversal of a BVH4 or a
+// BVH8 (one instantiation per node width, chosen by WaveArgs.branching),
+// with the adaptive wave exit.
 //
 // Replaces path_tracer_tpu/ops/traverse.py _step_tiled (:334) driven by
 // traversal_steps_batched(adaptive=True) (:408, the exit at :459-490), plus
@@ -27,9 +28,9 @@
 // stack is dropped exactly as in the JAX step and counted in
 // ctr[C_STACK_OVF], which the renderer requires to be 0.
 //
-// Bound: the node-row gathers.  Each step reads one 384-byte row per lane;
-// rows are shared across lanes and stay in the 50 MB L2 (the vol2_final BVH
-// is ~0.6 MB), so the kernel is latency-bound on dependent gathers, not on
+// Bound: the node-row gathers.  Each step reads one row per lane (384 bytes
+// at K = 4, 736 at K = 8); rows are shared across lanes and stay in the
+// 50 MB L2 (the vol2_final BVH is ~0.6 MB at K = 4), so the kernel is latency-bound on dependent gathers, not on
 // HBM bandwidth.  The chunks add one reload of each walking lane's ray and
 // traversal state per chunk, and two grid barriers per chunk.
 #include "traverse.cuh"
@@ -44,6 +45,7 @@ struct ChunkCount {
   int act, act_end, ready, walk, ovf;
 };
 
+template <int K>
 __device__ __forceinline__ void trace_lane(const WaveArgs& a, int i,
                                            ChunkCount& n) {
   int cur = a.cur[i];
@@ -58,7 +60,7 @@ __device__ __forceinline__ void trace_lane(const WaveArgs& a, int i,
     int best_pt = a.best_pt[i], best_pi = a.best_pi[i];
     int* stack = a.stack + (size_t)i * a.sd;
     for (int k = 0; k < a.chunk && cur != PTT_DONE; ++k)
-      trav_step(a, r, cur, stack, sp, best_t, best_pt, best_pi, n.ovf);
+      trav_step<K>(a, r, cur, stack, sp, best_t, best_pt, best_pi, n.ovf);
     a.cur[i] = cur;
     a.sp[i] = sp;
     a.best_t[i] = best_t;
@@ -123,6 +125,7 @@ __device__ __forceinline__ bool wave_runs(const WaveArgs& a, bool writer) {
 
 #ifndef PTT_HOST_EMULATION
 // One wave (see the top of the file).
+template <int K>
 __global__ void trace_step_kernel(WaveArgs a) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const bool first = blockIdx.x == 0 && threadIdx.x == 0;
@@ -134,7 +137,7 @@ __global__ void trace_step_kernel(WaveArgs a) {
     ChunkCount n{0, 0, 0, 0, 0};
     for (int lane = blockIdx.x * blockDim.x + threadIdx.x; lane < a.R;
          lane += gridDim.x * blockDim.x)
-      trace_lane(a, lane, n);
+      trace_lane<K>(a, lane, n);
     if (n.act) atomicAdd(&s_act, n.act);
     if (n.act_end) atomicAdd(&s_act_end, n.act_end);
     if (n.ready) atomicAdd(&s_ready, n.ready);
@@ -157,23 +160,31 @@ __global__ void trace_step_kernel(WaveArgs a) {
 }
 
 // A cooperative launch: as many blocks as the slots need, at most as many
-// as fit resident on the card (the wrapper counts one launch).
-extern "C" int ptt_launch_trace_step(const WaveArgs* a, void* stream) {
+// of the node width's instantiation as fit resident on the card (the
+// wrapper counts one launch).
+template <int K>
+static int launch_trace_step(const WaveArgs* a, void* stream) {
   const int block = 128;
-  if (a->chunk <= 0) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, trace_step_kernel, block, 0);
+        &per_sm, trace_step_kernel<K>, block, 0);
   if (err != cudaSuccess) return (int)err;
   const int need = (a->R + block - 1) / block;
   const int grid = need < per_sm * sms ? need : per_sm * sms;
   void* args[] = {(void*)a};
-  return (int)cudaLaunchCooperativeKernel((void*)trace_step_kernel,
+  return (int)cudaLaunchCooperativeKernel((void*)trace_step_kernel<K>,
                                           dim3(grid), dim3(block), args, 0,
                                           (cudaStream_t)stream);
+}
+
+extern "C" int ptt_launch_trace_step(const WaveArgs* a, void* stream) {
+  if (a->chunk <= 0) return (int)cudaErrorInvalidValue;
+  if (a->branching == 4) return launch_trace_step<4>(a, stream);
+  if (a->branching == 8) return launch_trace_step<8>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 #endif

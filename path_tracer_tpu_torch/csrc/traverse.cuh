@@ -1,13 +1,17 @@
-// BVH4 closest-hit traversal shared by K1 (trace_step, the suspended walk of
-// the wavefront) and K5 (megakernel, the per-ray walk to completion).
+// BVH closest-hit traversal shared by K1 (trace_step, the suspended walk of
+// the wavefront) and the per-ray walks to completion of K5 (megakernel), K6
+// (adjoint), K7 (closest_hit) and K9 (ring_hop), for BVH4 and BVH8 rows.
 //
 // One step, term for term as path_tracer_tpu/ops/traverse.py
-// traversal_step (:183) / _step_tiled (:334): one 96-float node row, four
-// slab tests, inline tests of leaf children from their embedded 16-float
-// rows, a 5-comparator front-to-back sort, push of the far interior
-// children and descent into the nearest.  A push at a full stack is dropped
-// exactly as in the JAX step and counted.  The query start
-// (traversal_init, :164 / :280) resolves the single-prim root-leaf case.
+// traversal_step (:183) / _step_tiled (:334), templated on the node width K
+// (PackedBVH.branching): one node row (96 floats at K = 4, 184 at K = 8),
+// K slab tests, inline tests of leaf children from their embedded 16-float
+// rows, the front-to-back compare-swap network of _SORT_NET[K] (:43-50; 5
+// comparators at K = 4, 19 at K = 8, in JAX's order, swapping on a strict
+// >), pushes of the far interior children K-1 .. 1 and descent into the
+// nearest.  A push at a full stack is dropped exactly as in the JAX step
+// and counted.  The query start (traversal_init, :164 / :280) resolves the
+// single-prim root-leaf case and does not depend on K.
 #pragma once
 
 #include "intersect.cuh"
@@ -24,24 +28,52 @@ __device__ __forceinline__ TravRay trav_ray(float ox, float oy, float oz,
                  dx * dx + dy * dy + dz * dz, time, t_min};
 }
 
-// One step from node `cur`; `stack` holds `sd` entries.
+__device__ __forceinline__ void cswap(float* ct, int* cp, int x, int y) {
+  if (ct[x] > ct[y]) {
+    const float tt = ct[x]; ct[x] = ct[y]; ct[y] = tt;
+    const int pp = cp[x]; cp[x] = cp[y]; cp[y] = pp;
+  }
+}
+
+// The compare-swap network of _SORT_NET[K]: ascending t, invalid children
+// (t = PTT_INF) last; ties keep their order as in JAX (swap on a strict >).
+template <int K>
+__device__ __forceinline__ void sort_children(float* ct, int* cp) {
+  if constexpr (K == 4) {
+    const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
+#pragma unroll
+    for (int k = 0; k < 5; ++k) cswap(ct, cp, net[k][0], net[k][1]);
+  } else {
+    const int net[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7},
+                            {0, 2}, {1, 3}, {4, 6}, {5, 7},
+                            {1, 2}, {5, 6}, {0, 4}, {3, 7},
+                            {1, 5}, {2, 6}, {1, 4}, {3, 6},
+                            {2, 4}, {3, 5}, {3, 4}};
+#pragma unroll
+    for (int k = 0; k < 19; ++k) cswap(ct, cp, net[k][0], net[k][1]);
+  }
+}
+
+// One step from node `cur` of a K-wide BVH; `stack` holds `sd` entries.
+template <int K>
 __device__ __forceinline__ void trav_step(const WaveArgs& a, const TravRay& r,
                                           int& cur, int* stack, int& sp,
                                           float& best_t, int& best_pt,
                                           int& best_pi, int& ovf) {
-  const float* row = a.nodes + (size_t)cur * PTT_NODE_ROW;
-  float ct[4];
-  int cp[4];
+  using L = NodeLayout<K>;
+  const float* row = a.nodes + (size_t)cur * L::row;
+  float ct[K];
+  int cp[K];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int ptr = (int)row[PTT_PTR_OFF + c];
+  for (int c = 0; c < K; ++c) {
+    const int ptr = (int)row[L::ptr + c];
     float tn;
     bool hi = hit_aabb(row + 6 * c, r.ox, r.oy, r.oz, r.ivx, r.ivy, r.ivz,
                        r.t_min, best_t, tn);
     hi = hi && ptr < PTT_EMPTY_SLOT;
     const bool is_leaf = ptr < 0;
     if (hi && is_leaf) {
-      const float* pr = row + PTT_PAYLOAD + PTT_PRIM_ROW * c;
+      const float* pr = row + L::pay + PTT_PRIM_ROW * c;
       float lt;
       if (hit_prim_row(pr, a.prim_mask, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
                        r.rr, r.time, r.t_min, best_t, lt) && lt < best_t) {
@@ -53,17 +85,9 @@ __device__ __forceinline__ void trav_step(const WaveArgs& a, const TravRay& r,
     ct[c] = (hi && !is_leaf) ? tn : PTT_INF;
     cp[c] = ptr;
   }
-  const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
+  sort_children<K>(ct, cp);
 #pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    const int x = net[k][0], y = net[k][1];
-    if (ct[x] > ct[y]) {
-      const float tt = ct[x]; ct[x] = ct[y]; ct[y] = tt;
-      const int pp = cp[x]; cp[x] = cp[y]; cp[y] = pp;
-    }
-  }
-#pragma unroll
-  for (int k = 3; k >= 1; --k) {
+  for (int k = K - 1; k >= 1; --k) {
     if (ct[k] < PTT_INF) {
       if (sp < a.sd) stack[sp] = cp[k]; else ++ovf;
       sp = sp + 1 < a.sd ? sp + 1 : a.sd;

@@ -18,7 +18,8 @@ the twins on the CPU) and its backward receives δ = dL/d(image):
 * CPU tensors: autograd of the megakernel twin's replay, contracted with δ,
   for every floating scene leaf that requires grad (the plain path).
 * CUDA tensors: kernel K6 :func:`adjoint` (``csrc/adjoint.cu``), one launch
-  per sample, for every floating leaf (:data:`FLOAT_LEAVES`).  A leaf set
+  per sample (or per pixel block, :func:`run_adjoint`), for every floating
+  leaf (:data:`FLOAT_LEAVES`).  A leaf set
   within :data:`COLOUR_LEAVES` runs its colour instantiation: those leaves
   enter a path linearly, so their adjoint is a replay and a reverse sweep of
   the path's colour events.  Any other set runs the full instantiation,
@@ -48,8 +49,15 @@ FLOAT_LEAVES = (
     "qd_d", "tr_v0", "tr_e1", "tr_e2", "tr_n", "mat_fuzz", "mat_ir", "mat_g",
     "mat_sigma_s", "mat_sigma_a", "mat_scatter_dist", "tex_c1", "tex_c2",
     "tex_scale", "img_data", "med_density", "perlin_vec")
-TAPE_MAX = 64   # per-thread tape entries of K6 (PTT_TAPE_MAX, csrc/adjoint.cu)
-WALK_MAX = 64   # SSS walk trips the full K6 keeps (PTT_WALK_MAX, sss_adj.cuh)
+# Tape entries and SSS walk trips K6 keeps in local memory (PTT_TAPE_MAX,
+# PTT_WALK_MAX, csrc/common.cuh); beyond them, or beyond the local stack,
+# its arrays live in per-pixel buffers (per_pixel_buffers).
+TAPE_MAX = 64
+WALK_MAX = 64
+WALK_ENTRY_BYTES = 16   # one SSS walk trip: heading (3 floats) and length
+# Share of the card's free memory K6's per-pixel buffers may take; a frame
+# whose buffers need more runs in pixel blocks.
+SCRATCH_SHARE = 4
 
 
 class GradBuffers(NamedTuple):
@@ -160,31 +168,72 @@ def adjoint_plain(eng, ms, sample_idx, delta, bufs: GradBuffers,
         views[n].add_(gn)
 
 
+def per_pixel_buffers(sd: int, iters: int, sss_steps: int,
+                      full: bool) -> bool:
+    """Whether K6 takes its instantiation with per-pixel buffers: the
+    stack (``sd``), the tape (``iters`` trips) or, for the ``full``
+    instantiation, the SSS walk record (``sss_steps`` trips) exceeds its
+    local array (the launcher's rule, ``csrc/adjoint.cu`` adjoint_global)."""
+    return (sd > kernels.MEGA_STACK or iters > TAPE_MAX
+            or (full and sss_steps > WALK_MAX))
+
+
+def run_adjoint(eng, a, delta, full: bool, launch, entry_bytes: int,
+                budget: int) -> None:
+    """Launch K6 (``launch(a)``) over the engine's pixels with the argument
+    block ``a`` (``delta`` (npix, 3) and the gradient buffers set).
+
+    Where the arrays fit the kernel's local ones, one launch.  Otherwise
+    the per-pixel buffers are allocated here, ``sd`` ints of stack,
+    ``iters`` tape entries of ``entry_bytes`` and, for the ``full``
+    instantiation, ``sss_steps`` walk trips per pixel, and the frame runs in
+    blocks of as many pixels as fit ``budget`` bytes (at least one), each
+    launch on the next block (``pix_offset``, ``npix`` and ``delta``
+    shifted); the gradients add up over the blocks."""
+    cfg = eng.cfg
+    if not per_pixel_buffers(eng.sd, cfg.iters, cfg.sss_max_steps, full):
+        a.stack = a.tape = a.walk = None
+        launch(a)
+        return
+    walk = cfg.sss_max_steps if full else 0
+    per_pix = 4 * eng.sd + entry_bytes * cfg.iters + WALK_ENTRY_BYTES * walk
+    block = max(1, min(eng.npix, budget // per_pix))
+    dev = delta.device
+    stack = torch.empty((block, eng.sd), dtype=torch.int32, device=dev)
+    tape = torch.empty((block * cfg.iters * entry_bytes,), dtype=torch.uint8,
+                       device=dev)
+    wrec = torch.empty((block, walk, 4), device=dev) if walk else None
+    a.stack, a.tape = kernels._ptr(stack), kernels._ptr(tape)
+    a.walk = kernels._ptr(wrec)
+    a._keep_scratch = (stack, tape, wrec)
+    npix, offset = a.npix, a.pix_offset
+    try:
+        for start in range(0, eng.npix, block):
+            a.npix = min(block, eng.npix - start)
+            a.pix_offset = offset + start
+            a.delta = kernels._ptr(delta[start:start + a.npix])
+            launch(a)
+    finally:
+        a.npix, a.pix_offset, a.delta = npix, offset, kernels._ptr(delta)
+
+
 def adjoint(eng, ms, sample_idx, delta, bufs: GradBuffers,
             full: bool = False) -> None:
     """K6 wrapper: the CUDA kernel (``adjoint``, or ``adjoint_full`` with
     ``full``) for CUDA state, its plain version for CPU state.
     ``eng``/``ms`` are a :class:`~.integrator.MegaEngine` and its state (the
-    argument block K5 takes)."""
+    argument block K5 takes).  Per-pixel buffers, where the kernel needs
+    them, take at most a quarter of the card's free memory
+    (:func:`run_adjoint`)."""
     if not ms.ctr.is_cuda:
         return adjoint_plain(eng, ms, sample_idx, delta, bufs, full)
-    from .integrator import MEGA_STACK
-
-    if eng.sd > MEGA_STACK:
-        raise ValueError(f"stack depth {eng.sd} exceeds the adjoint's "
-                         f"per-thread stack of {MEGA_STACK}")
-    if eng.cfg.iters > TAPE_MAX:
-        raise ValueError(f"{eng.cfg.iters} loop trips exceed the adjoint's "
-                         f"tape of {TAPE_MAX} entries")
-    if full and eng.cfg.sss_max_steps > WALK_MAX:
-        raise ValueError(f"{eng.cfg.sss_max_steps} SSS walk steps exceed the "
-                         f"adjoint's walk record of {WALK_MAX}")
+    dev = ms.ctr.device
     for t, shape in ((delta, (eng.npix, 3)),
                      *zip(bufs, _buffer_shapes(eng.scene))):
-        if t.device != ms.ctr.device or t.dtype != torch.float32 \
+        if t.device != dev or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape:
             raise ValueError(f"adjoint buffer must be float32 {shape} on "
-                             f"{ms.ctr.device}")
+                             f"{dev}")
     cache = getattr(ms, "_adjoint_args", None)
     if cache is None or cache[0] is not eng:
         cache = (eng, kernels.make_args(eng, ms))
@@ -192,7 +241,11 @@ def adjoint(eng, ms, sample_idx, delta, bufs: GradBuffers,
     a = cache[1]
     a.start_sample = int(sample_idx)
     kernels.set_grad_buffers(a, delta, bufs)
-    kernels.launch("adjoint_full" if full else "adjoint", eng, ms, a)
+    name = "adjoint_full" if full else "adjoint"
+    entry = kernels.library(name).ptt_adjoint_entry_bytes(int(full))
+    run_adjoint(eng, a, delta, full,
+                lambda args: kernels.launch(name, eng, ms, args), entry,
+                torch.cuda.mem_get_info(dev)[0] // SCRATCH_SHARE)
 
 
 def kernel_vjp(scene, flags, bvh, cam, cfg, base_key, samples, names, delta,

@@ -38,8 +38,6 @@ from .traverse import _traverse_impl
 from .types import (C_DEPTH_SUM, C_DONE, C_RAYS, C_STACK_OVF, C_TRAV_STEPS,
                     C_WALK_STEPS, N_COUNTERS, PathState, RenderConfig)
 
-MEGA_STACK = 64   # per-thread stack capacity of K5 (csrc/megakernel.cu)
-
 def prim_front_face(scene, ptype, pidx, origin, direction, time, t):
     """Front-face test for known hits: sign of rd · outward normal."""
     p = origin + t[:, None] * direction
@@ -262,12 +260,10 @@ def megakernel(eng: MegaEngine, ms: MegaState, sample_idx: int) -> None:
     """K5 wrapper: CUDA kernel for CUDA state, plain twin for CPU state."""
     if not ms.ctr.is_cuda:
         return megakernel_plain(eng, ms, sample_idx)
-    if eng.sd > MEGA_STACK:
-        raise ValueError(f"stack depth {eng.sd} exceeds the megakernel's "
-                         f"per-thread stack of {MEGA_STACK}")
     cache = getattr(ms, "_kernel_args", None)
     if cache is None or cache[0] is not eng:
-        cache = (eng, kernels.make_args(eng, ms))
+        cache = (eng, kernels.set_stack(kernels.make_args(eng, ms), eng.npix,
+                                        ms.ctr.device))
         ms._kernel_args = cache
     cache[1].start_sample = int(sample_idx)
     kernels.launch("megakernel", eng, ms, cache[1])

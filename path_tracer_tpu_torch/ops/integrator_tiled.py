@@ -30,9 +30,9 @@ from . import adjoint, kernels
 from .shade_tiled import (HitT, bounce_shade_t, make_tables, prim_medium_t,
                           spawn_paths, wave_rng)
 from .traverse import _traverse_impl
-from .types import C_TRAV_STEPS, C_WALK_STEPS, N_COUNTERS, PathState, RenderConfig
+from .types import (C_STACK_OVF, C_TRAV_STEPS, C_WALK_STEPS, N_COUNTERS,
+                    PathState, RenderConfig)
 
-MEGA_STACK = 64      # per-thread stack of K7/K9 (PTT_MEGA_STACK, csrc/path.cuh)
 # The (R, 12) hit record of the pipeline mode (PTT_REC, csrc/common.cuh).
 REC_FIELDS = ("t", "px", "py", "pz", "nx", "ny", "nz", "front", "u", "v",
               "mat", "medium")
@@ -105,9 +105,6 @@ def closest_hit_batched(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
     if bvh.nodes.device != dev:
         raise ValueError("the BVH and the rays are on different devices")
     sd = min(stack_depth, bvh.max_stack)
-    if sd > MEGA_STACK:
-        raise ValueError(f"stack depth {sd} exceeds the query's per-thread "
-                         f"stack of {MEGA_STACK}")
     found = torch.empty((R,), dtype=torch.bool, device=dev)
     pt = torch.empty((R,), dtype=torch.int32, device=dev)
     pi = torch.empty((R,), dtype=torch.int32, device=dev)
@@ -117,6 +114,7 @@ def closest_hit_batched(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
                       origin=ro, direction=rd, time=_lanes(time, R, dev),
                       q_tmin=_lanes(t_min, R, dev), q_active=active,
                       hit_found=found, hit_pt=pt, hit_pi=pi, hit_t=t)
+    kernels.set_stack(a, R, dev)
     kernels.launch_args("closest_hit", a, dev)
     return found, pt, pi, t
 
@@ -381,7 +379,7 @@ def render_tiled(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
     the twins on the CPU).  ``pix_offset``/``n_pix`` render the block of
     frame pixels ``pix_offset ..`` ``+ n_pix`` → ``(n_pix, 3)`` (a
     data-parallel shard).  With ``with_stats`` also returns
-    ``{"trav_steps", "walk_steps"}``.
+    ``{"trav_steps", "walk_steps", "stack_overflows"}``.
     """
     spp = spp if spp is not None else cfg.samples_per_pixel
     dev = scene.sph_c0.device
@@ -402,7 +400,8 @@ def render_tiled(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
         else:
             acc = _graphed_samples(eng, spp, pix, chunk_size, ctr)
         return acc, {"trav_steps": ctr[C_TRAV_STEPS],
-                     "walk_steps": ctr[C_WALK_STEPS]}
+                     "walk_steps": ctr[C_WALK_STEPS],
+                     "stack_overflows": ctr[C_STACK_OVF]}
 
     image, stats = adjoint.render_diff(scene, flags, bvh, cam, cfg, base_key,
                                        range(spp), forward, pix_offset, n_pix)

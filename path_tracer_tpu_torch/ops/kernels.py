@@ -19,9 +19,19 @@ with ``ctypes``; device pointers come from ``tensor.data_ptr()`` and the
 stream from PyTorch's current stream.  Nothing here runs at import time,
 and nothing falls back: a failed build or launch raises.
 
+The walking kernels (K1, K5, K6, K7, K9) take BVH4 and BVH8 rows: each is a
+template on the node width, and its launcher picks the instantiation from
+``WaveArgs.branching``.  K5, K6, K7 and K9 keep the walk's stack (and K6 its
+tape and SSS walk record) in per-thread local arrays up to
+:data:`MEGA_STACK` (:data:`.adjoint.TAPE_MAX`, :data:`.adjoint.WALK_MAX`)
+entries; beyond them the launcher picks an instantiation that keeps them
+in per-lane buffers which the wrapper allocates (:func:`set_stack`,
+:func:`.adjoint.adjoint`), so no size the JAX package runs is refused.
+
 ``LAUNCHES`` counts kernel launches per name; only a launch increments it.
-A launch captured into a CUDA graph counts when the graph runs it
-(:func:`captured_launches`, :func:`count`).
+``INSTANCES`` counts the launches of the walking kernels per instantiation
+(:func:`instance`).  A launch captured into a CUDA graph counts when the
+graph runs it (:func:`captured_launches`, :func:`count`).
 """
 from __future__ import annotations
 
@@ -53,7 +63,13 @@ BUILD_DIR = os.path.join(_REPO, "build", "torch_ext")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 
+# Per-thread stack entries the walking kernels keep in local memory
+# (PTT_MEGA_STACK, csrc/common.cuh); a deeper stack lives in a per-lane buffer.
+MEGA_STACK = 64
+BRANCHINGS = (4, 8)   # node widths the kernels take (bvh_build.pack_bvh)
+
 LAUNCHES = {n: 0 for n in NAMES + tuple(OWN_API)}
+INSTANCES: collections.Counter = collections.Counter()
 BUILD_LOG: dict = {}
 _LIBS: dict = {}
 _TALLY: collections.Counter | None = None   # launches of a graph capture
@@ -77,8 +93,8 @@ class WaveArgs(ctypes.Structure):
             "img_data", "img_hw", "perlin_vec", "perlin_perm", "u5_out")]
         + [("items_total", ctypes.c_longlong)]
         + [(n, _I) for n in (
-            "R", "sd", "steps", "chunk", "exit_den", "ctrl_den", "root",
-            "n_prims", "n_sph", "n_qd", "n_prim_rows", "n_mat", "n_med",
+            "R", "sd", "branching", "steps", "chunk", "exit_den", "ctrl_den",
+            "root", "n_prims", "n_sph", "n_qd", "n_prim_rows", "n_mat", "n_med",
             "n_tex", "n_img", "img_h", "img_w",
             "prim_mask", "has_medium", "has_noise", "has_image",
             "has_noise_emission", "has_noise_medium", "has_image_emission",
@@ -94,7 +110,8 @@ class WaveArgs(ctypes.Structure):
                              "g_med", "g_perlin", "q_tmin", "q_active",
                              "exit_found", "exit_pt", "exit_pi", "exit_t",
                              "exit_med", "rec")]
-        + [("pix_offset", _I), ("sample_dev", _P)])
+        + [("pix_offset", _I), ("sample_dev", _P), ("tape", _P),
+           ("walk", _P)])
 
 
 def _nvcc() -> str:
@@ -157,8 +174,7 @@ def build(verbose: bool = False) -> dict:
 
 
 def library(name: str):
-    """The built library of ``wave_loop`` or ``gather_rows`` (builds on
-    first use)."""
+    """The built library of kernel ``name`` (builds on first use)."""
     if name not in _LIBS:
         build()
     return _LIBS[name][0]
@@ -218,8 +234,10 @@ def make_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
 
 
 def _fill_bvh(a: WaveArgs, bvh, sd: int, root: int) -> None:
-    if bvh.branching != 4:
-        raise ValueError("the CUDA traversal takes BVH4 rows")
+    if bvh.branching not in BRANCHINGS:
+        raise ValueError(f"the CUDA traversal takes node widths {BRANCHINGS}, "
+                         f"not {bvh.branching}")
+    a.branching = bvh.branching
     a.nodes = _ptr(bvh.nodes)
     a.prims = _ptr(bvh.prims)
     a.n_prims = bvh.prims.shape[0]
@@ -318,6 +336,18 @@ def set_lanes(a: WaveArgs, n: int, device, ctr: torch.Tensor,
     return a
 
 
+def set_stack(a: WaveArgs, n: int, device) -> WaveArgs:
+    """Give the walk of ``n`` lanes its stack: null where ``a.sd`` entries
+    fit the kernels' local array (:data:`MEGA_STACK`), else a fresh ``(n,
+    sd)`` int32 buffer on ``device``, kept alive with ``a``."""
+    buf = None
+    if a.sd > MEGA_STACK:
+        buf = torch.empty((n, a.sd), dtype=torch.int32, device=device)
+    a.stack = _ptr(buf)
+    a._keep_stack = buf
+    return a
+
+
 def query_args(bvh, t_max: float, sd: int) -> WaveArgs:
     """K7's argument block for a BVH alone (K7 reads no other table),
     cached on the BVH."""
@@ -353,17 +383,38 @@ def launch_args(name: str, args: WaveArgs, device, stream=None) -> None:
     err = _LIBS[name][1](ctypes.byref(args), _P(stream))
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed with error {err}")
-    count({name: 1})
+    inst = instance(name, args)
+    count({name: 1, **({inst: 1} if inst else {})})
+
+
+def instance(name: str, a: WaveArgs) -> str | None:
+    """The instantiation of walking kernel ``name`` that its launcher picks
+    for ``a`` (``<name>_k<K>``, ``_global`` where its per-thread arrays live
+    in per-lane buffers), None for a kernel that does not walk."""
+    if name == "trace_step":
+        glob = False
+    elif name in ("megakernel", "closest_hit", "ring_hop"):
+        glob = a.sd > MEGA_STACK
+    elif name in ("adjoint", "adjoint_full"):
+        from .adjoint import per_pixel_buffers
+        glob = per_pixel_buffers(a.sd, a.iters_cap, a.sss_steps,
+                                 name == "adjoint_full")
+    else:
+        return None
+    return f"{name}_k{a.branching}" + ("_global" if glob else "")
 
 
 def count(launches, times: int = 1) -> None:
-    """Add ``launches`` ({name: n}) ``times`` to :data:`LAUNCHES`, or to the
-    tally of the capture in progress."""
+    """Add ``launches`` ({name: n}, kernel or instantiation names) ``times``
+    to :data:`LAUNCHES` and :data:`INSTANCES`, or to the tally of the
+    capture in progress."""
     for n, k in launches.items():
         if _TALLY is not None:
             _TALLY[n] += k * times
-        else:
+        elif n in LAUNCHES:
             LAUNCHES[n] += k * times
+        else:
+            INSTANCES[n] += k * times
 
 
 @contextlib.contextmanager
@@ -382,6 +433,7 @@ def captured_launches():
 def reset_launches() -> None:
     for n in LAUNCHES:
         LAUNCHES[n] = 0
+    INSTANCES.clear()
 
 
 def host_emulation_lib():
@@ -416,17 +468,18 @@ def host_emulation_ops():
     lib = host_emulation_lib()
 
     def make(name):
-        fn = getattr(lib, f"emu_{name}")
-        fn.argtypes = [ctypes.POINTER(WaveArgs)]
+        fn = _emu_fn(lib, name)
 
         def op(eng, ws, sample=None):
             cache = getattr(ws, "_emu_args", None)
             if cache is None or cache[0] is not eng:
                 cache = (eng, fill_args(eng, ws))
+                if name == "megakernel":
+                    set_stack(cache[1], eng.npix, ws.ctr.device)
                 ws._emu_args = cache
             if sample is not None:
                 cache[1].start_sample = int(sample)
-            fn(ctypes.byref(cache[1]))
+            fn(cache[1])
         return op
 
     return (tuple(make(n) for n in ("trace_step", "shade", "retire", "spawn")),
@@ -439,27 +492,39 @@ def host_emulation_lanes():
     ``tiled_trip_rec`` and ``tiled_spawn``, each taking an argument block filled as the
     kernel's wrapper fills it (CPU pointers)."""
     lib = host_emulation_lib()
-    ops = {}
-    for n in ("closest_hit", "ring_hop", "tiled_trip", "tiled_trip_rec",
-              "tiled_spawn"):
-        fn = getattr(lib, f"emu_{n}")
-        fn.argtypes = [ctypes.POINTER(WaveArgs)]
-        ops[n] = (lambda f: lambda a: f(ctypes.byref(a)))(fn)
-    return ops
+    return {n: _emu_fn(lib, n) for n in ("closest_hit", "ring_hop",
+                                         "tiled_trip", "tiled_trip_rec",
+                                         "tiled_spawn")}
 
 
-def host_emulation_adjoint(full: bool = False):
+def _emu_fn(lib, name: str):
+    """``emu_<name>`` of the emulation library as ``f(args)``; raises where
+    the kernel's launcher would refuse the arguments."""
+    fn = getattr(lib, f"emu_{name}")
+    fn.argtypes = [ctypes.POINTER(WaveArgs)]
+    fn.restype = _I
+
+    def call(a: WaveArgs) -> None:
+        if fn(ctypes.byref(a)) != 0:
+            raise RuntimeError(f"the emulated {name} refused its arguments")
+    return call
+
+
+def host_emulation_adjoint(full: bool = False, budget: int | None = None):
     """K6's per-pixel code compiled for the CPU (tests only), the colour
     or the ``full`` instantiation: an op with the signature of
     :func:`~.adjoint.adjoint` (``op(engine, mega_state, sample, delta,
-    bufs)``) on CPU tensors."""
+    bufs)``) on CPU tensors, run as the wrapper runs the kernel (per-pixel
+    buffers and pixel blocks within ``budget`` bytes)."""
+    from .adjoint import run_adjoint
     lib = host_emulation_lib()
-    fn = lib.emu_adjoint_full if full else lib.emu_adjoint
-    fn.argtypes = [ctypes.POINTER(WaveArgs)]
+    fn = _emu_fn(lib, "adjoint_full" if full else "adjoint")
+    entry = lib.ptt_adjoint_entry_bytes(int(full))
 
     def op(eng, ms, sample, delta, bufs):
         a = fill_args(eng, ms)
         a.start_sample = int(sample)
         set_grad_buffers(a, delta, bufs)
-        fn(ctypes.byref(a))
+        run_adjoint(eng, a, delta, full, fn, entry,
+                    budget if budget is not None else 1 << 30)
     return op

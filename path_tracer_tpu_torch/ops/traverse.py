@@ -1,4 +1,5 @@
-"""BVH4 closest-hit traversal, hit refinement, brute-force oracle, K1.
+"""BVH closest-hit traversal (4- and 8-wide nodes), hit refinement,
+brute-force oracle, K1.
 
 Port of ``path_tracer_tpu/ops/traverse.py``: the batched suspended walk
 (``traversal_init_batched`` :280, ``_step_tiled`` :334,

@@ -37,7 +37,7 @@ BG_SOLID = 0
 BG_GRADIENT = 1
 
 BVH_NONE = -1
-# Empty BVH4 child slot pointer: 2^23 (exact in f32, above any interior index).
+# Empty BVH child slot pointer: 2^23 (exact in f32, above any interior index).
 BVH_EMPTY_SLOT = 1 << 23
 
 # Floats per packed leaf payload row.

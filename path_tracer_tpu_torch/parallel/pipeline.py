@@ -66,6 +66,7 @@ def ring_hop(eng: TiledEngine, ro, rd, time, t_min, active, fnd, tbest, rec,
     kernels.set_lanes(a, R, dev, ctr if ctr is not None else new_counters(dev),
                       origin=ro, direction=rd, time=time, q_tmin=t_min,
                       q_active=active, hit_found=fnd, hit_t=tbest, rec=rec)
+    kernels.set_stack(a, R, dev)
     kernels.launch_args("ring_hop", a, dev)
 
 

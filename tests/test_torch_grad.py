@@ -149,10 +149,10 @@ SETUPS = {
 }
 
 
-def _both(build, w, h):
+def _both(build, w, h, branching=4):
     jw, jc = build(pt)
     scene = pt.compile_scene(jw)
-    bvh = pt.build_from_scene(scene)
+    bvh = pt.build_from_scene(scene, branching=branching)
     cam = jc.initialize()
     port = (interop.from_numpy_scene(scene, "cpu"),
             interop.from_numpy_bvh(bvh, "cpu"),
@@ -169,12 +169,13 @@ def test_render_grad_matches_jax(name):
     check_render_grad(SETUPS[name])
 
 
-def check_render_grad(setup, zero=()):
+def check_render_grad(setup, zero=(), branching=4):
     """The port's render gradients against ``jax.grad`` on ``setup`` (an
-    entry of ``SETUPS``); the leaves in ``zero`` must be exactly zero in
-    both."""
+    entry of ``SETUPS``), over a BVH of ``branching``-wide nodes; the
+    leaves in ``zero`` must be exactly zero in both.  Returns the port's
+    and JAX's gradients ``{leaf: (port, jax)}``."""
     build, (w, h, spp, depth), seed, leaves, tied = setup
-    (js, jf, jb, jc), (ts, tb, tc) = _both(build, w, h)
+    (js, jf, jb, jc), (ts, tb, tc) = _both(build, w, h, branching)
     key = jax.random.key(seed)
 
     def jloss(params):
@@ -207,6 +208,7 @@ def check_render_grad(setup, zero=()):
         assert np.abs(g).max() > 0, n
         np.testing.assert_allclose(g, np.asarray(jg[n]), atol=ATOL,
                                    rtol=RTOL, err_msg=n)
+    return {n: (xs[n].grad.numpy(), np.asarray(jg[n])) for n in leaves}
 
 
 def _diff_world(pkg):

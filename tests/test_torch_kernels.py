@@ -2,7 +2,7 @@
 
 * On any machine: the kernels' per-slot code (``csrc/*.cu``), compiled for
   the CPU through ``csrc/host_emulation.cpp``, drives the wave loop in place
-  of the launches; its path counts must equal the plain-torch twins' (which
+  of the launches, over BVH4 and BVH8 rows (K1's two instantiations); its path counts must equal the plain-torch twins' (which
   ``test_torch_wavefront.py`` holds against the JAX package), its ray
   counters and frame agree within the graded rule.
 * On a CUDA card (marker ``gpu``; skipped elsewhere): the built kernels
@@ -24,17 +24,20 @@ from path_tracer_tpu_torch.ops.shade import SceneFlags
 from path_tracer_tpu_torch.ops.types import RenderConfig
 from path_tracer_tpu_torch.utils import rng
 
-CASES = [("cornell_box", None, 32), ("cornell_smoke", 2, 32),
-         ("vol2_final_scene", None, 32), ("vol2_final_scene", 2, 48)]
+# (scene, sample stride, width, node width of the BVH)
+CASES = [("cornell_box", None, 32, 4), ("cornell_smoke", 2, 32, 4),
+         ("vol2_final_scene", None, 32, 4), ("vol2_final_scene", 2, 48, 4),
+         ("cornell_smoke", 2, 32, 8), ("vol2_final_scene", None, 32, 8)]
 
 
-def _setup(name, width, device):
+def _setup(name, width, device, branching=4):
     kw = {"sphere_cluster": 20} if name == "vol2_final_scene" else {}
     world, cam = getattr(ptt.scenes, name)(**kw)
     height = width * 9 // 16
     cam.img_width, cam.aspect_ratio = width, width / height
     scene = ptt.compile_scene(world, device=device)
-    return (scene, SceneFlags.from_scene(scene), ptt.build_from_scene(scene),
+    return (scene, SceneFlags.from_scene(scene),
+            ptt.build_from_scene(scene, branching),
             cam.initialize(device=device),
             RenderConfig(width=width, height=height, samples_per_pixel=2,
                          max_depth=10))
@@ -59,13 +62,15 @@ def _run(setup, stride, ops=None, plain=False):
     return eng, ws
 
 
-@pytest.mark.parametrize("name,stride,width", CASES,
-                         ids=[f"{c[0]}-stride{c[1] or 1}-w{c[2]}" for c in CASES])
-def test_kernel_sources_on_cpu_match_twins(name, stride, width):
+@pytest.mark.parametrize("name,stride,width,branching", CASES,
+                         ids=[f"{c[0]}-stride{c[1] or 1}-w{c[2]}"
+                              + ("-k8" if c[3] == 8 else "") for c in CASES])
+def test_kernel_sources_on_cpu_match_twins(name, stride, width, branching):
     if shutil.which("g++") is None and shutil.which("c++") is None:
         pytest.skip("no host C++ compiler")
     ops, _ = kernels.host_emulation_ops()
-    setup = _setup(name, width, "cpu")
+    setup = _setup(name, width, "cpu", branching)
+    assert setup[2].branching == branching
     eng, a = _run(setup, stride, plain=True)
     _, b = _run(setup, stride, ops=ops)
     total = eng.items_total

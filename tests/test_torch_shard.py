@@ -4,10 +4,11 @@
   donor duplicate for an empty shard, the ``-1`` medium pad rows, and the
   padded BVH rows (inverted boxes, empty child pointers), for 2 and 4
   shards at branching 4 and 8, and a 4-way deal that leaves shards empty.
-* ``render_tp`` and ``render_pp`` on 2 gloo ranks against JAX's on a
-  2-device virtual mesh, on the scene of ``tests/test_sharding.py:_setup``
-  and on its medium scene (``:217-241``), atol 1e-5 (the JAX suite's
-  limit for these modes against the replicated render).
+* ``render_tp`` and ``render_pp`` on 2 gloo ranks (shards' BVHs of 4- and
+  8-wide nodes) against JAX's on a 2-device virtual mesh, on the scene of
+  ``tests/test_sharding.py:_setup`` and on its medium scene
+  (``:217-241``), atol 1e-5 (the JAX suite's limit for these modes
+  against the replicated render).
 * ``render_dp_tp`` on 4 ranks (2x2) against JAX's on a 2x2 mesh, atol 1e-5.
 
 The rank processes import only the port (``tests/torch_ranks.py``).
@@ -115,18 +116,21 @@ def test_shard_scene_matches_jax(scene_name, n_shards, branching):
 # render_tp, render_pp, render_dp_tp on gloo ranks.
 # ---------------------------------------------------------------------------
 
-TWO_RANK_JOBS = (("tp", "setup", 5), ("pp", "setup", 13), ("tp", "medium", 17),
-                 ("pp", "medium", 17))
+# (mode, world, seed, node width of the shards' BVHs)
+TWO_RANK_JOBS = (("tp", "setup", 5, 4), ("pp", "setup", 13, 4),
+                 ("tp", "medium", 17, 4), ("pp", "medium", 17, 4),
+                 ("tp", "medium", 17, 8), ("pp", "setup", 13, 8))
 
 
 @pytest.fixture(scope="module")
 def two_ranks():
     worlds = {"setup": _setup_world, "medium": _medium_world}
-    jobs = [_job(n, worlds[w](), seed) for n, w, seed in TWO_RANK_JOBS]
+    jobs = [_job(n, worlds[w](), seed, branching=k)
+            for n, w, seed, k in TWO_RANK_JOBS]
     return tr.run_ranks(2, jobs)
 
 
-def _jax_mode(mode, world, seed, mesh_shape):
+def _jax_mode(mode, world, seed, mesh_shape, branching=4):
     scene, flags, _, cam = _compiled(world)
     key = jax.random.key(seed)
     if mode == "dp_tp":
@@ -136,7 +140,7 @@ def _jax_mode(mode, world, seed, mesh_shape):
         return jss.render_dp_tp(sc, flags, bv, cam, JCfg(**CFG), key, mesh,
                                 spp=CFG["samples_per_pixel"])
     axis = "t" if mode == "tp" else "p"
-    sc, bv = jss.shard_scene(scene, 2)
+    sc, bv = jss.shard_scene(scene, 2, branching)
     fn = jss.render_tp if mode == "tp" else jpp.render_pp
     return fn(sc, flags, bv, cam, JCfg(**CFG), key,
               jrd.make_mesh(2, axis=axis), spp=CFG["samples_per_pixel"],
@@ -144,11 +148,12 @@ def _jax_mode(mode, world, seed, mesh_shape):
 
 
 @pytest.mark.parametrize("job", range(len(TWO_RANK_JOBS)),
-                         ids=[f"{n}-{w}" for n, w, _ in TWO_RANK_JOBS])
+                         ids=[f"{n}-{w}" + ("-k8" if k == 8 else "")
+                              for n, w, _, k in TWO_RANK_JOBS])
 def test_two_rank_modes_match_jax(two_ranks, job):
-    mode, world, seed = TWO_RANK_JOBS[job]
+    mode, world, seed, branching = TWO_RANK_JOBS[job]
     build = _setup_world if world == "setup" else _medium_world
-    ref = np.asarray(_jax_mode(mode, build(), seed, None))
+    ref = np.asarray(_jax_mode(mode, build(), seed, None, branching))
     imgs = [two_ranks[r][job]["image"] for r in range(2)]
     assert imgs[0].shape == (CFG["height"], CFG["width"], 3)
     assert np.array_equal(imgs[0], imgs[1])        # every rank holds the frame

@@ -325,11 +325,19 @@ def test_lane_kernels_match_plain_on_card(cuda_device):
 
 
 def test_lane_kernels_refuse_a_bvh8():
-    """The CUDA walk reads BVH4 rows: a BVH8 (shard_scene's branching=8) is
-    refused before any pointer is taken, as the wave kernels refuse it."""
+    """The node-width check of the lane kernels' argument blocks: a BVH8
+    (shard_scene's branching=8) is taken like a BVH4, its width carried to
+    the launchers; any other width is refused before a pointer is taken."""
     _, (ts, tf, tb, tc, tcfg) = _both(*_world_all_materials(), 16, 4)
     bvh8 = ptt.build_from_scene(ts, branching=8)
-    with pytest.raises(ValueError, match="BVH4"):
-        kernels.query_args(bvh8, tcfg.t_max, 8)
-    with pytest.raises(ValueError, match="BVH4"):
-        it.TiledEngine(ts, tf, bvh8, tc, tcfg, torch.tensor([0, 1])).args()
+    key = torch.tensor([0, 1])
+    for bvh, k in ((tb, 4), (bvh8, 8)):
+        a = kernels.query_args(bvh, tcfg.t_max, 8)
+        assert (a.branching, a.nodes) == (k, bvh.nodes.data_ptr())
+        e = it.TiledEngine(ts, tf, bvh, tc, tcfg, key).args()
+        assert (e.branching, e.nodes) == (k, bvh.nodes.data_ptr())
+    bvh16 = dataclasses.replace(bvh8, branching=16)
+    with pytest.raises(ValueError, match="node widths"):
+        kernels.query_args(bvh16, tcfg.t_max, 8)
+    with pytest.raises(ValueError, match="node widths"):
+        it.TiledEngine(ts, tf, bvh16, tc, tcfg, key).args()

@@ -1,5 +1,5 @@
-"""Suspended BVH4 traversal: the port's twin against the JAX walk and the
-brute-force oracle.
+"""Suspended BVH traversal (BVH4 and BVH8 rows): the port's twin against the
+JAX walk and the brute-force oracle.
 
 ``traversal_steps_batched`` is resumable state; after any number of steps
 the port's integer state (node pointer, stack pointer, best prim) must equal
@@ -22,16 +22,17 @@ import path_tracer_tpu as pt
 from path_tracer_tpu.ops import traverse as jtr
 from path_tracer_tpu_torch import interop
 from path_tracer_tpu_torch.ops import traverse as ttr
+from path_tracer_tpu_torch.ops.types import bvh_layout
 
 R = 512
 T_MIN, T_MAX = 1e-3, 1e9
 
 
-def _scene(name):
+def _scene(name, branching=4):
     kw = {"sphere_cluster": 50} if name == "vol2_final_scene" else {}
     world, _cam = getattr(pt.scenes, name)(**kw)
     scene = pt.compile_scene(world)
-    bvh = pt.build_from_scene(scene)
+    bvh = pt.build_from_scene(scene, branching=branching)
     return scene, bvh, interop.from_numpy_scene(scene, "cpu"), \
         interop.from_numpy_bvh(bvh, "cpu")
 
@@ -48,10 +49,12 @@ def _rays(seed, lo, hi):
 BOUNDS = {"cornell_box": (5.0, 550.0), "vol2_final_scene": (-100.0, 600.0)}
 
 
+@pytest.mark.parametrize("branching", [4, 8])
 @pytest.mark.parametrize("name", ["cornell_box", "vol2_final_scene"])
 @pytest.mark.parametrize("k", [1, 5, 40])
-def test_steps_match_jax(name, k):
-    scene, bvh, tscene, tbvh = _scene(name)
+def test_steps_match_jax(name, k, branching):
+    scene, bvh, tscene, tbvh = _scene(name, branching)
+    assert tbvh.branching == bvh.branching == branching
     ro, rd, time = _rays(k, *BOUNDS[name])
     tmin = np.full(R, T_MIN, np.float32)
     js = jtr.traversal_init_batched(bvh, jnp.asarray(ro), jnp.asarray(rd),
@@ -77,7 +80,8 @@ def test_steps_match_jax(name, k):
     jst = np.asarray(js.stack)
     live = np.arange(jst.shape[1])[None, :] < np.asarray(js.sp)[:, None]
     np.testing.assert_array_equal(ts.stack.numpy()[live], jst[live])
-    extent = np.float32(np.abs(np.asarray(bvh.nodes)[:, :24]).max())
+    boxes = bvh_layout(branching)[0]
+    extent = np.float32(np.abs(np.asarray(bvh.nodes)[:, :boxes]).max())
     np.testing.assert_allclose(ts.best_t.numpy(), np.asarray(js.best_t),
                                rtol=1e-6, atol=np.spacing(extent))
 
@@ -127,3 +131,36 @@ def test_single_prim_root_leaf():
         np.testing.assert_array_equal(getattr(ts, f).numpy(),
                                       np.asarray(getattr(js, f)), err_msg=f)
     assert ts.best_pt.tolist() == [0, -1, 0, -1]
+
+
+def test_bvh8_closest_hits_match_jax():
+    """The twin's per-ray walk over a BVH8 against JAX ``traverse_bvh`` on
+    ``tests/test_bvh.py``'s random scene and rays (``test_bvh8_matches_bvh4``):
+    the same hit and primitive on every ray, ``t`` within that test's
+    tolerance (rtol = atol = 1e-5).  The rays' directions are not unit
+    vectors there, so XLA's fused multiply-adds move ``t`` by more than in
+    the step test (measured: 29 of 512 rays beyond rtol 1e-6 + one ulp of
+    the extent, at most 1.7e-5 absolute, 1.4e-5 relative)."""
+    from test_bvh import _random_scene
+
+    g = np.random.default_rng(42)
+    scene = _random_scene(g)
+    bvh = pt.build_from_scene(scene, branching=8)
+    tbvh = interop.from_numpy_bvh(bvh, "cpu")
+    assert tbvh.branching == 8 and tuple(tbvh.nodes.shape)[1] == 184
+    ro = g.uniform(-20, 20, (R, 3)).astype(np.float32)
+    rd = (g.uniform(-8, 8, (R, 3)) - ro).astype(np.float32)
+    time = np.zeros(R, np.float32)
+    jf, jpt, jpi, jt = jax.jit(jax.vmap(lambda o, d, t: jtr.traverse_bvh(
+        bvh, o, d, t, T_MIN, T_MAX, 64)))(jnp.asarray(ro), jnp.asarray(rd),
+                                          jnp.asarray(time))
+    f, bpt, bpi, bt = ttr.traverse_bvh(tbvh, torch.from_numpy(ro),
+                                       torch.from_numpy(rd),
+                                       torch.from_numpy(time), T_MIN, T_MAX,
+                                       64)
+    np.testing.assert_array_equal(f.numpy(), np.asarray(jf))
+    assert f.sum() > 50
+    np.testing.assert_array_equal(bpt.numpy(), np.asarray(jpt))
+    np.testing.assert_array_equal(bpi.numpy(), np.asarray(jpi))
+    np.testing.assert_allclose(bt.numpy(), np.asarray(jt), rtol=1e-5,
+                               atol=1e-5)

@@ -86,7 +86,7 @@ def _run_job(job, world: int) -> dict:
     if name in ("tp", "pp"):
         axis = "t" if name == "tp" else "p"
         mesh = par.make_mesh(world, axis)
-        sc_s, bv_s = par.shard_scene(scene, world)
+        sc_s, bv_s = par.shard_scene(scene, world, job.get("branching", 4))
         fn = par.render_tp if name == "tp" else par.render_pp
         return {"image": fn(sc_s, flags, bv_s, cam, cfg, key, mesh, spp=spp,
                             axis=axis).numpy()}
