@@ -20,7 +20,10 @@ Phases (each prints its own line; any failure exits non-zero):
                 on a mid-flight wave state of mesh_perlin_sss at 400x225,
                 and K5 against its twin on one 400x225 sample of it: both
                 run the SSS walk there; time each (CUDA events, median of
-                25 launches).
+                25 launches, host launch work included), and K4 and P0
+                with their library calls (index_add_, index_select) in
+                device ms per call: 20 calls captured in one CUDA graph
+                and replayed.
 4. main       — render vol2_final_scene(sphere_cluster=1000) at 800x450,
                 10 spp, depth 10 through Renderer(engine="wavefront") (K1-K4
                 in the device wave loop) after a warm-up; print wall time,
@@ -107,7 +110,11 @@ Phases (each prints its own line; any failure exits non-zero):
                 2x2 grid on vol2_final at 400x225.
 11. the JSON kernel table (every kernel, then every instantiation timed in
     phases 9b-9c: ``<kernel>_k8``, ``<kernel>_k4_global``, with its ptxas
-    registers, stack frame and spills), then the JSON result line.
+    registers, stack frame and spills, and ``device_ms``, its device time
+    per launch: a kernel of a profiled frame, its device time there over
+    its runs; any other, launches queued behind a spin kernel and timed
+    with CUDA events where it is timed, or the CUDA graph above), then the
+    JSON result line.
 
 Phase 3 also holds the tiled engine's kernels against their plain
 versions: K7 (closest_hit), K8 (tiled_trip) and the tiled spawn on every
@@ -120,8 +127,9 @@ them just after; the table's ``launches`` come from those runs.  Every
 frame profiled under torch.profiler must show, for each kernel, as many
 runs as its wrapper counted (``profile_run``): the counts of launches that
 a CUDA graph replays are measured, not only derived from the waves run.  The build
-phase also holds K3 and K5 at their recorded ptxas resources
-(``PTXAS_EXPECT``): K6's recorder must compile to nothing in them.
+phase also holds K3, K5, K1 and K4 at their recorded ptxas resources
+(``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3 and K5),
+and prints K1's global loads by width from its SASS (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
@@ -172,6 +180,9 @@ KERNELS = {
 }
 TILED_KERNELS = ("closest_hit", "tiled_trip", "tiled_spawn")
 STATE_BYTES = 61                # one lane's path state (PathState)
+N_GRAPH = 20                    # calls per CUDA graph in graph_ms
+SPIN_CYCLES = 50_000_000        # device_ms's spin kernel, which lasts at
+SPIN_MS_MIN = 10.0              # least this long (50M cycles at <= 5 GHz)
 REFINE_OPS = 150                # refine_hit of one primitive
 WAVE_KERNELS = ("trace_step", "spawn", "shade", "retire")
 LOOP_KERNELS = WAVE_KERNELS + ("wave_loop",)   # the frame in the device loop
@@ -189,8 +200,11 @@ STEP_OPS = {4: 220, 8: 440}
 # the bound, not part of it.
 FULL_SWEEP_OPS = BOUNCE_OPS
 FULL_WALK_OPS = WALK_TRIP_OPS
-# (registers, stack frame bytes) of K3 and K5 as recorded in PERF.md (Findings)
-PTXAS_EXPECT = {"shade": (110, 104), "megakernel": (112, 368)}
+# (registers, stack frame bytes) of K3, K5, K1 and K4 as recorded in PERF.md
+# (Findings); a key names a kernel or one of its INSTANCES
+PTXAS_EXPECT = {"shade": (110, 104), "megakernel_k4": (112, 368),
+                "trace_step_k4": (127, 0), "trace_step_k8": (158, 0),
+                "retire": (24, 0)}
 
 
 def phase(name, msg):
@@ -310,6 +324,66 @@ def cuda_ms(fn, reps=25, setup=None):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def graph_ms(calls, restore=None, reps=5):
+    """Device ms per call: ``calls`` (each one launch or library call)
+    captured in one CUDA graph and replayed, the replay timed with CUDA
+    events and divided by their number (``restore`` untimed before each
+    replay); median of ``reps``.  No host launch work is inside."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for c in calls:
+            c()
+    times = []
+    for _ in range(reps):
+        if restore is not None:
+            restore()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / len(calls))
+    return statistics.median(times)
+
+
+def device_ms(fn, setup=None, n=10):
+    """Device ms per call of ``fn`` (one kernel launch): ``n`` calls queued
+    behind a spin kernel, so that the host has queued them all before the
+    first runs, timed with CUDA events (were the host still queueing when
+    a 64-fold spin ended, host gaps would be in it: an upper bound);
+    ``setup`` (run before each call) is timed alone the same way and taken
+    off."""
+    def queued(step):
+        spin = SPIN_CYCLES
+        for _ in range(4):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(spin)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            e1.record()
+            torch.cuda.synchronize()
+            dev = e0.elapsed_time(e1)
+            if host_ms < SPIN_MS_MIN * spin / SPIN_CYCLES:
+                return dev / n
+            spin *= 4            # the host was not done before the spin ended
+        return dev / n           # host gaps included: an upper bound
+
+    def both():
+        setup()
+        fn()
+
+    if setup is None:
+        return queued(fn)
+    return queued(both) - queued(setup)
 
 
 def ptxas_resources(log, name, targs=None):
@@ -589,15 +663,25 @@ def main() -> int:
                 phase("build", f"{n}: {line.strip()}")
     ptxas = {}
     for n, want in PTXAS_EXPECT.items():
-        if n not in kernels.BUILD_LOG:
+        kern, targs = INSTANCES.get(n, (n, None))
+        src = kernels.SOURCE_OF[kern]
+        if src not in kernels.BUILD_LOG:
             phase("build", f"{n}: built earlier in this process, not checked")
             continue
-        got = ptxas_resources(kernels.BUILD_LOG[n], n,
-                              INSTANCES["megakernel_k4"][1]
-                              if n == "megakernel" else None)[:2]
+        got = ptxas_resources(kernels.BUILD_LOG[src], kern, targs)[:2]
         phase("build", f"{n}: (registers, stack frame) {got}, recorded {want} "
               f"{'PASS' if got == want else 'FAIL'}")
         assert got == want, f"{n} ptxas resources changed: {got} != {want}"
+    # K1 reads its node rows in 16-byte loads: its global loads by width.
+    k1_loads = {}
+    sass = kernels.sass_global_loads(kernels.library_path("trace_step"))
+    for inst in ("trace_step_k4", "trace_step_k8"):
+        tag = "_Z17trace_step_kernel" + mangled_targs(INSTANCES[inst][1])
+        k1_loads[inst] = next(v for f, v in sass.items() if f.startswith(tag))
+        phase("build", f"{inst}: global loads in its SASS (cuobjdump -sass): "
+              f"{k1_loads[inst].get(128, 0)} of 16 bytes, "
+              f"{k1_loads[inst].get(32, 0)} of 4 bytes, all by bits "
+              f"{dict(sorted(k1_loads[inst].items()))}")
     for n in ("tiled_trip", "tiled_trip_rec", "tiled_spawn"):
         src = kernels.SOURCE_OF[n]
         if src in kernels.BUILD_LOG:
@@ -750,13 +834,29 @@ def main() -> int:
     src = snap.color[retire_m]
     lib_acc = snap.accum.clone()
     lms = cuda_ms(lambda: lib_acc.index_add_(0, idx, src))
+    # Device time per call without the host's launch work: N_GRAPH
+    # launches of K4 on as many copies of the state, and N_GRAPH index_add_
+    # calls, each set captured in one CUDA graph.
+    copies = [snap.clone() for _ in range(N_GRAPH)]
+    c_args = [kernels.make_args(eng, c) for c in copies]
+    dev_ms = graph_ms([lambda c=c, a_=a_: kernels.launch("retire", eng, c,
+                                                         args=a_)
+                       for c, a_ in zip(copies, c_args)],
+                      lambda: [restore(c, snap) for c in copies])
+    accs = [snap.accum.clone() for _ in range(N_GRAPH)]
+    lib_dev_ms = graph_ms([lambda acc=acc: acc.index_add_(0, idx, src)
+                           for acc in accs])
+    del copies, c_args, accs
     byts = n_fin * (4 + 12 + 4 * 5) + int(retire_m.sum()) * 24
     ops = n_fin * 10
     results["retire"] = dict(ok=ok, err=err, ms=ms, plain_ms=pms, bytes=byts,
-                             ops=ops, library_ms=lms)
+                             ops=ops, library_ms=lms, graph_device_ms=dev_ms,
+                             library_device_ms=lib_dev_ms)
     phase("kernels", f"retire: {n_fin} finished, accum max abs err {err:.2e}, "
-          f"counters/hist exact {ok}, {ms:.3f} ms (twin {pms:.2f} ms, "
-          f"index_add_ {lms:.3f} ms) {'PASS' if ok else 'FAIL'}")
+          f"counters/hist exact {ok}, {ms:.4f} ms (twin {pms:.2f} ms, "
+          f"index_add_ {lms:.4f} ms); device ms per call in a CUDA graph of "
+          f"{N_GRAPH}: K4 {dev_ms:.5f}, index_add_ {lib_dev_ms:.5f} "
+          f"{'PASS' if ok else 'FAIL'}")
 
     # K2 spawn, on the retired state; compare per work item (slot order differs)
     snap = k4.clone()
@@ -811,13 +911,18 @@ def main() -> int:
     gms = cuda_ms(lambda: gather.gather_rows(gtab, gidx))
     gpms = cuda_ms(lambda: gather.gather_rows_plain(gtab, gidx))
     glms = cuda_ms(lambda: torch.index_select(gtab, 0, gidx))
+    g_dev = graph_ms([lambda: gather.gather_rows(gtab, gidx)] * N_GRAPH)
+    gl_dev = graph_ms([lambda: torch.index_select(gtab, 0, gidx)] * N_GRAPH)
     results["gather_rows"] = dict(
         ok=g_ok, err=gerr, ms=gms, plain_ms=gpms, library_ms=glms, ops=0,
-        bytes=gtab.numel() * 4 + gidx.numel() * 4 + glib.numel() * 4)
+        bytes=gtab.numel() * 4 + gidx.numel() * 4 + glib.numel() * 4,
+        device_ms=g_dev, library_device_ms=gl_dev)
     phase("kernels", f"gather_rows: (512, 80) table, 16384 random rows, equal "
           f"to index_select {g_ok}, {gms:.4f} ms (plain {gpms:.4f} ms, "
           f"index_select {glms:.4f} ms, bound "
-          f"{results['gather_rows']['bytes'] / H100_BYTES_PER_S * 1e3:.5f} ms) "
+          f"{results['gather_rows']['bytes'] / H100_BYTES_PER_S * 1e3:.5f} ms); "
+          f"device ms per call in a CUDA graph of {N_GRAPH}: gather_rows "
+          f"{g_dev:.5f}, index_select {gl_dev:.5f} "
           f"{'PASS' if g_ok else 'FAIL'}")
 
     def mega_pair(meng, w, h):
@@ -1095,6 +1200,8 @@ def main() -> int:
     work9 = tuple(x.clone() for x in carry0)
     ms9 = cuda_ms(lambda: pipeline.ring_hop(keng, *ray, *work9),
                   setup=lambda: restore_state(work9, carry0))
+    dev9 = device_ms(lambda: pipeline.ring_hop(keng, *ray, *work9),
+                     setup=lambda: restore_state(work9, carry0))
     pms9 = cuda_ms(lambda: pipeline.ring_hop_plain(
         keng, *ray, *work9), setup=lambda: restore_state(work9, carry0),
         reps=1)
@@ -1105,6 +1212,7 @@ def main() -> int:
     byts9 = node9 + KL * 33 + n_hit9 * (4 + 64 + 53)
     ops9 = steps9 * 220 + n_hit9 * REFINE_OPS
     results["ring_hop"] = dict(ok=ok9, err=err9, ms=ms9, plain_ms=pms9,
+                               device_ms=dev9,
                                bytes=byts9, ops=ops9, library_ms=None)
     phase("kernels", f"ring_hop: torus knot shard 0 of 2 "
           f"({int(sc_l.tr_valid.sum())} triangles), {KL} camera rays: found "
@@ -1123,12 +1231,16 @@ def main() -> int:
     ms_r = cuda_ms(lambda: itl.tiled_trip(keng, work_r, 0, kpix, hit_r,
                                           rec=kk[2]),
                    setup=lambda: restore_state(work_r, snap_r))
+    dev_r = device_ms(lambda: itl.tiled_trip(keng, work_r, 0, kpix, hit_r,
+                                             rec=kk[2]),
+                      setup=lambda: restore_state(work_r, snap_r))
     pms_r = cuda_ms(lambda: itl.tiled_trip_plain(keng, snap_r, 0, kpix, hit_r,
                                                  rec=kk[2]), reps=1)
     n_live_r = int(snap_r.alive.sum())
     byts_r = (4 * (keng.tabs.mat.numel() + keng.tabs.tex.numel()) + KL
               + n_live_r * (2 * STATE_BYTES + 4 + 1 + 4 * 12))
     results["tiled_trip_rec"] = dict(ok=ok_r, err=err_r, ms=ms_r,
+                                     device_ms=dev_r,
                                      plain_ms=pms_r, bytes=byts_r,
                                      ops=n_live_r * BOUNCE_OPS,
                                      library_ms=None)
@@ -1186,6 +1298,8 @@ def main() -> int:
         scratch = adjoint.grad_buffers(sc_)
         out["ms"] = cuda_ms(lambda: adjoint.adjoint(aeng, ams, samples[0],
                                                     delta, scratch, full))
+        out["device_ms"] = device_ms(lambda: adjoint.adjoint(
+            aeng, ams, samples[0], delta, scratch, full))
         if full:
             out["colour_ms"] = cuda_ms(lambda: adjoint.adjoint(
                 aeng, ams, samples[0], delta, scratch))
@@ -1320,7 +1434,8 @@ def main() -> int:
     results["adjoint_full"] = dict(
         ok=full_ok, err=max(x["err"] for x in full_rows.values()),
         ms=rv["ms"], plain_ms=rv["plain_ms"], bytes=rv["bytes"],
-        ops=rv["ops"], library_ms=None, rows=full_rows)
+        ops=rv["ops"], library_ms=None, rows=full_rows,
+        device_ms=rv["device_ms"])
 
     # The full K6's gradients against central differences of the K5
     # forward (tests/test_grad.py: the solo-sphere and fuzz-plate setups,
@@ -1964,12 +2079,14 @@ def main() -> int:
     work9 = tuple(x.clone() for x in carry0)
     ms9 = cuda_ms(lambda: pipeline.ring_hop(keng8, *ray8, *work9),
                   setup=lambda: restore_state(work9, carry0))
+    dev9 = device_ms(lambda: pipeline.ring_hop(keng8, *ray8, *work9),
+                     setup=lambda: restore_state(work9, carry0))
     pms9 = cuda_ms(lambda: pipeline.ring_hop_plain(keng8, *ray8, *work9),
                    setup=lambda: restore_state(work9, carry0), reps=1)
     n_hit9, steps9 = int(kk[0].sum()), int(c9k[C_TRAV_STEPS])
     inst_rows["ring_hop_k8"] = dict(
         ok=ok9, err=float((kk[2] - kp[2]).abs().max()), ms=ms9,
-        plain_ms=pms9,
+        plain_ms=pms9, device_ms=dev9,
         bytes=bv_l8.nodes.numel() * 4 + KL * 33 + n_hit9 * (4 + 64 + 53),
         ops=steps9 * STEP_OPS[8] + n_hit9 * REFINE_OPS, library_ms=None)
     phase("bvh8", f"ring_hop K=8: torus knot shard 0 of 2, {n_hit9} hits, "
@@ -1989,7 +2106,8 @@ def main() -> int:
         ok_ = r_["rel"] <= 1e-3
         inst_rows[inst] = dict(ok=ok_, err=r_["err"], ms=r_["ms"],
                                plain_ms=r_["plain_ms"], bytes=r_["bytes"],
-                               ops=r_["ops"], library_ms=None)
+                               ops=r_["ops"], library_ms=None,
+                               device_ms=r_["device_ms"])
         phase("bvh8", f"{inst}: vol2_final 800x450 one sample, K6 vs plain "
               f"rel L2 {r_['rel']:.2e}, {r_['ms']:.3f} ms (bound "
               f"{bound_ms(r_['bytes'], r_['ops']):.5f} ms; traversal steps "
@@ -2331,6 +2449,7 @@ def main() -> int:
     results["adjoint"] = dict(ok=ok6, err=r6["err"], ms=r6["ms"],
                               plain_ms=r6["plain_ms"], bytes=r6["bytes"],
                               ops=r6["ops"], library_ms=None,
+                              device_ms=r6["device_ms"],
                               small=adj_rows, full=r6)
     phase("kernels", f"adjoint: cornell_box 800x800 one sample: K6 vs plain "
           f"rel L2 {r6['rel']:.2e} max abs {r6['err']:.2e}, {r6['ms']:.3f} ms "
@@ -2405,8 +2524,9 @@ def main() -> int:
                       "ctr")))
         ms_d = cuda_ms(lambda: integrator.megakernel(meng_d, md, 0))
         ms_l = cuda_ms(lambda: integrator.megakernel(meng_l, ml, 0))
+        dev_d = device_ms(lambda: integrator.megakernel(meng_d, md, 0))
         base = results["megakernel"] if k_ == 4 else inst_rows["megakernel_k8"]
-        inst_rows[inst] = dict(ok=eq, err=0.0, ms=ms_d,
+        inst_rows[inst] = dict(ok=eq, err=0.0, ms=ms_d, device_ms=dev_d,
                                plain_ms=base["plain_ms"], bytes=base["bytes"],
                                ops=base["ops"], library_ms=None, launches=n_)
         deep_ms[inst] = dict(ms=ms_d, local_ms=ms_l)
@@ -2436,8 +2556,11 @@ def main() -> int:
             bv_w, *qa, cfg.stack_depth, active=stl.alive))
         pms_d = cuda_ms(lambda: itl.closest_hit_plain(
             bv_d, *qa, DEEP, active=stl.alive), reps=1)
+        dev_d = device_ms(lambda: itl.closest_hit_batched(
+            bv_d, *qa, DEEP, active=stl.alive))
         inst_rows[inst] = dict(
             ok=eq, err=0.0, ms=ms_d, plain_ms=pms_d, launches=n_,
+            device_ms=dev_d,
             bytes=bv_w.nodes.numel() * 4 + NL * 14 + int(stl.alive.sum()) * 32,
             ops=int(c_d[C_TRAV_STEPS]) * STEP_OPS[k_], library_ms=None)
         deep_ms[inst] = dict(ms=ms_d, local_ms=ms_l)
@@ -2466,12 +2589,14 @@ def main() -> int:
             outs.append((carry_q, c_q, cuda_ms(
                 lambda: pipeline.ring_hop(keng_q, *ray_q, *work_q),
                 setup=lambda: restore_state(work_q, carry0))))
+        dev_d = device_ms(lambda: pipeline.ring_hop(keng_q, *ray_q, *work_q),
+                          setup=lambda: restore_state(work_q, carry0))
         inst = f"ring_hop_k{k_}_global"
         eq = (n_ == 1 and torch.equal(outs[0][1], outs[1][1])
               and all(torch.equal(x_, y_)
                       for x_, y_ in zip(outs[0][0], outs[1][0])))
         base = results["ring_hop"] if k_ == 4 else inst_rows["ring_hop_k8"]
-        inst_rows[inst] = dict(ok=eq, err=0.0, ms=outs[1][2],
+        inst_rows[inst] = dict(ok=eq, err=0.0, ms=outs[1][2], device_ms=dev_d,
                                plain_ms=base["plain_ms"], bytes=base["bytes"],
                                ops=base["ops"], library_ms=None, launches=n_)
         deep_ms[inst] = dict(ms=outs[1][2], local_ms=outs[0][2])
@@ -2504,6 +2629,8 @@ def main() -> int:
                 gs.append((torch.cat([x.flatten() for x in g_q]), cuda_ms(
                     lambda: adjoint.adjoint(eng_q, ms_q, 0, delta6, scratch,
                                             full), reps=5)))
+            dev_d = device_ms(lambda: adjoint.adjoint(eng_q, ms_q, 0, delta6,
+                                                      scratch, full))
             rel = float((gs[1][0] - gs[0][0]).norm()
                         / gs[0][0].norm().clamp(min=1e-30))
             ok_ = rel <= 1e-5 and n_ == 1
@@ -2511,6 +2638,7 @@ def main() -> int:
                     inst_rows["adjoint_full_k8" if full else "adjoint_k8"])
             inst_rows[inst] = dict(ok=ok_, err=float(
                 (gs[1][0] - gs[0][0]).abs().max()), ms=gs[1][1],
+                device_ms=dev_d,
                 plain_ms=base["plain_ms"], bytes=base["bytes"],
                 ops=base["ops"], library_ms=None, launches=n_)
             deep_ms[inst] = dict(ms=gs[1][1], local_ms=gs[0][1])
@@ -2540,6 +2668,7 @@ def main() -> int:
         r_.pop("grads")
     inst_rows["adjoint_k4_global"] = dict(
         ok=ok60, err=r60["err"], ms=r60["ms"], plain_ms=r60["plain_ms"],
+        device_ms=r60["device_ms"],
         bytes=r60["bytes"], ops=r60["ops"], library_ms=None, launches=n60)
     phase("stack-train", f"cornell_box 800x800 4 spp max_depth 60 "
           f"({cf_60.iters} trips): paths_done == paths_total, finite gradients, K6 (tape "
@@ -2716,6 +2845,22 @@ def main() -> int:
         results[n] = r_
         if "launches" in r_:
             launches[n] = r_["launches"]
+    # Device ms per launch: a kernel of a profiled frame, its device time
+    # there over its runs (the K = 8 rows: the K = 8 frames); the others as
+    # phase 3 and phases 9b-9c measured them (device_ms, or P0's launches
+    # replayed in a CUDA graph, as its and K4's library calls).
+    frame_dev = {n: rec["main"]["kernel_totals_ms"][n]
+                 / rec["main"]["launches"][n] for n in LOOP_KERNELS}
+    frame_dev["megakernel"] = (rec["main-mega"]["kernel_totals_ms"]["megakernel"]
+                               / rec["main-mega"]["launches"]["megakernel"])
+    for n in TILED_KERNELS:
+        frame_dev[n] = (rec["tiled"]["kernel_totals_ms"][n]
+                        / rec["tiled"]["launches"][n])
+    for inst, engine in (("trace_step_k8", "wavefront"),
+                         ("megakernel_k8", "megakernel"),
+                         ("closest_hit_k8", "tiled")):
+        r8_, n8 = rec8[engine][8], INSTANCES[inst][0]
+        frame_dev[inst] = r8_["device_ms"][n8] / r8_["profiled_launches"][n8]
     table = []
     rows_ = [(n, *v) for n, v in KERNELS.items()] + [
         (n, *KERNELS[INSTANCES[n][0]]) for n in inst_rows]
@@ -2730,7 +2875,11 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": res["library_ms"],
+            "device_ms": frame_dev.get(n, res.get("device_ms")),
+            "library_device_ms": res.get("library_device_ms"),
             "pass": bool(res["ok"]) and launches[n] > 0}
+        if "graph_device_ms" in res:
+            row["graph_device_ms"] = res["graph_device_ms"]
         if n in ptxas:
             row["ptxas"] = list(ptxas[n])
         table.append(row)

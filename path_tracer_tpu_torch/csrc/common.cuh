@@ -77,9 +77,11 @@ struct NodeLayout {
 #define C_DO_CTRL 12
 #define C_N_ACT_END 13
 #define C_STACK_OVF 14
-#define C_N_ACT 15
+#define C_N_ACT_END_B 15
 #define C_WALK_STEPS 16
-#define C_GO 17
+#define C_N_READY_B 17
+#define C_N_WALK_B 18
+#define C_TICKET 19
 
 // Everything a wave kernel reads or writes.  Mirrored field for field by
 // ops/kernels.py:WaveArgs (ctypes); ptt_wave_args_layout() below exports
@@ -208,6 +210,21 @@ __device__ __forceinline__ float bits_as_float(uint32_t b) {
   return f;
 #else
   return __uint_as_float(b);
+#endif
+}
+
+// A 16-byte load of read-only data (the node table), through the
+// read-only data cache on the card.
+#ifdef PTT_HOST_EMULATION
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+#endif
+__device__ __forceinline__ float4 ldg4(const float4* p) {
+#ifdef PTT_HOST_EMULATION
+  return *p;
+#else
+  return __ldg(p);
 #endif
 }
 

@@ -1,7 +1,7 @@
 // CPU build of the kernels' per-slot code, for tests.
 //
 // The CUDA sources keep each kernel's per-slot work in a __device__
-// function (trace_lane, shade_lane, retire_lane, spawn_lane, mega_pixel,
+// function (walk_chunk, shade_lane, retire_lane, spawn_lane, mega_pixel,
 // adjoint_pixel, adjoint_pixel_full, closest_hit_lane, ring_hop_lane,
 // tiled_lane) and only the grid plumbing in the __global__ wrapper.
 // Compiled by a host C++ compiler with PTT_HOST_EMULATION defined, the same
@@ -17,6 +17,9 @@
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <algorithm>
+#include <vector>
 #define __device__
 #define __host__
 #define __forceinline__ inline
@@ -44,21 +47,27 @@ static bool walk_args_ok(const WaveArgs* a, bool global) {
 }
 
 // K1: the wave's chunks in order, each a loop over the slots and then the
-// epilogue that block 0 runs between the kernel's two grid barriers.
+// bookkeeping that the kernel's blocks do after its grid barrier, as one
+// block.
 template <int K>
 static void emu_trace_step_k(WaveArgs* a) {
-  if (!wave_runs(*a, true)) return;
-  for (int i = 0; i < a->steps; i += a->chunk) {
+  if (!wave_runs(*a, true) || a->steps <= 0) return;
+  ChunkSeen seen{};
+  long long last[3] = {0, 0, 0};
+  int q = 0;
+  for (int i = 0;; i += a->chunk, ++q) {
     ChunkCount n{0, 0, 0, 0, 0};
-    for (int lane = 0; lane < a->R; ++lane) trace_lane<K>(*a, lane, n);
-    a->ctr[C_N_ACT] += n.act;
-    a->ctr[C_N_ACT_END] += n.act_end;
-    a->ctr[C_N_READY] += n.ready;
-    a->ctr[C_N_WALK] += n.walk;
-    a->ctr[C_STACK_OVF] += n.ovf;
-    chunk_epilogue(*a, i);
-    if (a->ctr[C_GO] == 0) break;
+    for (int lane = 0; lane < a->R; ++lane) {
+      LaneState s;
+      load_lane(*a, lane, s);
+      walk_chunk<K>(*a, lane, s, n);
+      store_lane(*a, lane, s);
+    }
+    chunk_commit(*a, q & 1, n);
+    if (!chunk_go(*a, q, i, seen, last)) break;
   }
+  wave_epilogue(*a, last[1], last[2], q + 1);
+  chunk_close(*a, 1);
 }
 
 extern "C" int emu_trace_step(WaveArgs* a) {
@@ -73,9 +82,25 @@ extern "C" int emu_shade(WaveArgs* a) {
   return 0;
 }
 
+// K4: the slots in blocks of the kernel's size, each block's counts summed
+// and committed as the kernel's block does it.
 extern "C" int emu_retire(WaveArgs* a) {
   if (a->ctr[C_DO_CTRL] == 0) return 0;
-  for (int i = 0; i < a->R; ++i) retire_lane(*a, i);
+  std::vector<int> hist(a->max_depth + 1);
+  for (int b0 = 0; b0 < a->R; b0 += PTT_RETIRE_BLOCK) {
+    RetireTotals t{0, 0, 0, 0};
+    std::fill(hist.begin(), hist.end(), 0);
+    for (int i = b0; i < a->R && i < b0 + PTT_RETIRE_BLOCK; ++i) {
+      const RetireCount n = retire_lane(*a, i);
+      t.done += n.done;
+      t.rays += n.rays;
+      t.depth_sum += (int)n.depth_sum;
+      t.freed += n.freed;
+      if (n.bin >= 0) ++hist[n.bin];
+    }
+    retire_commit_hist(*a, hist.data(), 0, 1);
+    retire_commit_totals(*a, t);
+  }
   return 0;
 }
 

@@ -42,6 +42,7 @@ import dataclasses
 import hashlib
 import itertools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -173,6 +174,37 @@ def build(verbose: bool = False) -> dict:
     return secs
 
 
+def library_path(source: str) -> str:
+    """The built library of ``source`` (e.g. ``"trace_step"``)."""
+    return os.path.join(BUILD_DIR, f"{source}-{_source_hash()}.so")
+
+
+def sass_global_loads(so: str) -> dict:
+    """Global loads by width in the kernels of the library ``so``, from
+    ``cuobjdump -sass``: ``{kernel: {bits: n}}`` with bits 8, 16, 32, 64
+    or 128 per ``LDG`` instruction."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                         check=True).stdout
+    loads: dict = {}
+    fn = None
+    for line in out.splitlines():
+        text = line.strip()
+        if text.startswith("Function :"):
+            fn = text.split(":", 1)[1].strip()
+            loads[fn] = collections.Counter()
+            continue
+        m = re.search(r"\bLDG(?:\.[A-Z0-9]+)*\b", text)
+        if fn is None or m is None:
+            continue
+        parts = m.group(0).split(".")[1:]
+        bits = (128 if "128" in parts else 64 if "64" in parts
+                else 16 if {"U16", "S16"} & set(parts)
+                else 8 if {"U8", "S8"} & set(parts) else 32)
+        loads[fn][bits] += 1
+    return {f: dict(c) for f, c in loads.items()}
+
+
 def library(name: str):
     """The built library of kernel ``name`` (builds on first use)."""
     if name not in _LIBS:
@@ -237,6 +269,9 @@ def _fill_bvh(a: WaveArgs, bvh, sd: int, root: int) -> None:
     if bvh.branching not in BRANCHINGS:
         raise ValueError(f"the CUDA traversal takes node widths {BRANCHINGS}, "
                          f"not {bvh.branching}")
+    if bvh.nodes.data_ptr() % 16:
+        raise ValueError("the node table must start on a 16-byte boundary: "
+                         "K1 reads its rows in 16-byte loads")
     a.branching = bvh.branching
     a.nodes = _ptr(bvh.nodes)
     a.prims = _ptr(bvh.prims)

@@ -220,13 +220,15 @@ C_CTRLS = 5        # waves that ran the control kernels
 C_OCC_SUM = 6      # Σ occupied slots over waves
 C_TRAV_STEPS = 7   # walking-lane traversal steps
 C_EXEC_STEPS = 8   # traversal steps the waves ran (chunks run x chunk)
-C_N_READY = 9      # per-chunk scratch (trace_step)
-C_N_WALK = 10      # per-chunk scratch (trace_step)
+C_N_READY = 9      # K1 chunk scratch, buffer 0: ready occupied slots
+C_N_WALK = 10      # K1 chunk scratch, buffer 0: walking occupied slots
 C_N_OCC = 11       # occupied slots now
 C_DO_CTRL = 12     # this wave runs the control kernels
-C_N_ACT_END = 13   # per-chunk scratch: lanes walking at the chunk's end
+C_N_ACT_END = 13   # K1 chunk scratch, buffer 0: lanes walking at a chunk's end
 C_STACK_OVF = 14   # pushes dropped at a full stack (must stay 0)
-C_N_ACT = 15       # per-chunk scratch: lanes walking at the chunk's start
+C_N_ACT_END_B = 15  # K1 chunk scratch, buffer 1 (as C_N_ACT_END)
 C_WALK_STEPS = 16  # SSS-volumetric walking trips of kept lanes (B6)
-C_GO = 17          # the wave's next trace_step chunk runs (adaptive exit)
-N_COUNTERS = 18
+C_N_READY_B = 17   # K1 chunk scratch, buffer 1 (as C_N_READY)
+C_N_WALK_B = 18    # K1 chunk scratch, buffer 1 (as C_N_WALK)
+C_TICKET = 19      # K1: blocks done with the wave (clears the scratch)
+N_COUNTERS = 20

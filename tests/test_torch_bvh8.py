@@ -17,9 +17,10 @@ and walking kernels, against the JAX package and the twins.
   ``adjoint_pixel_full``), K7 (``closest_hit_lane``) and K9
   (``ring_hop_lane``) at K = 8, built by g++ (``csrc/host_emulation.cpp``),
   against their twins, with the tolerances of the BVH4 tests of the same
-  code (``tests/test_torch_{megakernel,adjoint,tiled}.py``).  K1's
-  ``trace_lane`` at K = 8 is a case of
-  ``test_torch_kernels.py::test_kernel_sources_on_cpu_match_twins``.
+  code (``tests/test_torch_{megakernel,adjoint,tiled}.py``).  K1's wave
+  at K = 8 is a case of
+  ``test_torch_kernels.py::test_kernel_sources_on_cpu_match_twins`` and,
+  exactly against the twin, of ``test_emulated_k1_matches_twin_at_k8``.
 * On a CUDA card (marker ``gpu``): K1 at K = 8 exactly equal to its twin
   on a mid-flight pool, K5, K7 and K9 at K = 8 against theirs.
 """
@@ -53,6 +54,7 @@ from path_tracer_tpu_torch.utils import rng as trng
 
 from test_torch_grad import _both as _grad_both
 from test_torch_grad import check_render_grad
+from test_torch_wave_exit import check_emulated_k1
 
 W, H, SPP, DEPTH = 32, 18, 2, 10
 WAVE = dict(queue_size=256, steps_per_wave=8)
@@ -187,6 +189,15 @@ def _mega_frames(eng, op):
     for i in range(SPP):
         op(eng, ms, i)
     return ms
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "vol2_final_scene"])
+def test_emulated_k1_matches_twin_at_k8(name):
+    """K1's wave at K = 8 (g++ build) against the twin at chunk 4: lanes,
+    stack and counters exact, on pools where leaf children clip later
+    boxes on vol2_final (4 such lanes)."""
+    events = check_emulated_k1(name, 8)
+    assert events > 0 or name == "cornell_box"
 
 
 @pytest.mark.parametrize("name", ["cornell_smoke", "vol2_final_scene"])

@@ -87,6 +87,64 @@ def test_kernel_sources_on_cpu_match_twins(name, stride, width, branching):
     assert per_pix[per_pix <= 1e-3].mean() < 1e-5
 
 
+@pytest.mark.parametrize("stride", [None, 4], ids=["single", "window4"])
+def test_emulated_retire_block_sums_match_twin(stride):
+    """K4 built by g++ (its per-lane code and the block reducer, over
+    blocks of the kernel's 256 slots) against the twin on control waves of
+    a 1024-slot pool, where several blocks hold finished lanes of the same
+    depth: counters, histogram, per-pixel paths, flags and occupancy exact,
+    the frame allclose (float adds per pixel in another order)."""
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler")
+    ops, _ = kernels.host_emulation_ops()
+    scene, flags, bvh, cam, cfg = _setup("cornell_box", 32, "cpu")
+    cfg = dataclasses.replace(cfg, samples_per_pixel=8)
+    eng = wf.WaveEngine(scene, flags, bvh, cam, cfg, 0, 8, rng.key(0),
+                        queue_size=1024, steps_per_wave=8, ctrl_den=8,
+                        sample_stride=stride)
+    assert eng.multi == (stride is not None)
+    ws = eng.init_state(torch.zeros((cfg.height, cfg.width, 3)))
+    checked = 0
+    for _ in range(40):
+        wf.trace_step_plain(eng, ws)
+        wf.shade_plain(eng, ws)
+        fin = ws.flag == wf.FL_FINISHED
+        blocks = fin.view(-1, 256)
+        deep = ws.depth.view(-1, 256)
+        # blocks with two or more finished lanes of one depth
+        shared = sum(int(torch.bincount(deep[b][blocks[b]]).max()) > 1
+                     for b in range(blocks.shape[0]) if blocks[b].any())
+        if int(ws.ctr[wf.C_DO_CTRL]) and shared >= 2:
+            emu, twin = ws.clone(), ws.clone()
+            ops[2](eng, emu)
+            wf.retire_plain(eng, twin)
+            for f in ("ctr", "depth_hist", "pix_paths", "flag", "occupied"):
+                assert torch.equal(getattr(emu, f), getattr(twin, f)), f
+            assert torch.allclose(emu.accum, twin.accum, rtol=1e-6, atol=1e-7)
+            if eng.multi:
+                assert bool((emu.flag == wf.FL_RESAMPLE).any())
+            checked += 1
+        wf.retire_plain(eng, ws)
+        wf.spawn_plain(eng, ws)
+    assert checked >= 2
+
+
+def test_node_table_must_start_on_16_bytes():
+    """K1 reads node rows in 16-byte loads: every kernel's argument fill
+    refuses a node table whose base is not 16-byte aligned, and takes the
+    same rows from an aligned copy."""
+    scene, flags, bvh, cam, cfg = _setup("cornell_box", 32, "cpu")
+    flat = torch.empty(bvh.nodes.numel() + 1)
+    flat[1:] = bvh.nodes.flatten()
+    shifted = flat[1:].view(bvh.nodes.shape)          # 4 bytes off
+    assert torch.equal(shifted, bvh.nodes) and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.query_args(dataclasses.replace(bvh, nodes=shifted), 1e9, 8)
+    a = kernels.query_args(dataclasses.replace(bvh, nodes=shifted.clone()),
+                           1e9, 8)
+    assert a.nodes % 16 == 0
+
+
 @pytest.mark.parametrize("swap", [None, ("R", "sd"), ("origin", "direction"),
                                   ("t_min", "t_max")],
                          ids=["as-built", "ints", "pointers", "floats"])

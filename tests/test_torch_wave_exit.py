@@ -11,8 +11,9 @@
   its accelerator value, is JAX's with ``_unroll`` patched to return 4.
 * K1's per-slot code built by g++ (``csrc/host_emulation.cpp``) runs a wave
   chunk by chunk: on a mid-flight pool at chunk 4 it equals the twin's
-  wave exactly (state and counters), and a whole Cornell frame at chunk 4
-  has the twin's wave counters.
+  wave exactly (state and counters, its chunk counters cleared), also on
+  vol2_final pools where a leaf child's hit clips a later child's box,
+  and a whole Cornell frame at chunk 4 has the twin's wave counters.
 * ``gather_rows_plain`` equals JAX's ``table[idx, :]`` and ``jnp.take``
   exactly, and the wrapper takes it for CPU tensors.
 * ``Renderer(engine="megakernel")`` warns when the config sets a wavefront
@@ -35,9 +36,12 @@ import path_tracer_tpu.ops.traverse as jtr
 import path_tracer_tpu_torch as ptt
 from path_tracer_tpu_torch import interop
 from path_tracer_tpu_torch.ops import gather, kernels
+from path_tracer_tpu_torch.ops import intersect as isect
 from path_tracer_tpu_torch.ops import traverse as ttr
 from path_tracer_tpu_torch.ops import wavefront as twf
 from path_tracer_tpu_torch.ops.shade import SceneFlags as TFlags
+from path_tracer_tpu_torch.ops.types import (BVH_EMPTY_SLOT, PH_EXIT,
+                                             PRIM_ROW, bvh_layout)
 from path_tracer_tpu_torch.ops.types import RenderConfig as TCfg
 from path_tracer_tpu_torch.utils import rng
 
@@ -115,13 +119,14 @@ def _needs_cxx():
         pytest.skip("no host C++ compiler")
 
 
-def _setup(name, width):
+def _setup(name, width, branching=4):
     kw = {"sphere_cluster": 20} if name == "vol2_final_scene" else {}
     world, cam = getattr(ptt.scenes, name)(**kw)
     height = width * 9 // 16
     cam.img_width, cam.aspect_ratio = width, width / height
     scene = ptt.compile_scene(world, device="cpu")
-    return (scene, TFlags.from_scene(scene), ptt.build_from_scene(scene),
+    return (scene, TFlags.from_scene(scene),
+            ptt.build_from_scene(scene, branching),
             cam.initialize(device="cpu"),
             TCfg(width=width, height=height, samples_per_pixel=2,
                  max_depth=10))
@@ -155,6 +160,90 @@ def test_emulated_k1_chunk_exit_matches_twin(name):
             assert torch.equal(getattr(emu, f), getattr(twin, f)), f
         assert emu.ctr.tolist() == twin.ctr.tolist()
         assert int(emu.ctr[ttr.C_EXEC_STEPS] - ws.ctr[ttr.C_EXEC_STEPS]) % 4 == 0
+
+
+def _clip_events(eng, ws, n_steps):
+    """Walking lanes, summed over the twin's first ``n_steps`` steps from
+    ``ws``, at which a leaf child hit in the step lowers ``best_t`` so that
+    a later interior child's box test fails which the step's starting
+    ``best_t`` would have passed: K1's group step must resolve the row in
+    child order there."""
+    bvh = eng.bvh
+    K = bvh.branching
+    ptr_off, payload, _ = bvh_layout(K)
+    ro, rd = ws.origin, ws.direction
+    rox, roy, roz = ro[:, 0], ro[:, 1], ro[:, 2]
+    rdx, rdy, rdz = rd[:, 0], rd[:, 1], rd[:, 2]
+    ivx, ivy, ivz = 1.0 / rdx, 1.0 / rdy, 1.0 / rdz
+    rr = rdx * rdx + rdy * rdy + rdz * rdz
+    t_min = torch.where(ws.phase == PH_EXIT, ws.hit_t + 1e-4,
+                        torch.tensor(eng.cfg.t_min, dtype=torch.float32))
+    iota = torch.arange(ws.stack.shape[1], dtype=torch.int32)[None]
+    s = ttr.TravState(ws.cur, ws.stack, ws.sp, ws.best_t, ws.best_pt,
+                      ws.best_pi)
+    events = 0
+    for _ in range(n_steps):
+        active = s.cur != ttr._DONE
+        rows = bvh.nodes[torch.where(active, s.cur, 0).long()]
+        best = s.best_t
+        clipped = torch.zeros_like(active)
+        for i in range(K):
+            ptr = rows[:, ptr_off + i].to(torch.int32)
+            box = [rows[:, 6 * i + k] for k in range(6)]
+            ray = (rox, roy, roz, ivx, ivy, ivz, t_min)
+            hi, _ = isect.hit_aabb_s(*box, *ray, best)
+            hi0, _ = isect.hit_aabb_s(*box, *ray, s.best_t)
+            real = active & (ptr < BVH_EMPTY_SLOT)
+            clipped |= real & (ptr >= 0) & hi0 & ~hi
+            pr = [rows[:, payload + PRIM_ROW * i + j] for j in range(14)]
+            lhit, lt = isect.hit_prim_row_s(pr, rox, roy, roz, rdx, rdy, rdz,
+                                            rr, ws.time, t_min, best,
+                                            mask=bvh.prim_mask)
+            best = torch.where(real & hi & (ptr < 0) & lhit & (lt < best),
+                               lt, best)
+        events += int(clipped.sum())
+        s = ttr._step(bvh, s, rox, roy, roz, ivx, ivy, ivz, rdx, rdy, rdz,
+                      rr, ws.time, t_min, iota)
+    return events
+
+
+def check_emulated_k1(name, branching):
+    """K1's wave (g++ build: its step, its chunk counters and their
+    clearing) against the twin's wave at
+    chunk 4 on pools 3 and 6 waves into the frame, and a wave of one chunk
+    on the same pools (a step more or less shows there): lanes, stack and
+    every counter exact.  Returns the pools' leaf-clip events over the
+    steps the waves ran (``_clip_events``)."""
+    _needs_cxx()
+    wave_ops, _ = kernels.host_emulation_ops()
+    setup = _setup(name, 32, branching)
+    eng, ws = _engine(setup, chunk=4)
+    one = twf.WaveEngine(*setup, 0, 2, rng.key(0), queue_size=256,
+                         steps_per_wave=4, ctrl_den=8, chunk=4)
+    assert eng.bvh.branching == branching
+    events = 0
+    for wave in range(6):
+        for op in twf.PLAIN:
+            op(eng, ws)
+        if wave not in (2, 5):
+            continue
+        for e in (one, eng):
+            emu, twin = ws.clone(), ws.clone()
+            wave_ops[0](e, emu)
+            ttr.trace_step_plain(e, twin)
+            for f in ("cur", "stack", "sp", "best_t", "best_pt", "best_pi"):
+                assert torch.equal(getattr(emu, f), getattr(twin, f)), f
+            assert emu.ctr.tolist() == twin.ctr.tolist()
+        run = int(twin.ctr[ttr.C_EXEC_STEPS] - ws.ctr[ttr.C_EXEC_STEPS])
+        events += _clip_events(eng, ws, run)   # the steps eng's wave ran
+    return events
+
+
+def test_emulated_k1_keeps_child_order():
+    """The g++-built K1 equals the twin on vol2_final pools where a leaf
+    child's hit clips a later child's box within one step (3 such lanes;
+    the Cornell pools above hold none)."""
+    assert check_emulated_k1("vol2_final_scene", 4) > 0
 
 
 def test_emulated_frame_at_chunk_4_has_twin_wave_counters():
