@@ -117,8 +117,10 @@ Phases (each prints its own line; any failure exits non-zero):
     JSON result line.
 
 Phase 3 also holds the tiled engine's kernels against their plain
-versions: K7 (closest_hit), K8 (tiled_trip) and the tiled spawn on every
-lane of an 800x450 vol2_final sample after three trips, K9 (ring_hop) and
+versions: K7 (closest_hit; its main query, and its volume-exit query as the
+engine walks it, on the lanes whose hit has a medium, each timed apart), K8
+(tiled_trip) and the tiled spawn on every lane of an 800x450 vol2_final
+sample after three trips, K9 (ring_hop) and
 K8's rec variant on one shard of the torus knot sharded two ways; and the
 P0 row gather (gather_rows) against torch.index_select at P0's shape.
 
@@ -127,9 +129,11 @@ them just after; the table's ``launches`` come from those runs.  Every
 frame profiled under torch.profiler must show, for each kernel, as many
 runs as its wrapper counted (``profile_run``): the counts of launches that
 a CUDA graph replays are measured, not only derived from the waves run.  The build
-phase also holds K3, K5, K1 and K4 at their recorded ptxas resources
-(``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3 and K5),
-and prints K1's global loads by width from its SASS (``cuobjdump -sass``).
+phase also holds K3, K5, K7, K1, K4, K6 and K9 at their recorded ptxas
+resources (``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3
+and K5; K6 and K9 keep the 4-byte walk step), fails on a spill in any
+walking kernel's instantiation, and prints K1's global loads by width from
+its SASS (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
@@ -200,11 +204,26 @@ STEP_OPS = {4: 220, 8: 440}
 # the bound, not part of it.
 FULL_SWEEP_OPS = BOUNCE_OPS
 FULL_WALK_OPS = WALK_TRIP_OPS
-# (registers, stack frame bytes) of K3, K5, K1 and K4 as recorded in PERF.md
-# (Findings); a key names a kernel or one of its INSTANCES
-PTXAS_EXPECT = {"shade": (110, 104), "megakernel_k4": (112, 368),
+# (registers, stack frame bytes) of K3, K5, K7, K1, K4, K6 and K9 as
+# recorded in PERF.md (Findings); a key names a kernel or one of its
+# INSTANCES.  K6 and K9 walk the 4-byte step their code was measured with
+# (csrc/path.cuh), held at the values they had before K5 and K7 moved to
+# the 16-byte step.
+PTXAS_EXPECT = {"shade": (110, 104), "megakernel_k4": (117, 368),
+                "megakernel_k8": (118, 368), "megakernel_k4_global": (118, 112),
+                "megakernel_k8_global": (119, 112),
+                "closest_hit_k4": (64, 256), "closest_hit_k8": (72, 256),
+                "closest_hit_k4_global": (65, 0),
+                "closest_hit_k8_global": (72, 0),
                 "trace_step_k4": (127, 0), "trace_step_k8": (158, 0),
-                "retire": (24, 0)}
+                "retire": (24, 0),
+                "adjoint_k4": (109, 3696), "adjoint_k8": (109, 3696),
+                "adjoint_k4_global": (110, 104), "adjoint_k8_global": (111, 104),
+                "adjoint_full_k4": (156, 4832), "adjoint_full_k8": (154, 4832),
+                "adjoint_full_k4_global": (162, 224),
+                "adjoint_full_k8_global": (162, 224),
+                "ring_hop_k4": (60, 256), "ring_hop_k8": (68, 256),
+                "ring_hop_k4_global": (64, 0), "ring_hop_k8_global": (72, 0)}
 
 
 def phase(name, msg):
@@ -696,6 +715,7 @@ def main() -> int:
             phase("build", f"{inst} ({n}_kernel<{targs}>): (registers, stack "
                   f"frame, spill stores, spill loads) {ptxas[inst]}")
             assert ptxas[inst][0] is not None, f"no ptxas entry for {inst}"
+            assert ptxas[inst][2:] == (0, 0), f"{inst} spills: {ptxas[inst]}"
 
     # --- 3. kernel vs twin at the full configuration's shapes ---
     dev = torch.device("cuda")
@@ -1089,10 +1109,22 @@ def main() -> int:
     shade_bytes = 4 * sum(x.numel() for x in (teng.tabs.prim, teng.tabs.mat,
                                               teng.tabs.tex, teng.tabs.med))
 
-    def query(st_, tmin_, act_, plain=False, ctr=None, bvh_=bvh):
-        fn = itl.closest_hit_plain if plain else itl.closest_hit_batched
-        return fn(bvh_, st_.origin, st_.direction, st_.time, tmin_, cfg.t_max,
-                  cfg.stack_depth, active=act_, ctr=ctr)
+    def query(st_, tmin_, act_, plain=False, ctr=None, bvh_=bvh,
+              exit_of=None):
+        """K7 (or its plain version) on the lanes act_; with exit_of, the
+        engine's volume-exit query (the kernel gated on the main hit's
+        medium, the plain version on exit_lanes' mask)."""
+        if plain:
+            if exit_of is not None:
+                act_ = itl.exit_lanes(exit_of[0], act_, *exit_of[1:])
+            return itl.closest_hit_plain(bvh_, st_.origin, st_.direction,
+                                         st_.time, tmin_, cfg.t_max,
+                                         cfg.stack_depth, active=act_,
+                                         ctr=ctr)
+        return itl.closest_hit_batched(bvh_, st_.origin, st_.direction,
+                                       st_.time, tmin_, cfg.t_max,
+                                       cfg.stack_depth, active=act_, ctr=ctr,
+                                       exit_of=exit_of)
 
     sk = itl.tiled_spawn(teng, 0, tpix)
     sp_ = shade_tiled.spawn_paths(cam_a, cfg, key, torch.zeros_like(tpix), tpix)
@@ -1122,8 +1154,12 @@ def main() -> int:
     hk = query(tst, t_min_v, live, ctr=c_k)
     hp = query(tst, t_min_v, live, plain=True, ctr=c_p)
     steps7 = int(c_k[C_TRAV_STEPS])
-    ek = query(tst, hk[3] + 1e-4, live & hk[0], ctr=c_k)
-    ep = query(tst, hk[3] + 1e-4, live & hk[0], plain=True, ctr=c_p)
+    # The exit query as the engine walks it: on the live lanes whose hit
+    # has a medium (itl.exit_lanes; the kernel reads the hit's medium).
+    ex_of = (teng, hk[0], hk[1], hk[2])
+    emask = itl.exit_lanes(teng, live, hk[0], hk[1], hk[2])
+    ek = query(tst, hk[3] + 1e-4, live, ctr=c_k, exit_of=ex_of)
+    ep = query(tst, hk[3] + 1e-4, live, plain=True, ctr=c_p, exit_of=ex_of)
     eq = torch.cat([(a_[0] == b_[0]) & (a_[1] == b_[1]) & (a_[2] == b_[2])
                     for a_, b_ in ((hk, hp), (ek, ep))])
     tk_, tp_ = torch.cat([hk[3], ek[3]]), torch.cat([hp[3], ep[3]])
@@ -1132,6 +1168,9 @@ def main() -> int:
     err7 = float((tk_ - tp_)[eq].abs().max())
     ok7 = frac7 == 1.0 and rel7 <= 1e-5
     ms7 = cuda_ms(lambda: query(tst, t_min_v, live))
+    ms7e = cuda_ms(lambda: query(tst, hk[3] + 1e-4, live, exit_of=ex_of))
+    dev7 = device_ms(lambda: query(tst, t_min_v, live))
+    dev7e = device_ms(lambda: query(tst, hk[3] + 1e-4, live, exit_of=ex_of))
     pms7 = cuda_ms(lambda: query(tst, t_min_v, live, plain=True), reps=1)
     # Bytes: the node rows once; per lane its mask read and its result (13
     # B) written, per live lane its ray (32 B) read.  Operations: ~220 per
@@ -1139,14 +1178,18 @@ def main() -> int:
     byts7 = node_bytes + NL * 14 + n_live * 32
     results["closest_hit"] = dict(ok=ok7, err=err7, ms=ms7, plain_ms=pms7,
                                   bytes=byts7, ops=steps7 * 220,
-                                  library_ms=None)
+                                  library_ms=None, exit_ms=ms7e,
+                                  exit_device_ms=dev7e, main_device_ms=dev7,
+                                  exit_lanes=int(emask.sum()))
     phase("kernels", f"closest_hit: vol2_final 800x450 sample 0 after 3 "
-          f"trips, {n_live} live lanes: main and exit queries match "
+          f"trips, {n_live} live lanes ({int(emask.sum())} with a medium hit "
+          f"walk the exit query): main and exit queries match "
           f"{frac7:.6f} of lanes, t max rel {rel7:.2e}, traversal steps "
           f"{int(c_k[C_TRAV_STEPS])} (plain {int(c_p[C_TRAV_STEPS])}; main "
-          f"query {steps7}), {ms7:.3f} ms per main query (plain {pms7:.1f} "
-          f"ms), bound inputs: bytes {byts7}, fp32 ops {steps7 * 220} "
-          f"{'PASS' if ok7 else 'FAIL'}")
+          f"query {steps7}), {ms7:.3f} ms per main query, {ms7e:.3f} ms per "
+          f"exit query (plain {pms7:.1f} ms); device ms per launch: main "
+          f"{dev7:.4f}, exit {dev7e:.4f}; bound inputs: bytes {byts7}, fp32 "
+          f"ops {steps7 * 220} {'PASS' if ok7 else 'FAIL'}")
     snap8 = clone_state(tst)
     ks, c8k, c8p = clone_state(snap8), itl.new_counters(dev), itl.new_counters(dev)
     itl.tiled_trip(teng, ks, 0, tpix, hk[:3], ek, ctr=c8k)
@@ -2878,6 +2921,10 @@ def main() -> int:
             "device_ms": frame_dev.get(n, res.get("device_ms")),
             "library_device_ms": res.get("library_device_ms"),
             "pass": bool(res["ok"]) and launches[n] > 0}
+        for k_ in ("exit_ms", "exit_device_ms", "main_device_ms",
+                   "exit_lanes"):
+            if k_ in res:
+                row[k_] = res[k_]
         if "graph_device_ms" in res:
             row["graph_device_ms"] = res["graph_device_ms"]
         if n in ptxas:

@@ -10,7 +10,10 @@
 // array up to PTT_MEGA_STACK entries, else the wrapper's per-lane buffer
 // WaveArgs.stack; four instantiations of each kernel); a lane that is
 // not q_active does not walk and reports no hit (found false, pt = pi = -1,
-// t = t_max).  It writes hit_found, hit_pt, hit_pi and hit_t.
+// t = t_max).  In the tiled engine's volume-exit launch (gate_pt set) a
+// lane walks only where the main query's hit has a medium, the only lanes
+// whose exit hit the bounce reads (ops/integrator_tiled.py exit_lanes); it
+// writes hit_found, hit_pt, hit_pi and hit_t.
 //
 // K9 is the same walk with the epilogue of one hop of the pipeline ring
 // (parallel/pipeline.py _ring_closest_hit, :82-94; B14): where this stage's
@@ -25,11 +28,25 @@
 // Bound: as K5's walk, dependent node-row gathers (one 384-byte row per
 // step at K = 4, 736 at K = 8, the rows L2-resident) and divergence between
 // lanes whose walks end after different numbers of steps; ~220 fp32 ops per
-// step at K = 4.  The simple design keeps one lane per thread.
+// step at K = 4.  K7 walks traverse.cuh's trav_step16, the node row in
+// 16-byte loads, with the pair loop unrolled: measured faster than rolled
+// here, where the kernel holds one walk and no bounce (K5, with two walks
+// and the bounce, runs it rolled).  K9 keeps the 4-byte step.  Measured
+// slower and not used (PERF.md): threads that take the next live lane from
+// a counter when their walk ends, step by step or a warp at a time, dead
+// lanes skipped 32 at a time.
 #include "path.cuh"
 
-// The query of lane i: walked to completion from its start, or no hit.
-template <int K>
+// Whether K7 walks lane i's query: the lane is q_active and, in the
+// volume-exit launch (gate_pt set), the main query's hit has a medium.
+__device__ __forceinline__ bool closest_hit_live(const WaveArgs& a, int i) {
+  if (a.q_active != nullptr && !a.q_active[i]) return false;
+  return a.gate_pt == nullptr || medium_of(a, a.gate_pt[i], a.gate_pi[i]) >= 0;
+}
+
+// The query of lane i: walked to completion from its start by step S, or
+// no hit.
+template <int K, WalkStep S = kStep4>
 __device__ __forceinline__ void query_lane(const WaveArgs& a, int i,
                                            int* stack, MegaCount& c,
                                            int& pt, int& pi, float& t) {
@@ -41,16 +58,17 @@ __device__ __forceinline__ void query_lane(const WaveArgs& a, int i,
   const float d[3] = {a.direction[3 * i], a.direction[3 * i + 1],
                       a.direction[3 * i + 2]};
   const float t_min = a.q_tmin != nullptr ? a.q_tmin[i] : a.t_min;
-  trav_full<K>(a, o, d, a.time[i], t_min, stack, t, pt, pi, c);
+  trav_full<K, S>(a, o, d, a.time[i], t_min, stack, t, pt, pi, c);
 }
 
-// K7's lane: the query's result.
+// K7's lane: the query's result, or no hit where K7 does not walk it.
 template <int K>
 __device__ __forceinline__ void closest_hit_lane(const WaveArgs& a, int i,
                                                  int* stack, MegaCount& c) {
-  int pt, pi;
-  float t;
-  query_lane<K>(a, i, stack, c, pt, pi, t);
+  int pt = -1, pi = -1;
+  float t = a.t_max;
+  if (closest_hit_live(a, i))
+    query_lane<K, kStep16Unrolled>(a, i, stack, c, pt, pi, t);
   a.hit_found[i] = pt >= 0;
   a.hit_pt[i] = pt;
   a.hit_pi[i] = pi;

@@ -82,6 +82,7 @@ struct NodeLayout {
 #define C_N_READY_B 17
 #define C_N_WALK_B 18
 #define C_TICKET 19
+#define C_FETCH 20
 
 // Everything a wave kernel reads or writes.  Mirrored field for field by
 // ops/kernels.py:WaveArgs (ctypes); ptt_wave_args_layout() below exports
@@ -145,6 +146,10 @@ struct WaveArgs {
   // TapeEntry or TripIn, adjoint.cu) and SSS walk record (npix x sss_steps
   // x 4 floats, sss_adj.cuh)
   void* tape; float* walk;
+  // K7's volume-exit launch: the main query's hit per lane (null: none); a
+  // lane walks only where that hit's primitive has a medium (prim_tab,
+  // n_sph, n_qd, n_prim_rows then point at the shade table)
+  const int* gate_pt; const int* gate_pi;
 };
 
 // Every field of WaveArgs in declaration order.  A name missing from the
@@ -168,7 +173,8 @@ struct WaveArgs {
   X(dv) X(defocus_u) X(defocus_v) X(defocus_angle) X(bg_color) X(bg_type)   \
   X(delta) X(g_tex) X(g_img) X(g_prim) X(g_mat) X(g_med) X(g_perlin)        \
   X(q_tmin) X(q_active) X(exit_found) X(exit_pt) X(exit_pi) X(exit_t)        \
-  X(exit_med) X(rec) X(pix_offset) X(sample_dev) X(tape) X(walk)
+  X(exit_med) X(rec) X(pix_offset) X(sample_dev) X(tape) X(walk)            \
+  X(gate_pt) X(gate_pi)
 
 // Fills names[k], offsets[k] for each field when the arrays are given;
 // returns the number of fields.  Each kernel library exports its own copy.

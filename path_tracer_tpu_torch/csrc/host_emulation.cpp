@@ -3,7 +3,8 @@
 // The CUDA sources keep each kernel's per-slot work in a __device__
 // function (walk_chunk, shade_lane, retire_lane, spawn_lane, mega_pixel,
 // adjoint_pixel, adjoint_pixel_full, closest_hit_lane, ring_hop_lane,
-// tiled_lane) and only the grid plumbing in the __global__ wrapper.
+// tiled_lane; the walks' steps trav_step and trav_step16) and only the
+// grid plumbing (and K5's work fetching) in the __global__ wrapper.
 // Compiled by a host C++ compiler with PTT_HOST_EMULATION defined, the same
 // per-slot code runs here in a loop over slots, so the CPU test suite holds
 // the kernel sources — not only their plain-torch twins — against the JAX
@@ -120,16 +121,14 @@ template <int K>
 static void emu_megakernel_k(WaveArgs* a) {
   for (int pix = 0; pix < a->npix; ++pix) {
     PTT_EMU_STACK(pix);
-    MegaCount c{0, 0, 0};
-    mega_pixel<K>(*a, pix, stack, c);
-    const int dc = clampi(a->depth[pix], 0, a->max_depth);
-    a->depth_hist[dc] += 1;
-    a->ctr[C_DONE] += 1;
-    a->ctr[C_RAYS] += a->iters[pix];
-    a->ctr[C_DEPTH_SUM] += dc;
-    a->ctr[C_TRAV_STEPS] += c.trav_steps;
-    a->ctr[C_WALK_STEPS] += c.walk_trips;
-    a->ctr[C_STACK_OVF] += c.ovf;
+    MegaTally t{{0, 0, 0}, 0u, 0u, 0u};
+    a->depth_hist[mega_pixel<K>(*a, pix, stack, t)] += 1;
+    a->ctr[C_DONE] += t.done;
+    a->ctr[C_RAYS] += t.rays;
+    a->ctr[C_DEPTH_SUM] += t.depth_sum;
+    a->ctr[C_TRAV_STEPS] += t.c.trav_steps;
+    a->ctr[C_WALK_STEPS] += t.c.walk_trips;
+    a->ctr[C_STACK_OVF] += t.c.ovf;
   }
 }
 
@@ -197,6 +196,41 @@ static int emu_query(WaveArgs* a) {
 extern "C" int emu_closest_hit(WaveArgs* a) { return emu_query<false>(a); }
 
 extern "C" int emu_ring_hop(WaveArgs* a) { return emu_query<true>(a); }
+
+// One traversal step of every walking slot of a wave state (cur not done;
+// t_min by the slot's phase, as K1 loads it), by trav_step (step 0) or
+// trav_step16 (step 1, rolled; 2, unrolled); steps and dropped pushes into
+// the counters.  Each slot's stack is row i of a.stack, a.sd entries.
+template <int K>
+static void emu_walk_step_k(WaveArgs* a, int step) {
+  for (int i = 0; i < a->R; ++i) {
+    LaneState s;
+    load_lane(*a, i, s);
+    if (!s.walked) continue;
+    int* stack = a->stack + (size_t)i * a->sd;
+    int ovf = 0;
+    if (step == 0) {
+      trav_step<K>(*a, s.r, s.cur, stack, s.sp, s.best_t, s.best_pt,
+                   s.best_pi, ovf);
+    } else if (step == 1) {
+      trav_step16<K, true>(*a, s.r, s.cur, stack, s.sp, s.best_t, s.best_pt,
+                           s.best_pi, ovf);
+    } else {
+      trav_step16<K, false>(*a, s.r, s.cur, stack, s.sp, s.best_t,
+                            s.best_pt, s.best_pi, ovf);
+    }
+    store_lane(*a, i, s);
+    a->ctr[C_TRAV_STEPS] += 1;
+    a->ctr[C_STACK_OVF] += ovf;
+  }
+}
+
+extern "C" int emu_walk_step(WaveArgs* a, int step) {
+  if (!walk_args_ok(a, false) || step < 0 || step > 2) return 1;
+  if (a->branching == 4) emu_walk_step_k<4>(a, step);
+  else emu_walk_step_k<8>(a, step);
+  return 0;
+}
 
 extern "C" int emu_tiled_trip(WaveArgs* a) {
   for (int i = 0; i < a->R; ++i) a->ctr[C_WALK_STEPS] += tiled_lane<false>(*a, i);

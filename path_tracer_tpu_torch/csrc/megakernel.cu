@@ -5,7 +5,7 @@
 // completion of ops/traverse.py traversal_step / _traverse_impl /
 // traverse_bvh (:183, :512, :526; B10) and the bounce loop of B11
 // (bounce_shade :123, _medium_sample :72; bounce.cuh, with the SSS walk of
-// B6).  One thread per pixel traces its path (path.cuh: trace_path).
+// B6).  Each pixel's path is traced by one thread (path.cuh).
 // A launch covers the npix pixels of a block from frame pixel pix_offset
 // (the data-parallel shard; the whole frame from 0 by default): the RNG and
 // the camera take the frame pixel, every output its index in the block.
@@ -19,24 +19,42 @@
 // PTT_MEGA_STACK entries it is a per-thread local array; a deeper stack
 // lives in the wrapper's per-pixel buffer (WaveArgs.stack, npix x sd ints).
 // A push at a full stack is dropped as in JAX and counted in C_STACK_OVF.
-// Counters (rays = sum of iters, clipped depth sum and histogram, walk
-// trips, traversal steps, overflows) are reduced per block in shared memory,
-// then added with one atomic per block.
 //
 // Bound: dependent node-row gathers of the walk, as in K1, plus divergence:
-// paths in a warp end after different numbers of bounces, and an
-// SSS-volumetric path walks up to sss_steps trips while its warp waits.
-// Persistent threads and ray sorting are later work (PERF.md).
+// paths in a warp end after different numbers of bounces (up to max_depth,
+// each with one or two walks), and an SSS-volumetric path walks up to
+// sss_steps trips while its warp waits.  The design:
+// - The walks run trav_step16 (traverse.cuh): node rows in 16-byte loads
+//   and the child loop rolled in pairs, so that each walk holds one copy
+//   of a pair's code instead of K inline leaf tests.
+// - Work is fetched when a path ends: the grid is as many blocks as fit on
+//   the card at once, and each lane, when its path ends, writes its pixel
+//   and takes the next one from ctr[C_FETCH] (one atomic per warp for the
+//   lanes that need work, warp_fetch), so a warp stays full of paths until
+//   the sample's pixels run out, trip by trip.  The last block clears the
+//   counter (fetch_close), so every launch starts from 0.
+// - Counters (rays = sum of iters, clipped depth sum, paths, walk trips,
+//   traversal steps, overflows) are summed per thread over its pixels, per
+//   warp (__reduce_add_sync) and per block in shared memory, then added
+//   with one atomic per block; the depth histogram in shared bins.
+// Measured slower and not used (PERF.md): persistent warps that take 32
+// pixels at a time and trace each path to its end; the walk's stack in
+// shared memory; the pair loop unrolled.
 #include "path.cuh"
 
-// Sample a.start_sample of block pixel pix, frame pixel pix_offset + pix
-// (trace_path); writes the pixel's colour, iters and depth and adds the
-// colour to the block's frame entry.
-template <int K>
-__device__ __forceinline__ void mega_pixel(const WaveArgs& a, int pix,
-                                           int* stack, MegaCount& c) {
-  PathRegs p;
-  trace_path<K>(a, a.pix_offset + pix, stack, c, p);
+#define PTT_MEGA_BLOCK 128
+
+// What a thread adds to the counters over the pixels it traced.
+struct MegaTally {
+  MegaCount c;   // traversal steps, SSS walk trips, dropped pushes
+  unsigned int done, rays, depth_sum;
+};
+
+// The end of block pixel pix's path p: its colour, iters and depth
+// written, its colour added to the block's frame entry, its counts into t;
+// returns its depth-histogram bin.
+__device__ __forceinline__ int mega_finish(const WaveArgs& a, int pix,
+                                           const PathRegs& p, MegaTally& t) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     a.color[3 * pix + k] = p.col[k];
@@ -44,33 +62,116 @@ __device__ __forceinline__ void mega_pixel(const WaveArgs& a, int pix,
   }
   a.iters[pix] = p.iters;
   a.depth[pix] = p.depth;
+  const int dc = clampi(p.depth, 0, a.max_depth);
+  t.done += 1u;
+  t.rays += (unsigned int)p.iters;
+  t.depth_sum += (unsigned int)dc;
+  return dc;
+}
+
+// Sample a.start_sample of block pixel pix, frame pixel pix_offset + pix,
+// traced to its end (the trips a lane of the kernel runs for it);
+// returns its depth-histogram bin (mega_finish).
+template <int K>
+__device__ __forceinline__ int mega_pixel(const WaveArgs& a, int pix,
+                                          int* stack, MegaTally& t) {
+  Key key_p;
+  PathRegs p;
+  path_begin(a, a.pix_offset + pix, key_p, p);
+  while (path_runs(a, p)) path_trip<K>(a, key_p, stack, t.c, p);
+  return mega_finish(a, pix, p, t);
 }
 
 #ifndef PTT_HOST_EMULATION
+#define PTT_FULL_WARP 0xffffffffu
+
+// The warp's lanes in m (every lane of the warp calls this, m the same in
+// all) take consecutive pixels from ctr[C_FETCH] with one atomic; returns
+// this lane's pixel (meaningful where its bit is in m).
+__device__ __forceinline__ long long warp_fetch(const WaveArgs& a,
+                                                unsigned int m) {
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(m) - 1;
+  unsigned long long base = 0ull;
+  if (lane == leader)
+    base = atomicAdd((unsigned long long*)a.ctr + C_FETCH,
+                     (unsigned long long)__popc(m));
+  base = __shfl_sync(PTT_FULL_WARP, base, leader);
+  return (long long)base + __popc(m & ((1u << lane) - 1u));
+}
+
+// Sum of v over the warp.
+__device__ __forceinline__ long long warp_sum64(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(PTT_FULL_WARP, v, o);
+  return v;
+}
+
+// A block's end, by one thread after the block's last fetch: the last
+// block of the launch clears the fetch counter and the ticket, so that
+// every launch (and every replay of a graph that holds it) starts from 0.
+__device__ __forceinline__ void fetch_close(const WaveArgs& a) {
+  __threadfence();
+  unsigned long long* c = (unsigned long long*)a.ctr;
+  if (atomicAdd(c + C_TICKET, 1ull) + 1 != (unsigned long long)gridDim.x)
+    return;
+  volatile long long* v = a.ctr;
+  v[C_FETCH] = 0;
+  v[C_TICKET] = 0;
+}
+
 template <int K, bool kGlobal>
-__global__ void megakernel_kernel(WaveArgs a) {
+__global__ void __launch_bounds__(PTT_MEGA_BLOCK)
+megakernel_kernel(WaveArgs a) {
   extern __shared__ int s_hist[];  // max_depth + 1 bins
-  __shared__ unsigned long long s_rays, s_dsum, s_steps, s_walk, s_ovf, s_done;
+  __shared__ unsigned long long s_tot[6];
   for (int k = threadIdx.x; k <= a.max_depth; k += blockDim.x) s_hist[k] = 0;
-  if (threadIdx.x == 0) s_rays = s_dsum = s_steps = s_walk = s_ovf = s_done = 0ull;
+  if (threadIdx.x < 6) s_tot[threadIdx.x] = 0ull;
   __syncthreads();
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix < a.npix) {
-    MegaCount c{0, 0, 0};
-    if constexpr (kGlobal) {
-      mega_pixel<K>(a, pix, a.stack + (size_t)pix * a.sd, c);
-    } else {
-      int stack[PTT_MEGA_STACK];
-      mega_pixel<K>(a, pix, stack, c);
+  MegaTally t{{0, 0, 0}, 0u, 0u, 0u};
+  int local[kGlobal ? 1 : PTT_MEGA_STACK];
+  int* stack = local;
+  int pix = -1;        // the lane's block pixel, -1 between paths
+  bool more = true;    // pixels may be left to take
+  Key key_p;
+  PathRegs p;
+  for (;;) {
+    const bool need = pix < 0 && more;
+    const unsigned int m = __ballot_sync(PTT_FULL_WARP, need);
+    if (m == 0u && !__any_sync(PTT_FULL_WARP, pix >= 0)) break;
+    if (m != 0u) {
+      const long long q = warp_fetch(a, m);
+      if (need) {
+        if (q < a.npix) {
+          pix = (int)q;
+          if constexpr (kGlobal) stack = a.stack + (size_t)pix * a.sd;
+          path_begin(a, a.pix_offset + pix, key_p, p);
+        } else {
+          more = false;
+        }
+      }
     }
-    const int dc = clampi(a.depth[pix], 0, a.max_depth);
-    atomicAdd(&s_hist[dc], 1);
-    atomicAdd(&s_done, 1ull);
-    atomicAdd(&s_rays, (unsigned long long)a.iters[pix]);
-    atomicAdd(&s_dsum, (unsigned long long)dc);
-    atomicAdd(&s_steps, (unsigned long long)c.trav_steps);
-    if (c.walk_trips) atomicAdd(&s_walk, (unsigned long long)c.walk_trips);
-    if (c.ovf) atomicAdd(&s_ovf, (unsigned long long)c.ovf);
+    if (pix >= 0) {
+      if (path_runs(a, p)) path_trip<K>(a, key_p, stack, t.c, p);
+      if (!path_runs(a, p)) {
+        atomicAdd(&s_hist[mega_finish(a, pix, p, t)], 1);
+        pix = -1;
+      }
+    }
+  }
+  const unsigned int w[5] = {
+      __reduce_add_sync(PTT_FULL_WARP, t.done),
+      __reduce_add_sync(PTT_FULL_WARP, t.rays),
+      __reduce_add_sync(PTT_FULL_WARP, t.depth_sum),
+      __reduce_add_sync(PTT_FULL_WARP, (unsigned int)t.c.walk_trips),
+      __reduce_add_sync(PTT_FULL_WARP, (unsigned int)t.c.ovf)};
+  const long long steps = warp_sum64(t.c.trav_steps);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      if (w[k]) atomicAdd(&s_tot[k], (unsigned long long)w[k]);
+    }
+    if (steps) atomicAdd(&s_tot[5], (unsigned long long)steps);
   }
   __syncthreads();
   for (int k = threadIdx.x; k <= a.max_depth; k += blockDim.x) {
@@ -78,22 +179,48 @@ __global__ void megakernel_kernel(WaveArgs a) {
   }
   if (threadIdx.x == 0) {
     unsigned long long* c = (unsigned long long*)a.ctr;
-    atomicAdd(c + C_DONE, s_done);
-    atomicAdd(c + C_RAYS, s_rays);
-    atomicAdd(c + C_DEPTH_SUM, s_dsum);
-    atomicAdd(c + C_TRAV_STEPS, s_steps);
-    if (s_walk) atomicAdd(c + C_WALK_STEPS, s_walk);
-    if (s_ovf) atomicAdd(c + C_STACK_OVF, s_ovf);
+    const int to[6] = {C_DONE, C_RAYS, C_DEPTH_SUM, C_WALK_STEPS,
+                       C_STACK_OVF, C_TRAV_STEPS};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      if (s_tot[k]) atomicAdd(c + to[k], s_tot[k]);
+    }
+    fetch_close(a);
   }
 }
 
+// Blocks of `kernel` (block threads, smem dynamic shared bytes) that fit on
+// the card at once, or 0 on an error.
+template <class F>
+static int resident_blocks(F kernel, int block, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block,
+                                                    smem) != cudaSuccess)
+    return 0;
+  return per_sm * sms;
+}
+
+// As many blocks as fit on the card at once (asked once per instantiation
+// and histogram size), at most one pixel per thread.
 template <int K, bool kGlobal>
-static void launch_mega(const WaveArgs* a, void* stream) {
-  const int block = 128;
-  const int grid = (a->npix + block - 1) / block;
+static int launch_mega(const WaveArgs* a, void* stream) {
+  static int resident = 0, resident_smem = -1;
   const size_t smem = sizeof(int) * (size_t)(a->max_depth + 1);
-  megakernel_kernel<K, kGlobal><<<grid, block, smem, (cudaStream_t)stream>>>(
-      *a);
+  if ((int)smem != resident_smem) {
+    resident = resident_blocks(megakernel_kernel<K, kGlobal>, PTT_MEGA_BLOCK,
+                               smem);
+    if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+    resident_smem = (int)smem;
+  }
+  const int need = (a->npix + PTT_MEGA_BLOCK - 1) / PTT_MEGA_BLOCK;
+  const int grid = need < resident ? need : resident;
+  if (grid == 0) return 0;
+  megakernel_kernel<K, kGlobal>
+      <<<grid, PTT_MEGA_BLOCK, smem, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ptt_launch_megakernel(const WaveArgs* a, void* stream) {
@@ -102,12 +229,10 @@ extern "C" int ptt_launch_megakernel(const WaveArgs* a, void* stream) {
       (a->branching != 4 && a->branching != 8))
     return (int)cudaErrorInvalidValue;
   if (a->branching == 4) {
-    if (global) launch_mega<4, true>(a, stream);
-    else launch_mega<4, false>(a, stream);
-  } else {
-    if (global) launch_mega<8, true>(a, stream);
-    else launch_mega<8, false>(a, stream);
+    return global ? launch_mega<4, true>(a, stream)
+                  : launch_mega<4, false>(a, stream);
   }
-  return (int)cudaGetLastError();
+  return global ? launch_mega<8, true>(a, stream)
+                : launch_mega<8, false>(a, stream);
 }
 #endif

@@ -103,6 +103,95 @@ __device__ __forceinline__ void trav_step(const WaveArgs& a, const TravRay& r,
   }
 }
 
+// trav_step term for term, with the node row read in 16-byte loads through
+// the read-only cache and the child loop over pairs of children: a pair's
+// two boxes are 12 floats, three aligned float4s at K = 4 and K = 8 (rows
+// of 96 and 184 floats, boxes from 0, NodeLayout), its two pointers half
+// of one float4, a hit leaf child's 16-float payload four.  Each pair
+// tests its two children in order (slab test, then the leaf test against
+// the best_t the earlier children left) and shifts their (t, pointer) into
+// the last two places of ct / cp, so that after the K / 2 pairs the
+// children stand in order in registers for the compare-swap network.  With
+// kRolled the pair loop stays a loop: the walk holds one copy of the pair's
+// code (two inline leaf tests) instead of K (K5, whose two walks and bounce
+// outgrow the instruction cache otherwise); K7 runs it unrolled.
+template <int K, bool kRolled = true>
+__device__ __forceinline__ void trav_step16(const WaveArgs& a,
+                                            const TravRay& r, int& cur,
+                                            int* stack, int& sp, float& best_t,
+                                            int& best_pt, int& best_pi,
+                                            int& ovf) {
+  using L = NodeLayout<K>;
+  const float4* row4 =
+      reinterpret_cast<const float4*>(a.nodes + (size_t)cur * L::row);
+  float ct[K];
+  int cp[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    ct[k] = PTT_INF;
+    cp[k] = 0;
+  }
+#pragma unroll(kRolled ? 1 : K / 2)
+  for (int q = 0; q < K / 2; ++q) {
+    const float4 b0 = ldg4(row4 + 3 * q), b1 = ldg4(row4 + 3 * q + 1),
+                 b2 = ldg4(row4 + 3 * q + 2);
+    const float4 pq = ldg4(row4 + L::ptr / 4 + q / 2);
+    const float box[12] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y,
+                           b1.z, b1.w, b2.x, b2.y, b2.z, b2.w};
+    const int ptr[2] = {(int)((q & 1) ? pq.z : pq.x),
+                        (int)((q & 1) ? pq.w : pq.y)};
+    float tq[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tn;
+      bool hi = hit_aabb(box + 6 * h, r.ox, r.oy, r.oz, r.ivx, r.ivy, r.ivz,
+                         r.t_min, best_t, tn);
+      hi = hi && ptr[h] < PTT_EMPTY_SLOT;
+      const bool is_leaf = ptr[h] < 0;
+      if (hi && is_leaf) {
+        const float4* p4 = row4 + L::pay / 4 + 4 * (2 * q + h);
+        const float4 p0 = ldg4(p4), p1 = ldg4(p4 + 1), p2 = ldg4(p4 + 2),
+                     p3 = ldg4(p4 + 3);
+        const float pr[16] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w,
+                              p2.x, p2.y, p2.z, p2.w, p3.x, p3.y, p3.z, p3.w};
+        float lt;
+        if (hit_prim_row(pr, a.prim_mask, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                         r.rr, r.time, r.t_min, best_t, lt) && lt < best_t) {
+          best_t = lt;
+          best_pt = (int)pr[0];
+          best_pi = (int)pr[1];
+        }
+      }
+      tq[h] = (hi && !is_leaf) ? tn : PTT_INF;
+    }
+#pragma unroll
+    for (int k = 0; k + 2 < K; ++k) {
+      ct[k] = ct[k + 2];
+      cp[k] = cp[k + 2];
+    }
+    ct[K - 2] = tq[0];
+    ct[K - 1] = tq[1];
+    cp[K - 2] = ptr[0];
+    cp[K - 1] = ptr[1];
+  }
+  sort_children<K>(ct, cp);
+#pragma unroll
+  for (int k = K - 1; k >= 1; --k) {
+    if (ct[k] < PTT_INF) {
+      if (sp < a.sd) stack[sp] = cp[k]; else ++ovf;
+      sp = sp + 1 < a.sd ? sp + 1 : a.sd;
+    }
+  }
+  if (ct[0] < PTT_INF) {
+    cur = cp[0];
+  } else if (sp > 0) {
+    cur = stack[sp - 1];
+    --sp;
+  } else {
+    cur = PTT_DONE;
+  }
+}
+
 // Start a closest-hit query from (o, d, time) at t_min: the first node, or
 // PTT_DONE with the root leaf already tested.
 __device__ __forceinline__ void trav_start(const WaveArgs& a, float ox,

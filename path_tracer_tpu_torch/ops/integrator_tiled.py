@@ -5,7 +5,8 @@ Port of ``path_tracer_tpu/ops/integrator_tiled.py``: ``closest_hit_batched``
 ``render_tiled`` (:159).  A chunk of lanes, each one (sample, pixel) path,
 runs exactly ``cfg.iters`` trips; a trip is the closest-hit query from
 ``t_min`` (K7), in a medium scene the volume-exit query from ``t_hit +
-1e-4`` of the lanes that hit (K7 again), then one bounce of every live lane
+1e-4`` of the lanes whose hit has a medium (K7 again, :func:`exit_lanes`),
+then one bounce of every live lane
 (K8: ``prim_medium_t`` of the exit hit, ``wave_rng``, ``bounce_shade_t``),
 and finished lanes keep their state.  The keys fold as the megakernel's
 (base → sample → pixel → iters), so the engine integrates
@@ -94,11 +95,18 @@ def closest_hit_plain(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
 
 
 def closest_hit_batched(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
-                        active=None, ctr=None):
+                        active=None, ctr=None, exit_of=None):
     """K7 wrapper: ``closest_hit_batched``'s query (the walk is
     zero-gradient, as JAX's stop-gradients make it); the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors.
+
+    ``exit_of`` makes it the volume-exit query of a trip: ``(eng, found,
+    pt, pi)``, the tiled engine and the main query's hit; a lane walks only
+    where :func:`exit_lanes` admits it (on the card the kernel reads the
+    hit's medium itself)."""
     if not ro.is_cuda:
+        if exit_of is not None:
+            active = exit_lanes(exit_of[0], active, *exit_of[1:])
         return closest_hit_plain(bvh, ro, rd, time, t_min, t_max, stack_depth,
                                  active, ctr)
     R, dev = ro.shape[0], ro.device
@@ -114,6 +122,8 @@ def closest_hit_batched(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
                       origin=ro, direction=rd, time=_lanes(time, R, dev),
                       q_tmin=_lanes(t_min, R, dev), q_active=active,
                       hit_found=found, hit_pt=pt, hit_pi=pi, hit_t=t)
+    kernels.set_gate(a, R, dev, *(() if exit_of is None else
+                                  (exit_of[0].tabs, *exit_of[2:])))
     kernels.set_stack(a, R, dev)
     kernels.launch_args("closest_hit", a, dev)
     return found, pt, pi, t
@@ -237,6 +247,15 @@ def tiled_trip(eng: TiledEngine, st: PathState, sample, pix, hit,
 # The engine.
 # ---------------------------------------------------------------------------
 
+def exit_lanes(eng: TiledEngine, alive, found, pt, pi):
+    """The lanes whose volume-exit query a trip walks: alive, with a hit
+    whose primitive has a medium (K5's rule, ``csrc/path.cuh``).  JAX walks
+    it on every live lane that hit, but the bounce reads the exit hit only
+    where the hit enters a medium (``bounce_shade_t``), so the images are
+    the same; only the walks' steps fall."""
+    return alive & found & (prim_medium_t(eng.tabs, pt, pi) >= 0)
+
+
 def trace_rays_tiled(eng: TiledEngine, path0: PathState, sample: int, pix,
                      ctr=None):
     """Trace the lanes' paths ``cfg.iters`` trips → their radiance (R, 3).
@@ -258,7 +277,8 @@ def trace_rays_tiled(eng: TiledEngine, path0: PathState, sample: int, pix,
         if eng.flags.has_medium:
             ext = closest_hit_batched(
                 bvh, s.origin, s.direction, s.time, t_hit + 1e-4, cfg.t_max,
-                cfg.stack_depth, active=s.alive & found, ctr=ctr)
+                cfg.stack_depth, active=s.alive, ctr=ctr,
+                exit_of=(eng, found, pt, pi))
         s = tiled_trip(eng, s, sample, pix, (found, pt, pi), ext, ctr=ctr)
     return s.color
 

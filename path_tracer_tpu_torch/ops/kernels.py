@@ -112,7 +112,7 @@ class WaveArgs(ctypes.Structure):
                              "exit_found", "exit_pt", "exit_pi", "exit_t",
                              "exit_med", "rec")]
         + [("pix_offset", _I), ("sample_dev", _P), ("tape", _P),
-           ("walk", _P)])
+           ("walk", _P), ("gate_pt", _P), ("gate_pi", _P)])
 
 
 def _nvcc() -> str:
@@ -383,6 +383,27 @@ def set_stack(a: WaveArgs, n: int, device) -> WaveArgs:
     return a
 
 
+def set_gate(a: WaveArgs, n: int, device, tabs=None, pt=None,
+             pi=None) -> WaveArgs:
+    """K7's volume-exit gate: the main query's hit ``(pt, pi)`` of ``n``
+    lanes (int32 on ``device``) and the shade tables ``tabs`` whose rows
+    give its medium, kept alive with ``a``; without them, no gate."""
+    if tabs is None:
+        a.gate_pt = a.gate_pi = None
+        a._keep_gate = None
+        return a
+    for t in (pt, pi):
+        if t.device != device or t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError(f"the gate's hit must be int32 ({n},) on "
+                             f"{device}")
+    a.gate_pt, a.gate_pi = _ptr(pt), _ptr(pi)
+    a.prim_tab = _ptr(tabs.prim)
+    a.n_sph, a.n_qd = tabs.n_sph, tabs.n_qd
+    a.n_prim_rows = tabs.prim.shape[0]
+    a._keep_gate = (pt, pi, tabs)
+    return a
+
+
 def query_args(bvh, t_max: float, sd: int) -> WaveArgs:
     """K7's argument block for a BVH alone (K7 reads no other table),
     cached on the BVH."""
@@ -530,6 +551,24 @@ def host_emulation_lanes():
     return {n: _emu_fn(lib, n) for n in ("closest_hit", "ring_hop",
                                          "tiled_trip", "tiled_trip_rec",
                                          "tiled_spawn")}
+
+
+def host_emulation_walk_step():
+    """One traversal step of every walking slot of a wave state, built for
+    the CPU (tests only): ``op(eng, ws, step)`` runs ``traverse.cuh``'s
+    ``trav_step`` (``step`` 0, K6's and K9's) or ``trav_step16`` (1: its
+    child loop rolled, K5's; 2: unrolled, K7's) on the state in place,
+    each slot's stack a row of ``ws.stack`` of ``eng.sd`` entries, steps
+    and dropped pushes into ``ws.ctr``."""
+    lib = host_emulation_lib()
+    fn = lib.emu_walk_step
+    fn.argtypes = [ctypes.POINTER(WaveArgs), _I]
+    fn.restype = _I
+
+    def op(eng, ws, step: int) -> None:
+        if fn(ctypes.byref(fill_args(eng, ws)), int(step)) != 0:
+            raise RuntimeError("the emulated walk step refused its arguments")
+    return op
 
 
 def _emu_fn(lib, name: str):

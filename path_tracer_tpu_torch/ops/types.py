@@ -230,5 +230,6 @@ C_N_ACT_END_B = 15  # K1 chunk scratch, buffer 1 (as C_N_ACT_END)
 C_WALK_STEPS = 16  # SSS-volumetric walking trips of kept lanes (B6)
 C_N_READY_B = 17   # K1 chunk scratch, buffer 1 (as C_N_READY)
 C_N_WALK_B = 18    # K1 chunk scratch, buffer 1 (as C_N_WALK)
-C_TICKET = 19      # K1: blocks done with the wave (clears the scratch)
-N_COUNTERS = 20
+C_TICKET = 19      # K1, K5: blocks done with the launch (clears the scratch)
+C_FETCH = 20       # K5: pixels taken in this launch (zero between launches)
+N_COUNTERS = 21

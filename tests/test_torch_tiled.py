@@ -6,6 +6,9 @@
 * Gradients of ``tex_c1``, ``mat_fuzz``, ``mat_ir``, ``sph_c0`` against
   ``jax.grad`` of JAX ``render_tiled`` at 16x8, depth 4, atol 2e-5 / rtol
   1e-3 (JAX's engine-to-engine limit, ``test_integrator_tiled.py:111-112``).
+* The volume-exit query walks only lanes whose hit has a medium: the image
+  is bit-equal to walking it on every lane that hit (JAX's mask), with
+  fewer traversal steps.
 * ``pix_idx``, pixel blocks and ``chunk_size`` change nothing.
 * The lane code of K7 (``closest_hit``), K9 (``ring_hop``), K8
   (``tiled_trip``, its rec variant) and the tiled spawn, built for the CPU
@@ -85,6 +88,40 @@ def test_render_tiled_matches_jax(world):
     if world == "all_materials":
         assert tf.has_sss and tf.has_medium and tf.has_noise
         assert int(stats["walk_steps"]) > 0
+
+
+def test_exit_query_only_where_read(monkeypatch):
+    """The volume-exit query walks only the live lanes whose hit has a
+    medium (``exit_lanes``): the image is bit-equal to walking it on every
+    live lane that hit (JAX's mask) and to JAX's within ATOL, with fewer
+    lanes walked and fewer traversal steps."""
+    (js, jf, jb, jc, jcfg), (ts, tf, tb, tc, tcfg) = _both(*_smoke_world(),
+                                                           32, 6)
+    assert tf.has_medium
+    key = jax.random.key(11)
+    walked = {}
+
+    def counted(tag, rule):
+        def mask(eng, alive, found, pt, pi):
+            m = rule(eng, alive, found, pt, pi)
+            walked[tag] = walked.get(tag, 0) + int(m.sum())
+            return m
+        return mask
+
+    masked = it.exit_lanes
+    monkeypatch.setattr(it, "exit_lanes", counted("medium", masked))
+    img, st = it.render_tiled(ts, tf, tb, tc, tcfg, _tkey(key), spp=2,
+                              with_stats=True)
+    monkeypatch.setattr(it, "exit_lanes", counted(
+        "found", lambda eng, alive, found, pt, pi: alive & found))
+    full, st_full = it.render_tiled(ts, tf, tb, tc, tcfg, _tkey(key), spp=2,
+                                    with_stats=True)
+    assert torch.equal(img, full)
+    assert 0 < walked["medium"] < walked["found"]
+    assert 0 < int(st["trav_steps"]) < int(st_full["trav_steps"])
+    assert int(st["walk_steps"]) == int(st_full["walk_steps"])
+    ref = np.asarray(jit_.render_tiled(js, jf, jb, jc, jcfg, key, spp=2))
+    np.testing.assert_allclose(img.numpy(), ref, atol=ATOL)
 
 
 def test_render_tiled_grads_match_jax():
@@ -190,6 +227,22 @@ def test_emulated_lane_kernels_match_plain(emu):
             hit_found=e_out[0], hit_pt=e_out[1], hit_pi=e_out[2],
             hit_t=e_out[3]))
         for x, y in zip(ext, e_out):
+            assert torch.equal(x, y), trip
+        # the exit query as the engine walks it: K7 gated on the main hit's
+        # medium (set_gate), the plain version on exit_lanes' mask
+        g_ext = it.closest_hit_plain(eng.bvh, st.origin, st.direction,
+                                     st.time, t_e, cfg.t_max,
+                                     cfg.stack_depth,
+                                     it.exit_lanes(eng, st.alive, *hit[:3]),
+                                     c_p)
+        g_out = [torch.empty_like(x) for x in g_ext]
+        a = _emu_args(eng, R, c_k, origin=st.origin, direction=st.direction,
+                      time=st.time, q_tmin=t_e, q_active=st.alive,
+                      hit_found=g_out[0], hit_pt=g_out[1], hit_pi=g_out[2],
+                      hit_t=g_out[3])
+        emu["closest_hit"](kernels.set_gate(a, R, torch.device("cpu"),
+                                            eng.tabs, hit[1], hit[2]))
+        for x, y in zip(g_ext, g_out):
             assert torch.equal(x, y), trip
         assert int(c_p[it.C_TRAV_STEPS]) == int(c_k[it.C_TRAV_STEPS]) > 0
         # K9: one hop from an empty bundle refines this stage's hits
@@ -322,6 +375,36 @@ def test_lane_kernels_match_plain_on_card(cuda_device):
         torch.testing.assert_close(z[same], x[same], rtol=1e-4, atol=1e-4)
     assert kernels.LAUNCHES["ring_hop"] > 0
     assert kernels.LAUNCHES["tiled_trip_rec"] > 0
+
+
+@pytest.mark.gpu
+def test_exit_gate_matches_mask_on_card(cuda_device):
+    """K7's volume-exit launch gated on the main hit's medium (``exit_of``)
+    against the plain version on ``exit_lanes``' mask, on the card: found,
+    pt, pi, t and the traversal steps exactly; fewer lanes walk than with
+    JAX's mask (every live lane that hit)."""
+    _, port = _both(*_smoke_world(), 64, 6)
+    ts, tf, tb, tc, tcfg = port
+    ts, tb, tc = ts.to(cuda_device), tb.to(cuda_device), tc.to(cuda_device)
+    eng = it.TiledEngine(ts, tf, tb, tc, tcfg,
+                         torch.tensor([0, 4], device=cuda_device))
+    R = tcfg.width * tcfg.height
+    pix = torch.arange(R, dtype=torch.int32, device=cuda_device)
+    st = it.tiled_spawn(eng, 0, pix)
+    t_min = torch.full((R,), tcfg.t_min, device=cuda_device)
+    hit = it.closest_hit_batched(tb, st.origin, st.direction, st.time, t_min,
+                                 tcfg.t_max, tcfg.stack_depth, active=st.alive)
+    mask = it.exit_lanes(eng, st.alive, *hit[:3])
+    assert 0 < int(mask.sum()) < int((st.alive & hit[0]).sum())
+    q = (tb, st.origin, st.direction, st.time, hit[3] + 1e-4, tcfg.t_max,
+         tcfg.stack_depth)
+    c_k, c_p = it.new_counters(cuda_device), it.new_counters(cuda_device)
+    ext = it.closest_hit_batched(*q, active=st.alive, ctr=c_k,
+                                 exit_of=(eng, *hit[:3]))
+    ref = it.closest_hit_plain(*q, active=mask, ctr=c_p)
+    for x, y in zip(ext, ref):
+        assert torch.equal(x, y)
+    assert torch.equal(c_k, c_p)
 
 
 def test_lane_kernels_refuse_a_bvh8():
