@@ -29,17 +29,18 @@
 // bounce (B4, shade_tiled.py:773) with its textures (B5), SSS walk (B6) and
 // refine_hit (traverse.py:558).
 //
-// One thread per pixel of a block (frame pixels pix_offset .. + npix; delta
-// is the block's (npix, 3)), one launch per sample, as K5: the thread replays
-// its path with K5's code (path.cuh, bounce.cuh with a recorder) and the
-// same key folds, recording one tape entry per trip, then sweeps the tape in
-// reverse.  Each instantiation is one of the node width K (4 or 8,
-// WaveArgs.branching) and of where the per-thread arrays live: local
-// memory when the walk's stack (sd), the tape (iters_cap entries) and, for
-// the full instantiation, the SSS walk record (sss_steps trips) fit
-// PTT_MEGA_STACK / PTT_TAPE_MAX / PTT_WALK_MAX, else the wrapper's
-// per-pixel buffers WaveArgs.stack, tape and walk (kGlobal; the wrapper
-// splits a frame whose buffers would not fit its budget into pixel blocks).
+// One launch per sample, as K5, over the npix pixels of a block (frame
+// pixels pix_offset .. + npix; delta is the block's (npix, 3)).  A lane
+// replays a pixel's path with K5's code (path.cuh path_trip, bounce.cuh
+// with a recorder) and the same key folds, recording one tape entry per
+// trip, then sweeps the tape in reverse.  Each instantiation is one of the
+// node width K (4 or 8, WaveArgs.branching) and of where the per-thread
+// arrays live: local memory when the walk's stack (sd), the tape (iters_cap
+// entries) and, for the full instantiation, the SSS walk record (sss_steps
+// trips) fit PTT_MEGA_STACK / PTT_TAPE_MAX / PTT_WALK_MAX, else the
+// wrapper's per-pixel buffers WaveArgs.stack, tape and walk (kGlobal; rows
+// indexed by block pixel; the wrapper splits a frame whose buffers would
+// not fit its budget into pixel blocks).
 //
 // Contributions go to the block's copy of the small gradient tables in
 // shared memory where they fit (48 KB: textures, then materials, media, the
@@ -54,12 +55,37 @@
 // divergence, ~220 fp32 ops per traversal step, ~1,920 per bounce); the
 // colour sweep adds a few dozen ops per trip, the full sweep a bounce's
 // recompute and its transpose per trip (several thousand ops on a marble
-// hit, whose turbulence is re-evaluated with its adjoint).  The tape adds to
-// K6's stack frame, not to K5's.
+// hit, whose turbulence is re-evaluated with its adjoint).  Measured on the
+// full instantiation (PERF.md): the sweep is ~72% of a launch, the replay
+// ~28%, the sink's atomics under the spread (16% on mesh_perlin_sss, whose
+// marble adds into the Perlin table).  The design:
+// - The replay's walks run trav_step16 with the pair loop rolled, as K5's
+//   (the kernel holds two walks, the bounce and the sweep).
+// - Work is fetched per pixel (fetch.cuh, K5's scheme): the grid is as
+//   many blocks as fit on the card at once, and each lane, when its
+//   pixel's sweep ends, takes the next pixel from ctr[C_FETCH] (one atomic
+//   per warp); the last block clears the counter.
+// - A lane runs its pixel as two loops, the replay's trips and then the
+//   sweep, so the lanes of a warp meet between them and each loop runs one
+//   kind of work at a time.
+// - Each resident block zeroes its shared tables once and flushes them
+//   once, at its end.
+// Measured slower and not used (PERF.md): the pixel as one loop of units
+// with a fetch after every unit (lanes that replay and lanes that sweep
+// diverge) or after the pixel; the pair loop unrolled; the 4-byte step;
+// the shared-table adds summed per warp first (__match_any_sync); the
+// texture adjoint as one called function.  Four blocks per SM (128
+// registers) were faster but spill, and no instantiation may.
 #include "bounce_adj.cuh"
+#include "fetch.cuh"
 #include "path.cuh"
 
 #define PTT_ADJ_SMEM_FLOATS 12288   // 48 KB of shared gradient tables
+#define PTT_ADJ_BLOCK 128
+// Blocks an SM holds at least (launch bounds): a register cap of 255.  With
+// the block size alone ptxas held the full instantiation to 128 registers
+// and spilled.
+#define PTT_ADJ_MIN_BLOCKS 2
 
 struct TapeEntry {
   float thr[3], e[3], c[3];
@@ -107,7 +133,7 @@ struct Tape {
   __device__ __forceinline__ void end() { ++n; }
 };
 
-// The full instantiation's recorder: trace_path hands it each trip's bounce
+// The full instantiation's recorder: path_trip hands it each trip's bounce
 // inputs; bounce() records nothing (kOn false compiles its hooks out).
 struct TripTape {
   static constexpr bool kOn = false;
@@ -132,18 +158,72 @@ struct TripTape {
   }
 };
 
-// Replay sample a.start_sample of pixel pix and add its colour-leaf
-// gradients to the sink.
-template <int K>
-__device__ __forceinline__ void adjoint_pixel(const WaveArgs& a, int pix,
-                                              int* stack, TapeEntry* tape,
-                                              const GradSink& sink) {
-  MegaCount c{0, 0, 0};
-  Tape rec{tape, 0};
+// A tape entry of the colour (TapeEntry) or the full instantiation (TripIn).
+template <bool kFull>
+struct AdjEntry {
+  using T = TapeEntry;
+};
+template <>
+struct AdjEntry<true> {
+  using T = TripIn;
+};
+
+// Where one lane stands in its pixel's work: the replay, trip by trip, one
+// tape entry per trip; then the sweep of the tape from its last entry.  In
+// the full sweep p.o / p.d / p.thr carry the adjoint of the next trip's
+// inputs (p.time stays the path's time).
+struct AdjLane {
+  int pix;      // block pixel
+  int n;        // tape entries recorded; in the sweep, entries left
+  bool sweep;
+  Key key_p;
   PathRegs p;
-  trace_path<K>(a, a.pix_offset + pix, stack, c, p, &rec);
-  const float d[3] = {a.delta[3 * (size_t)pix], a.delta[3 * (size_t)pix + 1],
-                      a.delta[3 * (size_t)pix + 2]};
+};
+
+// Start block pixel pix: its key and camera ray; a path that takes no trip
+// is done at once.
+__device__ __forceinline__ void adj_begin(const WaveArgs& a, int pix,
+                                          AdjLane& l) {
+  l.pix = pix;
+  l.n = 0;
+  path_begin(a, a.pix_offset + pix, l.key_p, l.p);
+  l.sweep = !path_runs(a, l.p);
+}
+
+// A replay trip of lane l's pixel, recorded on its tape (one entry); when
+// the path ends, the sweep starts (the full one from a zero adjoint).
+template <int K, bool kFull>
+__device__ __forceinline__ void adj_trip(const WaveArgs& a, AdjLane& l,
+                                         int* stack,
+                                         typename AdjEntry<kFull>::T* tape) {
+  PathRegs& p = l.p;
+  MegaCount c{0, 0, 0};
+  if constexpr (kFull) {
+    TripTape rec{tape, l.n};
+    path_trip<K, kStep16>(a, l.key_p, stack, c, p, &rec);
+    l.n = rec.n;
+  } else {
+    Tape rec{tape, l.n};
+    path_trip<K, kStep16>(a, l.key_p, stack, c, p, &rec);
+    l.n = rec.n;
+  }
+  if (!path_runs(a, p)) {
+    l.sweep = true;
+    if constexpr (kFull) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) p.o[k] = p.d[k] = p.thr[k] = 0.0f;
+    }
+  }
+}
+
+// The colour sweep, whole (a few dozen operations per entry): the colour
+// leaves' gradients of lane l's pixel.
+__device__ __forceinline__ void adj_colour_sweep(const WaveArgs& a,
+                                                 AdjLane& l,
+                                                 const TapeEntry* tape,
+                                                 const GradSink& sink) {
+  const float* dp = a.delta + 3 * (size_t)l.pix;
+  const float d[3] = {dp[0], dp[1], dp[2]};
   // Colour leaf src (texture.cuh texture_src), component k.
   auto add = [&](int src, int k, float v) {
     if (src >= 2 * a.n_tex) {
@@ -153,7 +233,7 @@ __device__ __forceinline__ void adjoint_pixel(const WaveArgs& a, int pix,
     }
   };
   float R[3] = {0.0f, 0.0f, 0.0f};
-  for (int j = rec.n - 1; j >= 0; --j) {
+  for (int j = l.n - 1; j >= 0; --j) {
     const TapeEntry& e = tape[j];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -165,28 +245,68 @@ __device__ __forceinline__ void adjoint_pixel(const WaveArgs& a, int pix,
       R[k] = e.e[k] + pow_int(e.c[k], e.m) * e.boost * R[k];
     }
   }
+  l.n = 0;
 }
 
-// Replay sample a.start_sample of pixel pix and add the gradients of every
-// leaf to the sink; with kGlobal the SSS walks record into `wrec`.
-template <int K, bool kGlobal>
-__device__ __forceinline__ void adjoint_pixel_full(const WaveArgs& a, int pix,
-                                                   int* stack, TripIn* trips,
-                                                   const GradSink& sink,
-                                                   float* wrec) {
-  MegaCount c{0, 0, 0};
-  TripTape rec{trips, 0};
-  PathRegs p;
-  trace_path<K>(a, a.pix_offset + pix, stack, c, p, &rec);
-  const Key key_p = path_key(a, a.start_sample, a.pix_offset + pix);
-  const float d[3] = {a.delta[3 * (size_t)pix], a.delta[3 * (size_t)pix + 1],
-                      a.delta[3 * (size_t)pix + 2]};
+// One entry of the full sweep: the transpose of lane l's last unswept trip,
+// every leaf's gradients added; with kGlobal the SSS walks record into
+// `wrec`.
+template <bool kGlobal>
+__device__ __forceinline__ void adj_full_sweep(const WaveArgs& a, AdjLane& l,
+                                               const TripIn* trips,
+                                               float* wrec,
+                                               const GradSink& sink) {
+  PathRegs& p = l.p;
+  const float* dp = a.delta + 3 * (size_t)l.pix;
+  const float d[3] = {dp[0], dp[1], dp[2]};
   PathAdj adj;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) adj.o[k] = adj.d[k] = adj.thr[k] = 0.0f;
-  for (int j = rec.n - 1; j >= 0; --j) {
-    bounce_adj<kGlobal>(a, trips[j], p.time, fold_in(key_p, (uint32_t)j), d,
-                        adj, sink, wrec);
+  for (int k = 0; k < 3; ++k) {
+    adj.o[k] = p.o[k];
+    adj.d[k] = p.d[k];
+    adj.thr[k] = p.thr[k];
+  }
+  --l.n;
+  bounce_adj<kGlobal>(a, trips[l.n], p.time, fold_in(l.key_p, (uint32_t)l.n),
+                      d, adj, sink, wrec);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p.o[k] = adj.o[k];
+    p.d[k] = adj.d[k];
+    p.thr[k] = adj.thr[k];
+  }
+}
+
+// The arrays of lane l's pixel: the lane's local ones (stack_l, tape_l) or,
+// with kGlobal, the pixel's rows of the per-pixel buffers.
+template <bool kGlobal, bool kFull>
+struct AdjArrays {
+  using E = typename AdjEntry<kFull>::T;
+  int* stack;
+  E* tape;
+  float* wrec;
+  __device__ __forceinline__ AdjArrays(const WaveArgs& a, int pix,
+                                       int* stack_l, E* tape_l)
+      : stack(kGlobal ? a.stack + (size_t)pix * a.sd : stack_l),
+        tape(kGlobal ? (E*)a.tape + (size_t)pix * a.iters_cap : tape_l),
+        wrec(kGlobal && kFull ? a.walk + (size_t)pix * a.sss_steps * 4
+                              : nullptr) {}
+};
+
+// Lane l's pixel to its end, as two loops (the kernel's lane): the replay,
+// then the sweep.  The lanes of a warp meet between the two, so each loop
+// runs one kind of unit at a time (one loop of units diverges between
+// lanes that replay and lanes that sweep).
+template <int K, bool kGlobal, bool kFull>
+__device__ __forceinline__ void adj_pixel(
+    const WaveArgs& a, AdjLane& l, int* stack_l,
+    typename AdjEntry<kFull>::T* tape_l, const GradSink& sink) {
+  const AdjArrays<kGlobal, kFull> r(a, l.pix, stack_l, tape_l);
+  while (!l.sweep) adj_trip<K, kFull>(a, l, r.stack, r.tape);
+  if constexpr (kFull) {
+    while (l.n > 0) adj_full_sweep<kGlobal>(a, l, r.tape, r.wrec, sink);
+  } else {
+    adj_colour_sweep(a, l, r.tape, sink);
   }
 }
 
@@ -209,32 +329,6 @@ __host__ __device__ __forceinline__ bool adjoint_global(const WaveArgs& a,
          (full && a.sss_steps > PTT_WALK_MAX);
 }
 
-// Pixel pix of the block (full or colour, local or per-pixel arrays).
-template <int K, bool kGlobal, bool kFull>
-__device__ __forceinline__ void adjoint_lane(const WaveArgs& a, int pix,
-                                             const GradSink& sink) {
-  if constexpr (kGlobal) {
-    int* stack = a.stack + (size_t)pix * a.sd;
-    if constexpr (kFull) {
-      TripIn* trips = (TripIn*)a.tape + (size_t)pix * a.iters_cap;
-      adjoint_pixel_full<K, true>(a, pix, stack, trips, sink,
-                                  a.walk + (size_t)pix * a.sss_steps * 4);
-    } else {
-      TapeEntry* tape = (TapeEntry*)a.tape + (size_t)pix * a.iters_cap;
-      adjoint_pixel<K>(a, pix, stack, tape, sink);
-    }
-  } else {
-    int stack[PTT_MEGA_STACK];
-    if constexpr (kFull) {
-      TripIn trips[PTT_TAPE_MAX];
-      adjoint_pixel_full<K, false>(a, pix, stack, trips, sink, nullptr);
-    } else {
-      TapeEntry tape[PTT_TAPE_MAX];
-      adjoint_pixel<K>(a, pix, stack, tape, sink);
-    }
-  }
-}
-
 // Bytes of one tape entry of the colour (full 0) or the full instantiation:
 // the wrapper sizes WaveArgs.tape by it.
 extern "C" int ptt_adjoint_entry_bytes(int full) {
@@ -248,9 +342,12 @@ __device__ __forceinline__ void flush_table(const float* s, float* g, int n) {
   }
 }
 
+// A resident block: its shared tables zeroed, its lanes' pixels fetched
+// and worked through, the tables flushed, the fetch counter closed.
 template <int K, bool kGlobal, bool kFull>
 __device__ __forceinline__ void adjoint_block(const WaveArgs& a,
                                               const SmemPlan& plan) {
+  using E = typename AdjEntry<kFull>::T;
   extern __shared__ float s_g[];
   for (int i = threadIdx.x; i < plan.floats; i += blockDim.x) s_g[i] = 0.0f;
   __syncthreads();
@@ -260,8 +357,23 @@ __device__ __forceinline__ void adjoint_block(const WaveArgs& a,
   if (plan.mat >= 0) sink.mat = s_g + plan.mat;
   if (plan.med >= 0) sink.med = s_g + plan.med;
   if (plan.perlin >= 0) sink.perlin = s_g + plan.perlin;
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix < a.npix) adjoint_lane<K, kGlobal, kFull>(a, pix, sink);
+  int stack_l[kGlobal ? 1 : PTT_MEGA_STACK];
+  E tape_l[kGlobal ? 1 : PTT_TAPE_MAX];
+  AdjLane l;
+  bool more = true;   // pixels may be left to take
+  for (;;) {
+    const unsigned int m = __ballot_sync(PTT_FULL_WARP, more);
+    if (m == 0u) break;
+    const long long q = warp_fetch(a, m);
+    if (more) {
+      if (q < a.npix) {
+        adj_begin(a, (int)q, l);
+        adj_pixel<K, kGlobal, kFull>(a, l, stack_l, tape_l, sink);
+      } else {
+        more = false;
+      }
+    }
+  }
   __syncthreads();
   if (plan.tex >= 0) flush_table(s_g + plan.tex, a.g_tex, a.n_tex * 9);
   if (plan.img >= 0) {
@@ -270,15 +382,18 @@ __device__ __forceinline__ void adjoint_block(const WaveArgs& a,
   if (plan.mat >= 0) flush_table(s_g + plan.mat, a.g_mat, a.n_mat * 8);
   if (plan.med >= 0) flush_table(s_g + plan.med, a.g_med, a.n_med * 2);
   if (plan.perlin >= 0) flush_table(s_g + plan.perlin, a.g_perlin, 256 * 4);
+  if (threadIdx.x == 0) fetch_close(a);
 }
 
 template <int K, bool kGlobal>
-__global__ void adjoint_kernel(WaveArgs a, SmemPlan plan) {
+__global__ void __launch_bounds__(PTT_ADJ_BLOCK, PTT_ADJ_MIN_BLOCKS)
+adjoint_kernel(WaveArgs a, SmemPlan plan) {
   adjoint_block<K, kGlobal, false>(a, plan);
 }
 
 template <int K, bool kGlobal>
-__global__ void adjoint_full_kernel(WaveArgs a, SmemPlan plan) {
+__global__ void __launch_bounds__(PTT_ADJ_BLOCK, PTT_ADJ_MIN_BLOCKS)
+adjoint_full_kernel(WaveArgs a, SmemPlan plan) {
   adjoint_block<K, kGlobal, true>(a, plan);
 }
 
@@ -301,19 +416,33 @@ static SmemPlan plan_smem(const WaveArgs* a, bool full) {
   return p;
 }
 
-template <int K, bool kGlobal>
-static void launch_adjoint_k(const WaveArgs* a, void* stream, bool full) {
-  const SmemPlan plan = plan_smem(a, full);
-  const int block = 128;
-  const int grid = (a->npix + block - 1) / block;
+// As many blocks as fit on the card at once (asked once per instantiation
+// and shared-table size), at most one pixel per thread.
+template <class F>
+static int launch_resident(F kernel, const WaveArgs* a, const SmemPlan& plan,
+                           void* stream, int& resident, int& resident_smem) {
   const size_t smem = sizeof(float) * (size_t)plan.floats;
-  if (full) {
-    adjoint_full_kernel<K, kGlobal>
-        <<<grid, block, smem, (cudaStream_t)stream>>>(*a, plan);
-  } else {
-    adjoint_kernel<K, kGlobal>
-        <<<grid, block, smem, (cudaStream_t)stream>>>(*a, plan);
+  if ((int)smem != resident_smem) {
+    resident = resident_blocks(kernel, PTT_ADJ_BLOCK, smem);
+    if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+    resident_smem = (int)smem;
   }
+  const int need = (a->npix + PTT_ADJ_BLOCK - 1) / PTT_ADJ_BLOCK;
+  const int grid = need < resident ? need : resident;
+  kernel<<<grid, PTT_ADJ_BLOCK, smem, (cudaStream_t)stream>>>(*a, plan);
+  return (int)cudaGetLastError();
+}
+
+template <int K, bool kGlobal>
+static int launch_adjoint_k(const WaveArgs* a, void* stream, bool full) {
+  static int resident[2] = {0, 0}, resident_smem[2] = {-1, -1};
+  const SmemPlan plan = plan_smem(a, full);
+  if (full) {
+    return launch_resident(adjoint_full_kernel<K, kGlobal>, a, plan, stream,
+                           resident[1], resident_smem[1]);
+  }
+  return launch_resident(adjoint_kernel<K, kGlobal>, a, plan, stream,
+                         resident[0], resident_smem[0]);
 }
 
 static int launch_adjoint(const WaveArgs* a, void* stream, bool full) {
@@ -324,13 +453,11 @@ static int launch_adjoint(const WaveArgs* a, void* stream, bool full) {
     return (int)cudaErrorInvalidValue;
   if (a->npix == 0) return 0;
   if (a->branching == 4) {
-    if (global) launch_adjoint_k<4, true>(a, stream, full);
-    else launch_adjoint_k<4, false>(a, stream, full);
-  } else {
-    if (global) launch_adjoint_k<8, true>(a, stream, full);
-    else launch_adjoint_k<8, false>(a, stream, full);
+    return global ? launch_adjoint_k<4, true>(a, stream, full)
+                  : launch_adjoint_k<4, false>(a, stream, full);
   }
-  return (int)cudaGetLastError();
+  return global ? launch_adjoint_k<8, true>(a, stream, full)
+                : launch_adjoint_k<8, false>(a, stream, full);
 }
 
 extern "C" int ptt_launch_adjoint(const WaveArgs* a, void* stream) {

@@ -37,7 +37,7 @@ struct PathRegs {
 };
 
 // The recorder K3 and K5 use: records nothing.  (kOn: colour events of
-// bounce(); kTrips: each trip's bounce inputs, recorded by trace_path.)
+// bounce(); kTrips: each trip's bounce inputs, recorded by path_trip.)
 struct NoTape {
   static constexpr bool kOn = false;
   static constexpr bool kTrips = false;

@@ -20,7 +20,12 @@
 // hit is closer than the carried best (hit_t), it refines the full hit
 // record from this stage's primitive rows (refine_hit_t, shade_tiled.py:155)
 // into rec and sets hit_found and hit_t; the carried bundle then moves to
-// the next stage (a point-to-point hop outside the kernel).
+// the next stage (a point-to-point hop outside the kernel).  Only a hit
+// strictly closer than the carried best is merged, so K9's walk starts with
+// best_t = min(t_max, hit_t) instead of t_max (JAX walks from t_max): a box
+// or primitive it prunes cannot hold a hit that would be merged, the merged
+// bundle is the same, and the walk takes fewer steps from the second hop on
+// (ring_hop_plain walks with the same bound, so the step counts agree).
 //
 // Traversal steps and dropped pushes are reduced per block and added to
 // ctr[C_TRAV_STEPS] and ctr[C_STACK_OVF].
@@ -28,13 +33,13 @@
 // Bound: as K5's walk, dependent node-row gathers (one 384-byte row per
 // step at K = 4, 736 at K = 8, the rows L2-resident) and divergence between
 // lanes whose walks end after different numbers of steps; ~220 fp32 ops per
-// step at K = 4.  K7 walks traverse.cuh's trav_step16, the node row in
+// step at K = 4.  K7 and K9 walk traverse.cuh's trav_step16, the node row in
 // 16-byte loads, with the pair loop unrolled: measured faster than rolled
 // here, where the kernel holds one walk and no bounce (K5, with two walks
-// and the bounce, runs it rolled).  K9 keeps the 4-byte step.  Measured
-// slower and not used (PERF.md): threads that take the next live lane from
-// a counter when their walk ends, step by step or a warp at a time, dead
-// lanes skipped 32 at a time.
+// and the bounce, runs it rolled).  Measured slower and not used
+// (PERF.md): threads that take the next live lane from a counter when
+// their walk ends, step by step or a warp at a time, dead lanes skipped 32
+// at a time.
 #include "path.cuh"
 
 // Whether K7 walks lane i's query: the lane is q_active and, in the
@@ -44,12 +49,13 @@ __device__ __forceinline__ bool closest_hit_live(const WaveArgs& a, int i) {
   return a.gate_pt == nullptr || medium_of(a, a.gate_pt[i], a.gate_pi[i]) >= 0;
 }
 
-// The query of lane i: walked to completion from its start by step S, or
-// no hit.
-template <int K, WalkStep S = kStep4>
+// The query of lane i over (its start, t_max): walked to completion by
+// step S, or no hit.
+template <int K, WalkStep S>
 __device__ __forceinline__ void query_lane(const WaveArgs& a, int i,
-                                           int* stack, MegaCount& c,
-                                           int& pt, int& pi, float& t) {
+                                           float t_max, int* stack,
+                                           MegaCount& c, int& pt, int& pi,
+                                           float& t) {
   pt = pi = -1;
   t = a.t_max;
   if (a.q_active != nullptr && !a.q_active[i]) return;
@@ -58,7 +64,7 @@ __device__ __forceinline__ void query_lane(const WaveArgs& a, int i,
   const float d[3] = {a.direction[3 * i], a.direction[3 * i + 1],
                       a.direction[3 * i + 2]};
   const float t_min = a.q_tmin != nullptr ? a.q_tmin[i] : a.t_min;
-  trav_full<K, S>(a, o, d, a.time[i], t_min, stack, t, pt, pi, c);
+  trav_full<K, S>(a, o, d, a.time[i], t_min, t_max, stack, t, pt, pi, c);
 }
 
 // K7's lane: the query's result, or no hit where K7 does not walk it.
@@ -68,20 +74,23 @@ __device__ __forceinline__ void closest_hit_lane(const WaveArgs& a, int i,
   int pt = -1, pi = -1;
   float t = a.t_max;
   if (closest_hit_live(a, i))
-    query_lane<K, kStep16Unrolled>(a, i, stack, c, pt, pi, t);
+    query_lane<K, kStep16Unrolled>(a, i, a.t_max, stack, c, pt, pi, t);
   a.hit_found[i] = pt >= 0;
   a.hit_pt[i] = pt;
   a.hit_pi[i] = pi;
   a.hit_t[i] = t;
 }
 
-// K9's lane: the query, merged into the carried best where it is closer.
+// K9's lane: the query, bounded by the carried best (only a strictly closer
+// hit is merged, so nothing beyond it is walked), merged into the carried
+// best where it is closer.
 template <int K>
 __device__ __forceinline__ void ring_hop_lane(const WaveArgs& a, int i,
                                               int* stack, MegaCount& c) {
   int pt, pi;
   float t;
-  query_lane<K>(a, i, stack, c, pt, pi, t);
+  query_lane<K, kStep16Unrolled>(a, i, fminf(a.t_max, a.hit_t[i]), stack, c,
+                                 pt, pi, t);
   if (!(pt >= 0 && t < a.hit_t[i])) return;
   const float t_min = a.q_tmin != nullptr ? a.q_tmin[i] : a.t_min;
   const Hit h = refine_hit(a, pt, pi, a.origin[3 * i], a.origin[3 * i + 1],

@@ -2,9 +2,10 @@
 //
 // The CUDA sources keep each kernel's per-slot work in a __device__
 // function (walk_chunk, shade_lane, retire_lane, spawn_lane, mega_pixel,
-// adjoint_pixel, adjoint_pixel_full, closest_hit_lane, ring_hop_lane,
+// adj_begin / adj_trip / adj_*_sweep, closest_hit_lane, ring_hop_lane,
 // tiled_lane; the walks' steps trav_step and trav_step16) and only the
-// grid plumbing (and K5's work fetching) in the __global__ wrapper.
+// grid plumbing (and K5's and K6's work fetching) in the __global__
+// wrapper.
 // Compiled by a host C++ compiler with PTT_HOST_EMULATION defined, the same
 // per-slot code runs here in a loop over slots, so the CPU test suite holds
 // the kernel sources — not only their plain-torch twins — against the JAX
@@ -138,28 +139,66 @@ extern "C" int emu_megakernel(WaveArgs* a) {
   return 0;
 }
 
-// K6 over the block's pixels in order, by the launcher's instantiation.
-template <int K, bool kFull>
+// K6's lane code over a launch's pixels: a simulated warp of kEmuLanes
+// lanes, each with its own local arrays, in turns.  At each turn the lanes
+// that need work take the next pixels from a shared counter in lane order
+// (as warp_fetch hands them out), then every lane with a pixel runs one
+// unit of it: a replay trip, or the sweep (the colour sweep whole, one
+// entry of the full one).  So pixels start and end out of order, their
+// gradients add in another order than the kernel's, and a lane's arrays
+// carry over from one pixel to the next (the kernel's lane runs each pixel
+// to its end, adj_pixel, from the same units).
+constexpr int kEmuLanes = 32;
+
+template <int K, bool kGlobal, bool kFull>
 static void emu_adjoint_k(WaveArgs* a) {
+  using E = typename AdjEntry<kFull>::T;
   const GradSink sink = global_sink(*a);
-  const bool global = adjoint_global(*a, kFull);
-  for (int pix = 0; pix < a->npix; ++pix) {
-    if (global) {
-      adjoint_lane<K, true, kFull>(*a, pix, sink);
-    } else {
-      adjoint_lane<K, false, kFull>(*a, pix, sink);
+  std::vector<AdjLane> l(kEmuLanes);   // pix -1: no pixel
+  std::vector<int> stacks(kGlobal ? 1 : (size_t)kEmuLanes * PTT_MEGA_STACK);
+  std::vector<E> tapes(kGlobal ? 1 : (size_t)kEmuLanes * PTT_TAPE_MAX);
+  for (AdjLane& x : l) x.pix = -1;
+  int next = 0;
+  for (bool busy = true; busy;) {
+    busy = false;
+    for (int i = 0; i < kEmuLanes; ++i) {
+      if (l[i].pix < 0 && next < a->npix) adj_begin(*a, next++, l[i]);
+    }
+    for (int i = 0; i < kEmuLanes; ++i) {
+      AdjLane& x = l[i];
+      if (x.pix < 0) continue;
+      busy = true;
+      const AdjArrays<kGlobal, kFull> r(
+          *a, x.pix, kGlobal ? nullptr : &stacks[(size_t)i * PTT_MEGA_STACK],
+          kGlobal ? nullptr : &tapes[(size_t)i * PTT_TAPE_MAX]);
+      if (!x.sweep) {
+        adj_trip<K, kFull>(*a, x, r.stack, r.tape);
+      } else if (x.n > 0) {
+        if constexpr (kFull) {
+          adj_full_sweep<kGlobal>(*a, x, r.tape, r.wrec, sink);
+        } else {
+          adj_colour_sweep(*a, x, r.tape, sink);
+        }
+      }
+      if (x.sweep && x.n == 0) x.pix = -1;
     }
   }
 }
 
 template <bool kFull>
 static int emu_adjoint_any(WaveArgs* a) {
-  if (adjoint_global(*a, kFull) &&
-      (a->tape == nullptr || (kFull && a->sss_steps > 0 && a->walk == nullptr)))
+  const bool global = adjoint_global(*a, kFull);
+  if ((global &&
+       (a->tape == nullptr || (kFull && a->sss_steps > 0 && a->walk == nullptr))) ||
+      !walk_args_ok(a, global))
     return 1;
-  if (!walk_args_ok(a, adjoint_global(*a, kFull))) return 1;
-  if (a->branching == 4) emu_adjoint_k<4, kFull>(a);
-  else emu_adjoint_k<8, kFull>(a);
+  if (a->branching == 4) {
+    if (global) emu_adjoint_k<4, true, kFull>(a);
+    else emu_adjoint_k<4, false, kFull>(a);
+  } else {
+    if (global) emu_adjoint_k<8, true, kFull>(a);
+    else emu_adjoint_k<8, false, kFull>(a);
+  }
   return 0;
 }
 

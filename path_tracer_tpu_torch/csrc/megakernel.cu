@@ -40,6 +40,7 @@
 // Measured slower and not used (PERF.md): persistent warps that take 32
 // pixels at a time and trace each path to its end; the walk's stack in
 // shared memory; the pair loop unrolled.
+#include "fetch.cuh"
 #include "path.cuh"
 
 #define PTT_MEGA_BLOCK 128
@@ -83,43 +84,6 @@ __device__ __forceinline__ int mega_pixel(const WaveArgs& a, int pix,
 }
 
 #ifndef PTT_HOST_EMULATION
-#define PTT_FULL_WARP 0xffffffffu
-
-// The warp's lanes in m (every lane of the warp calls this, m the same in
-// all) take consecutive pixels from ctr[C_FETCH] with one atomic; returns
-// this lane's pixel (meaningful where its bit is in m).
-__device__ __forceinline__ long long warp_fetch(const WaveArgs& a,
-                                                unsigned int m) {
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(m) - 1;
-  unsigned long long base = 0ull;
-  if (lane == leader)
-    base = atomicAdd((unsigned long long*)a.ctr + C_FETCH,
-                     (unsigned long long)__popc(m));
-  base = __shfl_sync(PTT_FULL_WARP, base, leader);
-  return (long long)base + __popc(m & ((1u << lane) - 1u));
-}
-
-// Sum of v over the warp.
-__device__ __forceinline__ long long warp_sum64(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(PTT_FULL_WARP, v, o);
-  return v;
-}
-
-// A block's end, by one thread after the block's last fetch: the last
-// block of the launch clears the fetch counter and the ticket, so that
-// every launch (and every replay of a graph that holds it) starts from 0.
-__device__ __forceinline__ void fetch_close(const WaveArgs& a) {
-  __threadfence();
-  unsigned long long* c = (unsigned long long*)a.ctr;
-  if (atomicAdd(c + C_TICKET, 1ull) + 1 != (unsigned long long)gridDim.x)
-    return;
-  volatile long long* v = a.ctr;
-  v[C_FETCH] = 0;
-  v[C_TICKET] = 0;
-}
-
 template <int K, bool kGlobal>
 __global__ void __launch_bounds__(PTT_MEGA_BLOCK)
 megakernel_kernel(WaveArgs a) {
@@ -187,20 +151,6 @@ megakernel_kernel(WaveArgs a) {
     }
     fetch_close(a);
   }
-}
-
-// Blocks of `kernel` (block threads, smem dynamic shared bytes) that fit on
-// the card at once, or 0 on an error.
-template <class F>
-static int resident_blocks(F kernel, int block, size_t smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block,
-                                                    smem) != cudaSuccess)
-    return 0;
-  return per_sm * sms;
 }
 
 // As many blocks as fit on the card at once (asked once per instantiation

@@ -192,15 +192,15 @@ __device__ __forceinline__ void trav_step16(const WaveArgs& a,
   }
 }
 
-// Start a closest-hit query from (o, d, time) at t_min: the first node, or
-// PTT_DONE with the root leaf already tested.
+// Start a closest-hit query from (o, d, time) over (t_min, t_max): the
+// first node, or PTT_DONE with the root leaf already tested.
 __device__ __forceinline__ void trav_start(const WaveArgs& a, float ox,
                                            float oy, float oz, float dx,
                                            float dy, float dz, float time,
-                                           float t_min, int& cur,
+                                           float t_min, float t_max, int& cur,
                                            float& best_t, int& best_pt,
                                            int& best_pi) {
-  best_t = a.t_max;
+  best_t = t_max;
   best_pt = -1;
   best_pi = -1;
   cur = a.root;
@@ -227,8 +227,8 @@ __device__ __forceinline__ void trav_init(const WaveArgs& a, int i, float ox,
                                           float t_min) {
   int cur, best_pt, best_pi;
   float best_t;
-  trav_start(a, ox, oy, oz, dx, dy, dz, time, t_min, cur, best_t, best_pt,
-             best_pi);
+  trav_start(a, ox, oy, oz, dx, dy, dz, time, t_min, a.t_max, cur, best_t,
+             best_pt, best_pi);
   a.cur[i] = cur;
   a.sp[i] = 0;
   a.best_t[i] = best_t;

@@ -82,13 +82,15 @@ def _lanes(x, n, device) -> torch.Tensor:
 def closest_hit_plain(bvh, ro, rd, time, t_min, t_max, stack_depth: int,
                       active=None, ctr=None):
     """Plain version of K7 → ``(found, prim_type, prim_idx, t)``, all (R,):
-    the walk to completion from the per-lane ``t_min``; a lane not
-    ``active`` does not walk and reports no hit (pt = pi = -1, t = t_max).
-    Walking-lane steps are added to ``ctr[C_TRAV_STEPS]``."""
+    the walk to completion from the per-lane ``t_min`` to ``t_max`` (a
+    scalar, or per lane); a lane not ``active`` does not walk and reports no
+    hit (pt = pi = -1, t = t_max).  Walking-lane steps are added to
+    ``ctr[C_TRAV_STEPS]``."""
     found, pt, pi, t, steps = _traverse_impl(bvh, ro, rd, time, t_min, t_max,
                                              stack_depth, active)
     if active is not None:
-        t = torch.where(active, t, torch.full_like(t, t_max))
+        t = torch.where(active, t, torch.as_tensor(t_max, dtype=t.dtype,
+                                                   device=t.device))
     if ctr is not None:
         ctr[C_TRAV_STEPS] += steps
     return found, pt, pi, t

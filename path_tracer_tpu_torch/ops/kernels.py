@@ -556,8 +556,9 @@ def host_emulation_lanes():
 def host_emulation_walk_step():
     """One traversal step of every walking slot of a wave state, built for
     the CPU (tests only): ``op(eng, ws, step)`` runs ``traverse.cuh``'s
-    ``trav_step`` (``step`` 0, K6's and K9's) or ``trav_step16`` (1: its
-    child loop rolled, K5's; 2: unrolled, K7's) on the state in place,
+    ``trav_step`` (``step`` 0, the reference) or ``trav_step16`` (1: its
+    child loop rolled, K5's and K6's; 2: unrolled, K7's and K9's) on the
+    state in place,
     each slot's stack a row of ``ws.stack`` of ``eng.sd`` entries, steps
     and dropped pushes into ``ws.ctr``."""
     lib = host_emulation_lib()
@@ -585,11 +586,14 @@ def _emu_fn(lib, name: str):
 
 
 def host_emulation_adjoint(full: bool = False, budget: int | None = None):
-    """K6's per-pixel code compiled for the CPU (tests only), the colour
-    or the ``full`` instantiation: an op with the signature of
+    """K6's lane code compiled for the CPU (tests only), the colour or the
+    ``full`` instantiation: an op with the signature of
     :func:`~.adjoint.adjoint` (``op(engine, mega_state, sample, delta,
     bufs)``) on CPU tensors, run as the wrapper runs the kernel (per-pixel
-    buffers and pixel blocks within ``budget`` bytes)."""
+    buffers and pixel blocks within ``budget`` bytes).  A launch's pixels
+    go through a simulated warp of lanes that take them from a counter as
+    the kernel's lanes do, one unit of work a turn, so they finish out of
+    order."""
     from .adjoint import run_adjoint
     lib = host_emulation_lib()
     fn = _emu_fn(lib, "adjoint_full" if full else "adjoint")

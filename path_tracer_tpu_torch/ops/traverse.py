@@ -80,7 +80,8 @@ def _lanes(x, R, dtype, device):
 
 def traversal_init_batched(bvh: PackedBVH, ro, rd, time, t_min, t_max,
                            stack_depth: int) -> TravState:
-    """Start R closest-hit queries (handles the single-prim root-leaf case)."""
+    """Start R closest-hit queries over (``t_min``, ``t_max``), each a
+    scalar or per lane (handles the single-prim root-leaf case)."""
     sd = min(stack_depth, bvh.max_stack)
     R = ro.shape[0]
     dev = ro.device
@@ -89,7 +90,7 @@ def traversal_init_batched(bvh: PackedBVH, ro, rd, time, t_min, t_max,
     rr = rdx * rdx + rdy * rdy + rdz * rdz
     time = _lanes(time, R, torch.float32, dev)
     t_min = _lanes(t_min, R, torch.float32, dev)
-    best_t = torch.full((R,), t_max, dtype=torch.float32, device=dev)
+    best_t = _lanes(t_max, R, torch.float32, dev).clone()
     root = bvh.root.to(dev)
     root_leaf = root < 0
     uid = torch.clamp(-root - 1, 0, bvh.prims.shape[0] - 1)

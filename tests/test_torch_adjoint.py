@@ -1,6 +1,7 @@
-"""K6's full instantiation (``csrc/adjoint.cu`` ``adjoint_pixel_full``,
-built by g++ through ``csrc/host_emulation.cpp``) against the plain path,
-and the gradient buffers' map to the leaves.
+"""K6's full instantiation (``csrc/adjoint.cu``'s lane code, built by g++
+through ``csrc/host_emulation.cpp``, which runs a launch's pixels as a
+simulated warp of 32 lanes that fetch them out of order) against the
+plain path, and the gradient buffers' map to the leaves.
 
 * ``emu_adjoint_full`` with every floating leaf against ``plain_vjp``
   (autograd of the megakernel twin's replay, itself held against
@@ -18,6 +19,8 @@ and the gradient buffers' map to the leaves.
 * The full instantiation against the colour one on the colour leaves
   (relative L2 ≤ 1e-5: the same path, the colour sweep's products in
   another order).
+* Both instantiations at K = 4 and 8 on vol2_final: per leaf within 1e-4
+  of the plain path.
 * ``leaf_grads`` against autograd of ``make_tables`` (with ``mat_table``
   and ``med_table``), the atlas and the Perlin table, contracted with
   random buffers: equal.
@@ -58,11 +61,12 @@ def _scene(name):
     return (*getattr(ptt.scenes, name)(), depth)
 
 
-def _engine(name):
+def _engine(name, branching=4):
     world, cam, depth = _scene(name)
     cam.img_width, cam.aspect_ratio = W, W / H
     sc = ptt.compile_scene(world, device="cpu")
-    return tint.MegaEngine(sc, TFlags.from_scene(sc), ptt.build_from_scene(sc),
+    return tint.MegaEngine(sc, TFlags.from_scene(sc),
+                           ptt.build_from_scene(sc, branching),
                            cam.initialize(device="cpu"),
                            TCfg(width=W, height=H, samples_per_pixel=SPP,
                                 max_depth=depth), trng.key(0))
@@ -108,6 +112,49 @@ def test_emulated_full_adjoint_matches_plain_path(emu, name):
         for n in SETUPS[name][3]:
             if n not in ("qd_q", "qd_u", "qd_v", "qd_w"):
                 assert float(E[n].abs().sum()) > 0, n
+
+
+_PLAIN = {}
+
+
+def _plain_sample0(emu_mega, branching):
+    """vol2_final_scene(sphere_cluster=20) at K = ``branching``, sample 0:
+    the engine, its state, the delta (0 where the emulated K5 and the twin
+    disagree, as above) and the plain path's gradient buffers."""
+    if branching not in _PLAIN:
+        eng = _engine("vol2_final_scene", branching)
+        mk, mp = (eng.init_state(torch.zeros((W * H, 3))) for _ in range(2))
+        emu_mega(eng, mk, 0)
+        tint.megakernel_plain(eng, mp, 0)
+        same = (mk.color == mp.color).all(-1)
+        assert int((~same).sum()) <= 0.05 * W * H
+        d = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (W * H, 3)).astype(np.float32)) * same[:, None]
+        gp = adjoint.grad_buffers(eng.scene)
+        adjoint.adjoint(eng, mp, 0, d, gp, full=True)       # plain on CPU
+        _PLAIN[branching] = (eng, mp, d, gp)
+    return _PLAIN[branching]
+
+
+@pytest.mark.parametrize("branching", [4, 8])
+@pytest.mark.parametrize("full", [True, False], ids=["full", "colour"])
+def test_emulated_adjoint_in_fetch_order_matches_plain(emu, full, branching):
+    """K6's lanes as the kernel's take their pixels: a simulated warp that
+    fetches pixels from a counter when its lanes' work ends and runs one
+    unit (a replay trip, a sweep unit) a turn, so pixels start and end out
+    of order and a lane's tape and stack carry over from pixel to pixel.
+    Both instantiations at K = 4 and 8 on vol2_final: per leaf within the
+    tolerance above of the plain path."""
+    eng, mp, d, gp = _plain_sample0(emu[2], branching)
+    g = adjoint.grad_buffers(eng.scene)
+    kernels.host_emulation_adjoint(full=full)(eng, mp, 0, d, g)
+    P, E = (adjoint.leaf_grads(eng.scene, x) for x in (gp, g))
+    for n in adjoint.FLOAT_LEAVES if full else adjoint.COLOUR_LEAVES:
+        assert bool(torch.isfinite(E[n]).all()), n
+        assert float((E[n] - P[n]).norm()) <= 1e-4 * float(P[n].norm()), n
+    assert float(E["img_data"].abs().sum()) > 0
+    if full:
+        assert float(E["sph_c0"].abs().sum()) > 0
 
 
 @pytest.mark.parametrize("name", ["mesh_perlin_sss", "cornell_smoke"])

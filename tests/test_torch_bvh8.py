@@ -13,8 +13,8 @@ and walking kernels, against the JAX package and the twins.
   spheres over a BVH8 against ``jax.grad`` over JAX's (atol 2e-5, rtol
   1e-3, ``tests/test_torch_grad.py``) and against the port's over a BVH4
   (bit for bit).
-* The per-lane code of K5 (``mega_pixel``), K6 (``adjoint_pixel``,
-  ``adjoint_pixel_full``), K7 (``closest_hit_lane``) and K9
+* The per-lane code of K5 (``mega_pixel``), K6 (``adj_begin`` /
+  ``adj_trip`` and the sweeps, both instantiations), K7 (``closest_hit_lane``) and K9
   (``ring_hop_lane``) at K = 8, built by g++ (``csrc/host_emulation.cpp``),
   against their twins, with the tolerances of the BVH4 tests of the same
   code (``tests/test_torch_{megakernel,adjoint,tiled}.py``).  K1's wave

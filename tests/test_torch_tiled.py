@@ -290,6 +290,84 @@ def test_emulated_lane_kernels_match_plain(emu):
 # On the card.
 # ---------------------------------------------------------------------------
 
+def _hop_unbounded(eng, ray, carry, ctr):
+    """One ring hop as JAX takes it (``parallel/pipeline.py:80-90``): the
+    stage's walk to t_max, its hit refined, merged where strictly closer."""
+    ro, rd, time, t_min, active = ray
+    fnd, tbest, rec = carry
+    found, pt, pi, t = it.closest_hit_plain(eng.bvh, ro, rd, time, t_min,
+                                            eng.cfg.t_max,
+                                            eng.cfg.stack_depth, active, ctr)
+    loc = refine_hit_t(eng.tabs, pt, pi, *ro.unbind(-1), *rd.unbind(-1), time,
+                       t_min)
+    better = found & (t < tbest)
+    return (fnd | better, torch.where(better, t, tbest),
+            torch.where(better[:, None], it.rec_to_rows(loc), rec))
+
+
+@pytest.mark.parametrize("branching", [4, 8])
+def test_emulated_ring_hop_walks_to_the_carried_best(emu, branching):
+    """K9's walk ends at the carried best.  Over a two-shard ring of
+    vol2_final (its glass ball held twice, in both shards, so hits tie
+    exactly across stages), the main and the volume-exit query of the
+    camera rays: after each hop the bounded plain version's bundle equals
+    the unbounded hop's bit for bit, the g++-built K9's found and t equal it
+    exactly and its record within the last bit of the host's libm; the
+    kernel's traversal steps equal the bounded plain version's, the same as
+    the unbounded walk's on the first hop (from an empty bundle) and fewer
+    on the second."""
+    from path_tracer_tpu_torch.parallel import shard_scene
+    from path_tracer_tpu_torch.parallel.scene_shard import local_shard
+    world, cam = ptt.scenes.vol2_final_scene(sphere_cluster=20)
+    W, H = 32, 18
+    cam.aspect_ratio, cam.img_width = W / H, W
+    sc = ptt.compile_scene(world, device="cpu")
+    flags, cam_a = TFlags.from_scene(sc), cam.initialize(device="cpu")
+    cfg = TCfg(width=W, height=H, samples_per_pixel=1, max_depth=10)
+    sc_t, bv_t = shard_scene(sc, 2, branching=branching)
+    key = torch.tensor([0, 7])
+    engs = []
+    for r in range(2):
+        sc_l, bv_l = local_shard(sc_t, bv_t, r)
+        engs.append(it.TiledEngine(sc_l, flags, bv_l, cam_a, cfg, key))
+    R = W * H
+    st = it.tiled_spawn(engs[0], 0, torch.arange(R, dtype=torch.int32))
+    t_main = torch.full((R,), cfg.t_min)
+    queries = [(t_main, st.alive)]
+    pruned = 0
+    for q in range(2):
+        t_min, active = queries[q]
+        ray = (st.origin, st.direction, st.time, t_min, active)
+        carry = (torch.zeros((R,), dtype=torch.bool),
+                 torch.full((R,), 1e30), pipeline._empty_rec(R, "cpu"))
+        for hop, eng in enumerate(engs):
+            c_u, c_p, c_k = (it.new_counters("cpu") for _ in range(3))
+            ref = _hop_unbounded(eng, ray, carry, c_u)
+            plain = tuple(x.clone() for x in carry)
+            pipeline.ring_hop_plain(eng, *ray, *plain, ctr=c_p)
+            kern = tuple(x.clone() for x in carry)
+            emu["ring_hop"](_emu_args(
+                eng, R, c_k, origin=st.origin, direction=st.direction,
+                time=st.time, q_tmin=t_min, q_active=active,
+                hit_found=kern[0], hit_t=kern[1], rec=kern[2]))
+            for x, y in zip(plain, ref):
+                assert torch.equal(x, y), (q, hop)
+            assert torch.equal(kern[0], ref[0]) and torch.equal(kern[1],
+                                                                ref[1])
+            torch.testing.assert_close(kern[2], ref[2], rtol=1e-5, atol=1e-5)
+            steps = [int(c[it.C_TRAV_STEPS]) for c in (c_u, c_p, c_k)]
+            assert steps[2] == steps[1] > 0, (q, hop, steps)
+            if hop == 0:
+                assert steps[1] == steps[0], (q, steps)
+            else:
+                assert steps[1] < steps[0], (q, steps)
+                pruned += steps[0] - steps[1]
+            carry = ref
+        if q == 0:
+            queries.append((carry[1] + 1e-4, active & carry[0]))
+    assert pruned > 0
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

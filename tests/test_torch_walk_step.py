@@ -1,9 +1,10 @@
 """The walks' 16-byte traversal step against the 4-byte one, step by step.
 
 ``csrc/traverse.cuh`` holds two steps of the closest-hit walk: ``trav_step``
-(4-byte loads of the node row, the child loop unrolled; K6 and K9 walk it)
-and ``trav_step16`` (16-byte loads, the children tested in pairs; K5 walks
-it with the pair loop rolled, K7 unrolled, and both are checked).  Built by g++ (``csrc/host_emulation.cpp``), each runs one step of
+(4-byte loads of the node row, the child loop unrolled; the reference
+here) and ``trav_step16`` (16-byte loads, the children tested in pairs;
+K5 and K6 walk it with the pair loop rolled, K7 and K9 unrolled, and both
+are checked).  Built by g++ (``csrc/host_emulation.cpp``), each runs one step of
 every walking slot of the same mid-flight wave state, and the states after
 the step must be equal exactly: node, stack, ``sp``, ``best_t``, the best
 primitive and the counters (steps, dropped pushes).  On vol2_final pools at
