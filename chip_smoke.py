@@ -20,10 +20,11 @@ Phases (each prints its own line; any failure exits non-zero):
                 on a mid-flight wave state of mesh_perlin_sss at 400x225,
                 and K5 against its twin on one 400x225 sample of it: both
                 run the SSS walk there; time each (CUDA events, median of
-                25 launches, host launch work included), and K4 and P0
-                with their library calls (index_add_, index_select) in
-                device ms per call: 20 calls captured in one CUDA graph
-                and replayed.
+                25 launches, host launch work included), and K3, K4, K2
+                (on the control wave's state) and P0 in device ms per
+                call, K4 and P0 beside their library calls (index_add_,
+                index_select): 20 calls captured in one CUDA graph and
+                replayed.
 4. main       — render vol2_final_scene(sphere_cluster=1000) at 800x450,
                 10 spp, depth 10 through Renderer(engine="wavefront") (K1-K4
                 in the device wave loop) after a warm-up; print wall time,
@@ -749,6 +750,18 @@ def main() -> int:
         for f in src.__dataclass_fields__:
             getattr(dst, f).copy_(getattr(src, f))
 
+    def kernel_graph_ms(name, snap_):
+        """Device ms per launch of ``name`` on ``snap_``: N_GRAPH launches
+        on as many copies in one CUDA graph, each copy restored first."""
+        copies = [snap_.clone() for _ in range(N_GRAPH)]
+        c_args = [kernels.make_args(eng, c) for c in copies]
+        ms_ = graph_ms([lambda c=c, a_=a_: kernels.launch(name, eng, c,
+                                                          args=a_)
+                        for c, a_ in zip(copies, c_args)],
+                       lambda: [restore(c, snap_) for c in copies])
+        del copies, c_args
+        return ms_
+
     def time_pair(name, plain_fn, snap, work):
         ms = cuda_ms(lambda: kernels.launch(name, eng, work),
                      setup=lambda: restore(work, snap))
@@ -825,13 +838,16 @@ def main() -> int:
         for f in ("origin", "direction", "color", "throughput"))
     work = snap.clone()
     ms, pms = time_pair("shade", shade_tiled.shade_plain, snap, work)
+    dev_ms = kernel_graph_ms("shade", snap)
     byts = n_ready * (2 * 96 + 72 + 32 + 36 + 12)
     ops = n_ready * (600 + 12 * 110)
     results["shade"] = dict(ok=ok, err=err, ms=ms, plain_ms=pms, bytes=byts,
-                            ops=ops, library_ms=None)
+                            ops=ops, library_ms=None, graph_device_ms=dev_ms)
     phase("kernels", f"shade: {n_ready} ready lanes, alive/depth/flag match "
           f"{frac:.6f}, float max abs err {err:.2e}, {ms:.3f} ms "
-          f"(twin {pms:.2f} ms) {'PASS' if ok else 'FAIL'}")
+          f"(twin {pms:.2f} ms); device ms per call in a CUDA graph of "
+          f"{N_GRAPH} on this control wave's state {dev_ms:.5f} "
+          f"{'PASS' if ok else 'FAIL'}")
 
     # K4 retire, on the kernel's shaded state
     snap = k3.clone()
@@ -858,16 +874,11 @@ def main() -> int:
     # Device time per call without the host's launch work: N_GRAPH
     # launches of K4 on as many copies of the state, and N_GRAPH index_add_
     # calls, each set captured in one CUDA graph.
-    copies = [snap.clone() for _ in range(N_GRAPH)]
-    c_args = [kernels.make_args(eng, c) for c in copies]
-    dev_ms = graph_ms([lambda c=c, a_=a_: kernels.launch("retire", eng, c,
-                                                         args=a_)
-                       for c, a_ in zip(copies, c_args)],
-                      lambda: [restore(c, snap) for c in copies])
+    dev_ms = kernel_graph_ms("retire", snap)
     accs = [snap.accum.clone() for _ in range(N_GRAPH)]
     lib_dev_ms = graph_ms([lambda acc=acc: acc.index_add_(0, idx, src)
                            for acc in accs])
-    del copies, c_args, accs
+    del accs
     byts = n_fin * (4 + 12 + 4 * 5) + int(retire_m.sum()) * 24
     ops = n_fin * 10
     results["retire"] = dict(ok=ok, err=err, ms=ms, plain_ms=pms, bytes=byts,
@@ -909,14 +920,17 @@ def main() -> int:
             k2.ctr[C_N_OCC], p2.ctr[C_N_OCC])
     work = snap.clone()
     ms, pms = time_pair("spawn", wf.spawn_plain, snap, work)
+    dev_ms = kernel_graph_ms("spawn", snap)
     n_new = int(mk.sum())
     byts = n_new * (12 * 4 + 4 * 10 + 4)
     ops = n_new * (6 * 110 + 60)
     results["spawn"] = dict(ok=ok, err=err, ms=ms, plain_ms=pms, bytes=byts,
-                            ops=ops, library_ms=None)
+                            ops=ops, library_ms=None, graph_device_ms=dev_ms)
     phase("kernels", f"spawn: {n_new} renewed slots, items equal {ok_items}, "
           f"uniforms bit-equal and rays rel err {err:.2e}, {ms:.3f} ms "
-          f"(twin {pms:.2f} ms) {'PASS' if ok else 'FAIL'}")
+          f"(twin {pms:.2f} ms); device ms per call in a CUDA graph of "
+          f"{N_GRAPH} on this control wave's state {dev_ms:.5f} "
+          f"{'PASS' if ok else 'FAIL'}")
     del ws, snap, k_ws, p_ws, k3, p3, k4, p4, k2, p2, work
     torch.cuda.empty_cache()
 

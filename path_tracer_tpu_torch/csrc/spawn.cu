@@ -12,7 +12,10 @@
 // pix_offset (the data-parallel shard).  FL_RESAMPLE slots start the
 // next sample of their window in place and keep their radiance sum.  The
 // RNG folds fix the (sample, pixel) set, so which slot takes which item
-// does not change the image beyond float add order.
+// does not change the image beyond float add order.  nvcc compiles each
+// atomicAdd(p, 1) here to one atomic per warp (a leader adds the warp's
+// count, the lanes rank by population count); written out by hand, with
+// the new occupancy summed per block, K2 ran slower (PERF.md).
 //
 // Bound: 6 threefry evaluations (~120 integer ops each) and a few
 // transcendentals per renewed slot; memory traffic is ~100 bytes per slot.
