@@ -34,7 +34,9 @@ Phases (each prints its own line; any failure exits non-zero):
 5. main-mega  — the same frame through Renderer(engine="megakernel").
    loop       — (after phase 5) the same frame through the device wave loop
                 and the per-wave host loop: image, counters and depth
-                histogram bit-identical, launches per wave the same; walls,
+                histogram bit-identical, each kernel launched once a wave
+                (the device loop once more: the empty wave whose K1 ends
+                it; the loop has no kernel of its own); walls,
                 host reads, launches and idle share of each, each profiled
                 frame's kernel runs equal to its launch counts; the image
                 against K5's under the graded rule; the same frame with the
@@ -74,12 +76,18 @@ Phases (each prints its own line; any failure exits non-zero):
                 perlin_vec), 4 spp per render, three steps each.  Then
                 the same vol2_final step on the tiled engine
                 (engine="megakernel": K7 + K8 forward, K6 backward), its
-                first step's gradients against the wavefront step's.
+                first step's gradients against the wavefront step's, its
+                renders through one kept trip graph (one capture).
 9. tiled      — (run after phase 6) render_tiled on the vol2_final frame
                 (one captured trip graph replayed per sample): wall,
-                Mrays/s, per-kernel device time, the image against K5's
-                under the graded rule and bit-identical to the eager loop's
-                (render_sample_tiled, every launch from the host).
+                Mrays/s, per-kernel device time, K8's device ms per trip
+                beside the trip's live lanes and bound, the image against
+                K5's under the graded rule and bit-identical to the eager
+                loop's (render_sample_tiled, every launch from the host);
+                the trip graph kept across frames: one capture for two
+                frames, the second bit-identical to the first, and for
+                frames of a new key and a moved camera, each bit-identical
+                to the eager loop's frame of that key and view.
 9b. bvh8     — (after phase 8) vol2_final over a BVH8
                 (build_from_scene(branching=8)): K1 (lanes, stack and
                 counters exact), K5, K7, K9 (torus knot shard) and both K6
@@ -120,8 +128,10 @@ Phases (each prints its own line; any failure exits non-zero):
 Phase 3 also holds the tiled engine's kernels against their plain
 versions: K7 (closest_hit; its main query, and its volume-exit query as the
 engine walks it, on the lanes whose hit has a medium, each timed apart), K8
-(tiled_trip) and the tiled spawn on every lane of an 800x450 vol2_final
-sample after three trips, K9 (ring_hop; the two hops of a 2-stage ring,
+(tiled_trip; over every lane, and on live lists as every tiled frame runs
+it: bit-identical to the every-lane launch, the list it writes the next
+live lanes, each once) and the tiled spawn on every lane of an 800x450
+vol2_final sample after three trips, K9 (ring_hop; the two hops of a 2-stage ring,
 each also bit-equal to the hop walked to t_max as JAX walks it) and K8's
 rec variant over the torus knot sharded two ways; and the P0 row gather
 (gather_rows) against torch.index_select at P0's shape.  Every K6 launch
@@ -132,13 +142,14 @@ them just after; the table's ``launches`` come from those runs.  Every
 frame profiled under torch.profiler must show, for each kernel, as many
 runs as its wrapper counted (``profile_run``): the counts of launches that
 a CUDA graph replays are measured, not only derived from the waves run.  The build
-phase also holds K3, K5, K7, K1, K4, K6 and K9 at their recorded ptxas
+phase also holds K3, K5, K7, K1, K4, K6, K9 and K8 at their recorded ptxas
 resources (``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3
 and K5), fails on a spill in any walking kernel's instantiation, and
 prints K1's global loads by width from its SASS (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -191,7 +202,6 @@ SPIN_CYCLES = 50_000_000        # device_ms's spin kernel, which lasts at
 SPIN_MS_MIN = 10.0              # least this long (50M cycles at <= 5 GHz)
 REFINE_OPS = 150                # refine_hit of one primitive
 WAVE_KERNELS = ("trace_step", "spawn", "shade", "retire")
-LOOP_KERNELS = WAVE_KERNELS + ("wave_loop",)   # the frame in the device loop
 BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce (threefry at 110)
 WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
 SWEEP_OPS = 60                 # K6's reverse sweep, per tape entry
@@ -206,7 +216,7 @@ STEP_OPS = {4: 220, 8: 440}
 # the bound, not part of it.
 FULL_SWEEP_OPS = BOUNCE_OPS
 FULL_WALK_OPS = WALK_TRIP_OPS
-# (registers, stack frame bytes) of K3, K5, K7, K1, K4, K6 and K9 as
+# (registers, stack frame bytes) of K3, K5, K7, K1, K4, K6, K9 and K8 as
 # recorded in PERF.md (Findings); a key names a kernel or one of its
 # INSTANCES.  K5 and K6 walk trav_step16 rolled, K7 and K9 unrolled
 # (csrc/path.cuh); K6's recorder hooks compile to nothing in K3 and K5.
@@ -216,7 +226,8 @@ PTXAS_EXPECT = {"shade": (110, 104), "megakernel_k4": (117, 368),
                 "closest_hit_k4": (64, 256), "closest_hit_k8": (72, 256),
                 "closest_hit_k4_global": (65, 0),
                 "closest_hit_k8_global": (72, 0),
-                "trace_step_k4": (127, 0), "trace_step_k8": (158, 0),
+                "trace_step_k4": (130, 0), "trace_step_k8": (162, 0),
+                "tiled_trip": (106, 104),
                 "retire": (24, 0),
                 "adjoint_k4": (121, 3696), "adjoint_k8": (121, 3696),
                 "adjoint_k4_global": (126, 104), "adjoint_k8_global": (126, 104),
@@ -267,12 +278,14 @@ def is_kernel(key, name, targs=None):
     return k.startswith(base + "(") or k.startswith(base + "<")
 
 
-def profile_run(prepare, names, kernels, tag, insts=()):
+def profile_run(prepare, names, kernels, tag, insts=(), seq=None):
     """``prepare()`` (untimed) returns a callable; run it once under
     torch.profiler with the launch counts set to 0 just before and read
     just after → (its result, device ms by kernel, launches by kernel,
     wall s).  The runs of each instantiation in ``insts`` (names of
     ``INSTANCES``) must equal its count in ``kernels.INSTANCES`` too.
+    ``seq`` (a dict), where given, receives each kernel's runs' device ms
+    in the order they ran.
 
     The profiler counts the runs of each kernel the card executed, and
     that count must equal the wrappers' LAUNCHES of the same run: inside a
@@ -315,6 +328,13 @@ def profile_run(prepare, names, kernels, tag, insts=()):
                               is_kernel(ev.key, n) for n in names)) + ")")
     assert counts == launches, (f"{tag}: the profiler's kernel runs {counts} "
                                 f"!= the wrappers' launches {launches}")
+    if seq is not None:
+        runs = sorted((ev.time_range.start, n, ev.time_range.elapsed_us())
+                      for ev in prof.events()
+                      if ev.device_type.name == "CUDA"
+                      for n in names if is_kernel(ev.name, n))
+        for n in names:
+            seq[n] = [us / 1e3 for _t, m, us in runs if m == n]
     assert i_counts == i_launches, (
         f"{tag}: the profiler's runs of the instantiations {i_counts} != the "
         f"wrappers' counts {i_launches}")
@@ -635,6 +655,43 @@ def rank_main(argv) -> int:
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def bound_trip(shade_bytes, lanes, n_live, walk):
+    """K8's bound ms for one launch over ``lanes`` lanes with ``n_live``
+    live and ``walk`` SSS walk steps: per lane its flag, per live lane its
+    state read and written, its pixel and both queries' results, the shade
+    tables once; per live lane one bounce, per walk step one walk trip."""
+    byts = shade_bytes + lanes + n_live * (2 * STATE_BYTES + 4 + 9 + 13)
+    ops = n_live * BOUNCE_OPS + walk * WALK_TRIP_OPS
+    return 1e3 * max(byts / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S)
+
+
+def trip_work(itl, scene, flags, bvh, cam_a, cfg, key, spp, c_walk):
+    """The tiled frame's K8 work through the eager loop: ``[trip][sample]
+    -> (live lanes, walk steps)``."""
+    teng = itl.TiledEngine(scene, flags, bvh, cam_a, cfg, key)
+    n = cfg.width * cfg.height
+    pix = torch.arange(n, dtype=torch.int32, device=bvh.nodes.device)
+    t_min = torch.full((n,), cfg.t_min, device=pix.device)
+    out = [[] for _ in range(cfg.iters)]
+    for smp in range(spp):
+        live = itl.new_live_list(n, pix.device)
+        st = itl.tiled_spawn(teng, smp, pix, live)
+        ctr = itl.new_counters(pix.device)
+        for t in range(cfg.iters):
+            h_ = itl.closest_hit_batched(bvh, st.origin, st.direction,
+                                         st.time, t_min, cfg.t_max,
+                                         cfg.stack_depth, active=st.alive)
+            e_ = itl.closest_hit_batched(
+                bvh, st.origin, st.direction, st.time, h_[3] + 1e-4,
+                cfg.t_max, cfg.stack_depth, active=st.alive,
+                exit_of=(teng, h_[0], h_[1], h_[2]))
+            n_live, w0 = int(st.alive.sum()), int(ctr[c_walk])
+            st = itl.tiled_trip(teng, st, smp, pix, h_[:3], e_, ctr=ctr,
+                                live=live, parity=t & 1)
+            out[t].append((n_live, int(ctr[c_walk]) - w0))
+    return out
 
 
 def main() -> int:
@@ -1212,22 +1269,69 @@ def main() -> int:
     ok8, frac8, err8 = trip_check(ks, ps, live, snap8)
     walk8 = int(c8k[C_WALK_STEPS])
     ok8 = ok8 and walk8 == int(c8p[C_WALK_STEPS])
+    # The same trip on live lists, as every tiled frame runs K8: list 0 the
+    # live lanes, the survivors appended to list 1.  Against the plain trip
+    # as above and bit-identical to the every-lane launch, counters
+    # included; list 1 holds the next state's live lanes, each once; the
+    # count it read and the ticket are back at 0.
+    lists8 = itl.new_live_list(NL, dev)
+    live_idx = live.nonzero()[:, 0].to(torch.int32)
+    lists8[0][0][:n_live] = live_idx
+    counts8 = torch.tensor([n_live, 0, 0], dtype=torch.int32, device=dev)
+    lists8[1].copy_(counts8)
+    kl, c8l = clone_state(snap8), itl.new_counters(dev)
+    itl.tiled_trip(teng, kl, 0, tpix, hk[:3], ek, ctr=c8l, live=lists8,
+                   parity=0)
+    okl, fracl, errl = trip_check(kl, ps, live, snap8)
+    n_out = int(lists8[1][1])
+    list_set = torch.equal(torch.sort(lists8[0][1][:n_out]).values,
+                           kl.alive.nonzero()[:, 0].to(torch.int32))
+    list_same = (all(torch.equal(x, y) for x, y in zip(kl, ks))
+                 and torch.equal(c8l, c8k))
+    list_clear = int(lists8[1][0]) == 0 and int(lists8[1][2]) == 0
+    ok8 = ok8 and okl and list_same and list_set and list_clear
     work8 = clone_state(snap8)
-    ms8 = cuda_ms(lambda: itl.tiled_trip(teng, work8, 0, tpix, hk[:3], ek),
-                  setup=lambda: restore_state(work8, snap8))
+
+    def restore_lists():
+        restore_state(work8, snap8)
+        lists8[1].copy_(counts8)
+
+    ms8 = cuda_ms(lambda: itl.tiled_trip(teng, work8, 0, tpix, hk[:3], ek,
+                                         live=lists8, parity=0),
+                  setup=restore_lists)
+    ms8_all = cuda_ms(lambda: itl.tiled_trip(teng, work8, 0, tpix, hk[:3],
+                                             ek),
+                      setup=lambda: restore_state(work8, snap8))
+    dev8 = device_ms(lambda: itl.tiled_trip(teng, work8, 0, tpix, hk[:3], ek,
+                                            live=lists8, parity=0),
+                     setup=restore_lists)
+    dev8_all = device_ms(lambda: itl.tiled_trip(teng, work8, 0, tpix, hk[:3],
+                                                ek),
+                         setup=lambda: restore_state(work8, snap8))
     pms8 = cuda_ms(lambda: itl.tiled_trip_plain(teng, snap8, 0, tpix, hk[:3],
                                                 ek), reps=1)
     # Bytes: per lane its flag, per live lane its state read and written,
     # its pixel and both queries' results; the shade tables once.
     byts8 = shade_bytes + NL + n_live * (2 * STATE_BYTES + 4 + 9 + 13)
     ops8 = n_live * BOUNCE_OPS + walk8 * WALK_TRIP_OPS
-    results["tiled_trip"] = dict(ok=ok8, err=err8, ms=ms8, plain_ms=pms8,
+    results["tiled_trip"] = dict(ok=ok8, err=max(err8, errl), ms=ms8,
+                                 ms_every_lane=ms8_all,
+                                 state_device_ms=dev8,
+                                 state_device_ms_every_lane=dev8_all,
+                                 plain_ms=pms8,
                                  bytes=byts8, ops=ops8, library_ms=None)
-    phase("kernels", f"tiled_trip: {n_live} live lanes, alive/depth match "
-          f"{frac8:.6f}, dead lanes frozen, float max abs err {err8:.2e}, "
-          f"walk steps {walk8}, {ms8:.3f} ms (plain {pms8:.1f} ms), bound "
-          f"inputs: bytes {byts8}, fp32 ops {ops8} {'PASS' if ok8 else 'FAIL'}")
-    del teng, sk, sp_, tst, snap8, ks, ps, work8, hk, hp, ek, ep
+    phase("kernels", f"tiled_trip: {n_live} live lanes; over every lane: "
+          f"alive/depth match {frac8:.6f}, dead lanes frozen, float max abs "
+          f"err {err8:.2e}, walk steps {walk8}, {ms8_all:.3f} ms (device "
+          f"{dev8_all:.4f}); on live "
+          f"lists: alive/depth match {fracl:.6f}, float max abs err "
+          f"{errl:.2e}, state and counters bit-identical to the every-lane "
+          f"launch {list_same}, list 1 = the next live lanes, each once "
+          f"{list_set} ({n_out}), count read and ticket cleared "
+          f"{list_clear}, {ms8:.3f} ms (device {dev8:.4f}; plain "
+          f"{pms8:.1f} ms), bound inputs: "
+          f"bytes {byts8}, fp32 ops {ops8} {'PASS' if ok8 else 'FAIL'}")
+    del teng, sk, sp_, tst, snap8, ks, ps, work8, hk, hp, ek, ep, kl, lists8
     torch.cuda.empty_cache()
 
     # K9 (ring_hop) and K8's rec variant over the torus knot sharded two
@@ -1657,7 +1761,12 @@ def main() -> int:
     rec = {}
     rec["main"] = frame_phase(
         "main", lambda: Renderer(world, cam, engine="wavefront", device=dev),
-        W, H, SPP, DEPTH, LOOP_KERNELS, kernels)
+        W, H, SPP, DEPTH, WAVE_KERNELS, kernels)
+    # The device loop: each kernel once a wave and once more (the empty
+    # wave whose K1 ends the loop); the loop has no kernel of its own.
+    ml = rec["main"]["launches"]
+    assert (all(ml[n] == rec["main"]["waves"] + 1 for n in WAVE_KERNELS)
+            and ml["wave_loop"] == 0), f"device loop launches {ml}"
     png = os.path.join(RUN_DIR, "vol2_final_800x450_10spp.png")
     rec["main"].pop("r").write_image(png)
     main_img = rec["main"].pop("img")
@@ -1704,7 +1813,7 @@ def main() -> int:
             return lambda: (w, e, loop(e, w))
 
         (w, e, _), totals, launches, wall = profile_run(
-            prepare, LOOP_KERNELS, kernels, tag)
+            prepare, WAVE_KERNELS, kernels, tag)
         return w, e, launches, totals, wall
 
     def loop_stats(w, e):
@@ -1727,8 +1836,11 @@ def main() -> int:
                 and torch.equal(gw.pix_paths, hw.pix_paths))
     waves = g_st["waves"]
     host_waves = h_launch["shade"]          # waves the host loop queued
-    launch_ok = (all(g_launch[n] == waves for n in WAVE_KERNELS)
-                 and g_launch["wave_loop"] == waves + 1
+    # The device loop: each kernel waves + 1 (the last wave's K1 finds no
+    # work and ends the loop), no kernel of the loop's own; the host loop
+    # queues all four every wave.
+    launch_ok = (all(g_launch[n] == waves + 1 for n in WAVE_KERNELS)
+                 and g_launch["wave_loop"] == 0
                  and all(h_launch[n] == host_waves for n in WAVE_KERNELS)
                  and h_launch["wave_loop"] == 0 and host_waves >= waves)
     # Profiled, each frame's kernel runs equal its launch counts
@@ -1736,9 +1848,9 @@ def main() -> int:
     prof_runs = {n: profiled_frame(wf.run_waves_graph if n == "graph"
                                    else wf.run_waves, f"loop {n}")
                  for n in ("graph", "host")}
-    prof_ok = (prof_runs["graph"][2] == {n: g_launch[n] for n in LOOP_KERNELS}
+    prof_ok = (prof_runs["graph"][2] == {n: g_launch[n] for n in WAVE_KERNELS}
                and prof_runs["host"][2] == {n: h_launch[n]
-                                            for n in LOOP_KERNELS})
+                                            for n in WAVE_KERNELS})
     idle = {n: 1 - sum(r[3].values()) / (1e3 * r[4])
             for n, r in prof_runs.items()}
     loop_img = (gw.accum.reshape(H, W, 3) / SPP).cpu().numpy()
@@ -1772,10 +1884,11 @@ def main() -> int:
         ok=loop_ok)
     phase("loop", f"vol2_final {W}x{H} {SPP} spp: device loop vs host loop: "
           f"image bit-identical {same_img}, counters/histogram/per-pixel "
-          f"paths identical {same_ctr} ({g_st}); one launch per kernel per "
-          f"wave in both, graph {waves} waves + {waves + 1} wave_loop, "
-          f"host {host_waves} waves queued: {launch_ok}; profiled frames' "
-          f"kernel runs equal to these launches: {prof_ok}")
+          f"paths identical {same_ctr} ({g_st}); device loop {waves} "
+          f"waves: launches {g_launch} (each kernel waves + 1, the loop's "
+          f"own 0), host loop {host_waves} waves queued, one launch per "
+          f"kernel per wave: {launch_ok}; profiled frames' kernel runs "
+          f"equal to these launches: {prof_ok}")
     phase("loop", "frame walls s: device loop " + ", ".join(
         f"{x:.4f}" for x in walls["graph"]) + "; host loop " + ", ".join(
         f"{x:.4f}" for x in walls["host"]) + f"; host reads per frame "
@@ -1798,11 +1911,22 @@ def main() -> int:
     for _ in range(25):
         ge.live(gw.ctr.cpu())
     live_host_ms = (time.perf_counter() - t0) / 25 * 1e3
-    prof_g = prof_runs["graph"]
+    # The loop has no kernel of its own (0 launches; its row passes on the
+    # device loop's bit-identity to the host loop).  What it costs on the
+    # card is the empty wave that ends it: K1, K3, K4 and K2 launched on
+    # the drained frame's state, timed here; the bound is the predicate's
+    # (three counters read, one flag written).
+    def empty_wave():
+        for n_ in wf.WAVE_NAMES:
+            kernels.launch(n_, ge, gw)
+
     results["wave_loop"] = dict(
         ok=loop_ok, err=float((gw.accum - hw.accum).abs().max()),
-        ms=prof_g[3]["wave_loop"] / max(prof_g[2]["wave_loop"], 1),
-        plain_ms=live_host_ms, library_ms=None, ops=4, bytes=28)
+        ms=cuda_ms(empty_wave), device_ms=device_ms(empty_wave),
+        plain_ms=live_host_ms, library_ms=None, ops=4, bytes=28,
+        no_kernel=True,
+        measures="the empty wave that ends the loop: K1, K3, K4 and K2 "
+                 "on the drained state")
     del runs, prof_runs, off, gw, hw
     torch.cuda.empty_cache()
 
@@ -1836,25 +1960,81 @@ def main() -> int:
         t0 = time.perf_counter()
         tiled_frame()
         walls.append(time.perf_counter() - t0)
-    # Profiled: the replays' kernel runs equal the counted launches.
+    # Profiled: the replays' kernel runs equal the counted launches; K8's
+    # device ms per trip (each trip's mean over the frame's samples).
+    t_seq = {}
     _, totals, prof_launches, prof_wall = profile_run(
-        lambda: tiled_frame, TILED_KERNELS, kernels, "tiled")
+        lambda: tiled_frame, TILED_KERNELS, kernels, "tiled", seq=t_seq)
     assert prof_launches == {n: tl_frame[n] for n in TILED_KERNELS}
+    k8_trip_ms = [statistics.mean(t_seq["tiled_trip"][t::cfg.iters])
+                  for t in range(cfg.iters)]
+    # The same frame's K8 work, trip by trip, from the eager loop: live
+    # lanes and walk steps of every (sample, trip), and each launch's bound
+    # (as phase 3 counts K8's: the larger of bytes and fp32 ops).
+    work = trip_work(itl, scene, flags, bvh, cam_a, cfg, key, SPP,
+                     C_WALK_STEPS)
+    k8_bound = [[bound_trip(shade_bytes, W * H, n_, w_) for n_, w_ in tr]
+                for tr in work]
+    k8_bound_trip = [statistics.mean(b_) for b_ in k8_bound]
+    k8_bound_frame = sum(map(sum, k8_bound))
+    phase("tiled", f"K8 per trip (device ms, torch.profiler, mean of the "
+          f"frame's {SPP} samples; live lanes of sample 0; bound ms of that "
+          f"work): " + "; ".join(
+              f"{t + 1}: {k8_trip_ms[t]:.4f} ({work[t][0][0]} live, bound "
+              f"{k8_bound_trip[t]:.4f})" for t in range(cfg.iters))
+          + f"; per frame {totals['tiled_trip']:.3f} ms against a bound of "
+          f"{k8_bound_frame:.3f} ms on the same work")
+    # The same frame through the eager loop (render_sample_tiled: every
+    # launch queued from the host), which the graph replaces.
+    def eager_frame(key_=key, cam_=cam_a, spp_=SPP):
+        e_ = itl.TiledEngine(scene, flags, bvh, cam_, cfg, key_)
+        c_ = itl.new_counters(dev)
+        acc = 0.0
+        for s_ in range(spp_):
+            acc = acc + itl.render_sample_tiled(scene, flags, bvh, cam_, cfg,
+                                                s_, key_, eng=e_, ctr=c_)
+        torch.cuda.synchronize()
+        return acc / spp_, c_
+
+    def same_as_eager(img_, st_, eimg_, ectr_):
+        return (torch.equal(img_, eimg_)
+                and int(st_["trav_steps"]) == int(ectr_[C_TRAV_STEPS])
+                and int(st_["walk_steps"]) == int(ectr_[C_WALK_STEPS]))
+
+    # The trip graph kept across frames: one capture for two frames, the
+    # kept graph's frame bit-identical to the freshly captured one's; then
+    # frames of a new key, and of that key from a moved camera, replay the
+    # same graph (the key and camera are read from card memory), each
+    # bit-identical to the eager loop's frame of that key and view.
+    itl.clear_trip_graphs()
+    caps0 = itl.CAPTURES
+    img_a, st_a = tiled_frame()
+    img_b, st_b = tiled_frame()
+    captures = itl.CAPTURES - caps0
+    cam_m = copy.copy(cam)
+    cam_m.lookfrom = np.asarray(cam.lookfrom, float) + np.array([1.0, 0.5, 0.0])
+    views = {"new key": (rng.fold_in(key, 7), cam_a),
+             "moved camera": (rng.fold_in(key, 7), cam_m.initialize(device=dev))}
+    view_same = {}
+    for tag_, (k_, c_) in views.items():
+        img_v, st_v = ptt.render_tiled(scene, flags, bvh, c_, cfg, k_, spp=2,
+                                       with_stats=True)
+        view_same[tag_] = same_as_eager(img_v, st_v, *eager_frame(k_, c_, 2))
+    captures_views = itl.CAPTURES - caps0
+    kept_ok = (captures == 1 and captures_views == 1
+               and torch.equal(img_a, img_b)
+               and all(int(st_a[k_]) == int(st_b[k_]) for k_ in st_a)
+               and all(view_same.values()))
+    phase("tiled", f"trip graph captures over two frames: {captures}; "
+          f"second frame (the kept graph) bit-identical "
+          f"to the first: {bool(torch.equal(img_a, img_b))}; frames of a new "
+          f"key and a moved camera: captures still {captures_views}, each "
+          f"bit-identical to the eager loop's: "
+          f"{view_same} -> {'PASS' if kept_ok else 'FAIL'}")
+    del img_a, img_b, img_v
     idle = 1 - sum(totals.values()) / (1e3 * prof_wall)
     timg_np = timg.detach().cpu().numpy()
     t_ok, t_outl, t_clean = graded_agreement(timg_np, mega_img)
-
-    # The same frame through the eager loop (render_sample_tiled: every
-    # launch queued from the host), which the graph replaces.
-    def eager_frame():
-        e_ = itl.TiledEngine(scene, flags, bvh, cam_a, cfg, key)
-        c_ = itl.new_counters(dev)
-        acc = 0.0
-        for s_ in range(SPP):
-            acc = acc + itl.render_sample_tiled(scene, flags, bvh, cam_a, cfg,
-                                                s_, key, eng=e_, ctr=c_)
-        torch.cuda.synchronize()
-        return acc / SPP, c_
 
     # Where a graphed frame's host time goes: the capture, then the replays.
     e_ = itl.TiledEngine(scene, flags, bvh, cam_a, cfg, key)
@@ -1878,15 +2058,14 @@ def main() -> int:
     _, e_totals, _, e_prof_wall = profile_run(
         lambda: eager_frame, TILED_KERNELS, kernels, "tiled eager")
     e_idle = 1 - sum(e_totals.values()) / (1e3 * e_prof_wall)
-    graph_eager = (torch.equal(timg, eimg)
-                   and int(tstats["trav_steps"]) == int(ectr[C_TRAV_STEPS])
-                   and int(tstats["walk_steps"]) == int(ectr[C_WALK_STEPS]))
+    graph_eager = same_as_eager(timg, tstats, eimg, ectr)
     t_ok = t_ok and graph_eager
     want = {"closest_hit": 2 * cfg.iters * SPP, "tiled_trip": cfg.iters * SPP,
             "tiled_spawn": SPP}
     launch_ok = all(tl_frame[n] == v for n, v in want.items()) and all(
         tl_frame[n] == 0 for n in WAVE_KERNELS + ("megakernel",))
-    tiled_ok = (t_ok and launch_ok and bool(np.isfinite(timg_np).all())
+    tiled_ok = (t_ok and launch_ok and kept_ok
+                and bool(np.isfinite(timg_np).all())
                 and float(timg_np.mean()) > 0)
     rec["tiled"] = dict(wall=wall, walls=walls,
                         mrays_ub=W * H * SPP * DEPTH / wall / 1e6,
@@ -1898,7 +2077,14 @@ def main() -> int:
                         eager=dict(walls=eager_walls, kernel_totals_ms=e_totals,
                                    profiled_wall_ms=1e3 * e_prof_wall,
                                    idle_share=e_idle, identical=graph_eager),
-                        capture_s=t_capture, replays_s=t_replays)
+                        capture_s=t_capture, replays_s=t_replays,
+                        k8_trip_ms=k8_trip_ms, k8_bound_trip_ms=k8_bound_trip,
+                        k8_bound_frame_ms=k8_bound_frame,
+                        k8_live=[[n_ for n_, _w in tr] for tr in work],
+                        k8_walk=[[w_ for _n, w_ in tr] for tr in work],
+                        captures_two_frames=captures,
+                        captures_new_views=captures_views,
+                        new_views_same=view_same)
     phase("tiled", f"render_tiled vol2_final {W}x{H} {SPP} spp depth {DEPTH} "
           f"({cfg.iters} trips): wall {wall:.4f} s, upper-bound "
           f"{rec['tiled']['mrays_ub']:.3f} Mrays/s, traversal steps "
@@ -1920,6 +2106,10 @@ def main() -> int:
           + ", ".join(f"{n}={v:.2f}" for n, v in e_totals.items())
           + f" of {1e3 * e_prof_wall:.2f} ms under the profiler (idle "
           f"{e_idle:.3f})")
+    # K8's row on the frame's work: its device ms per launch over the frame
+    # (the table's device_ms) beside the bound of that work per launch.
+    results["tiled_trip"]["frame_bound_ms"] = (k8_bound_frame
+                                               / tl_frame["tiled_trip"])
     del timg, tstats, eimg
     torch.cuda.empty_cache()
 
@@ -1937,7 +2127,7 @@ def main() -> int:
     # Mrays/s, traversal steps per segment, dropped pushes, device ms per
     # kernel and launches against the profiler's kernel runs.
     def k_frame(engine, bvh_):
-        names = {"wavefront": LOOP_KERNELS, "megakernel": ("megakernel",),
+        names = {"wavefront": WAVE_KERNELS, "megakernel": ("megakernel",),
                  "tiled": TILED_KERNELS}[engine]
         insts = [f"{n}_k{bvh_.branching}" for n in
                  {"wavefront": ("trace_step",), "megakernel": ("megakernel",),
@@ -2523,10 +2713,13 @@ def main() -> int:
     # The vol2_final step on the tiled engine (engine="megakernel", as JAX
     # runs it): K7 + K8 forward, the full K6 backward; its first step's
     # gradients against the wavefront step's (same parameters, key and
-    # sample set).
+    # sample set).  Its eight renders (two a step, each of its own key, and
+    # new leaf values every step) replay one kept trip graph: one capture.
+    caps_tt = itl.CAPTURES
     _, _, _, _, _, rows_tt, tl_tt = train_phase(
         "train-tiled", *ptt.scenes.vol2_final_scene(sphere_cluster=1000), W,
         H, TRAIN_SPP, DEPTH, inits_v, TRAIN_LR, engine="megakernel")
+    caps_tt = itl.CAPTURES - caps_tt
     g_t, g_w = rows_tt[0]["grads"], grads0["vol2_final"]
     rel_tt = {n: float((g_t[n] - g_w[n]).norm() / g_w[n].norm().clamp(
         min=1e-30)) for n in g_w}
@@ -2534,6 +2727,7 @@ def main() -> int:
              and tl_tt["adjoint_full"] == 3 * TRAIN_SPP
              and all(tl_tt[n] > 0 for n in TILED_KERNELS)
              and all(tl_tt[n] == 0 for n in WAVE_KERNELS)
+             and caps_tt == 1
              and all(r["grad_finite"] and np.isfinite(r["loss"])
                      for r in rows_tt))
     for r in rows_tt:
@@ -2543,10 +2737,11 @@ def main() -> int:
           + ", ".join(f"{n} {v:.2e}" for n, v in rel_tt.items())
           + f"; full K6 launches per step {tl_tt['adjoint_full'] / 3:g}, "
           f"backward/forward {[round(r['bwd_ms'] / r['fwd_ms'], 3) for r in rows_tt]}"
+          f"; trip graph captures over the warm-up and 3 steps {caps_tt}"
           f" -> {'PASS' if ok_tt else 'FAIL'}")
     train_ok = train_ok and ok_tt
     train_rec["tiled vol2_final"] = dict(rows=rows_tt, launches=tl_tt,
-                                         grad_rel=rel_tt)
+                                         grad_rel=rel_tt, captures=caps_tt)
     torch.cuda.empty_cache()
 
     # K6 on one 800x800 cornell_box sample against its plain version
@@ -2960,7 +3155,7 @@ def main() -> int:
     # phase 3 and phases 9b-9c measured them (device_ms, or P0's launches
     # replayed in a CUDA graph, as its and K4's library calls).
     frame_dev = {n: rec["main"]["kernel_totals_ms"][n]
-                 / rec["main"]["launches"][n] for n in LOOP_KERNELS}
+                 / rec["main"]["launches"][n] for n in WAVE_KERNELS}
     frame_dev["megakernel"] = (rec["main-mega"]["kernel_totals_ms"]["megakernel"]
                                / rec["main-mega"]["launches"]["megakernel"])
     for n in TILED_KERNELS:
@@ -2987,9 +3182,12 @@ def main() -> int:
             "library_ms": res["library_ms"],
             "device_ms": frame_dev.get(n, res.get("device_ms")),
             "library_device_ms": res.get("library_device_ms"),
-            "pass": bool(res["ok"]) and launches[n] > 0}
+            "pass": bool(res["ok"]) and (launches[n] > 0
+                                         or res.get("no_kernel", False))}
         for k_ in ("exit_ms", "exit_device_ms", "main_device_ms",
-                   "exit_lanes", "hop_device_ms", "hop_steps"):
+                   "exit_lanes", "hop_device_ms", "hop_steps",
+                   "frame_bound_ms", "ms_every_lane", "state_device_ms",
+                   "state_device_ms_every_lane", "measures"):
             if k_ in res:
                 row[k_] = res[k_]
         if "graph_device_ms" in res:

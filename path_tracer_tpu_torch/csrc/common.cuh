@@ -21,6 +21,7 @@
 #define PTT_EMPTY_SLOT (1 << 23)
 #define PTT_PRIM_ROW 16
 #define PTT_INF 1e30f
+#define PTT_FULL_WARP 0xffffffffu
 // Per-thread arrays of the walking kernels (K5, K6, K7, K9) kept in local
 // memory up to these sizes; beyond them a launch takes the instantiation
 // whose arrays live in the wrapper's per-lane buffers (WaveArgs stack, tape,
@@ -150,7 +151,27 @@ struct WaveArgs {
   // lane walks only where that hit's primitive has a medium (prim_tab,
   // n_sph, n_qd, n_prim_rows then point at the shade table)
   const int* gate_pt; const int* gate_pi;
+  // the device wave loop (csrc/wave_loop.cu): the condition handle of its
+  // WHILE node (cudaGraphConditionalHandle), which K1 clears where
+  // loop_graph is 1 (K1 captured into the loop's graph; 0 for a K1 launched
+  // from the host), and the wave bound (<= 0: none).  The g++ build writes
+  // the condition's value into h_while instead.
+  mutable unsigned long long h_while;
+  long long max_waves;
+  int loop_graph;
+  // K8's live lists (null: K8 runs every lane): two lists of R lane
+  // indices and live_n = {count of list 0, count of list 1, ticket}; a trip
+  // runs the lanes of list live_parity and appends the lanes that stay
+  // alive to the other list (tiled_trip.cu)
+  int* live; int* live_n; int live_parity;
+  // the frame's base key and camera in card memory (null: key0, key1 and
+  // cam_origin .. defocus_angle above): PTT_FRAME_WORDS words, key0, key1,
+  // then those 19 floats' bits, which tiled_spawn and K8 read, so that a
+  // kept trip graph renders a new key or view without a new capture
+  const unsigned int* frame_dev;
 };
+
+#define PTT_FRAME_WORDS 21
 
 // Every field of WaveArgs in declaration order.  A name missing from the
 // struct fails to compile; a field missing here, or a ctypes field out of
@@ -174,7 +195,8 @@ struct WaveArgs {
   X(delta) X(g_tex) X(g_img) X(g_prim) X(g_mat) X(g_med) X(g_perlin)        \
   X(q_tmin) X(q_active) X(exit_found) X(exit_pt) X(exit_pi) X(exit_t)        \
   X(exit_med) X(rec) X(pix_offset) X(sample_dev) X(tape) X(walk)            \
-  X(gate_pt) X(gate_pi)
+  X(gate_pt) X(gate_pi) X(h_while) X(max_waves) X(loop_graph)      \
+  X(live) X(live_n) X(live_parity) X(frame_dev)
 
 // Fills names[k], offsets[k] for each field when the arrays are given;
 // returns the number of fields.  Each kernel library exports its own copy.

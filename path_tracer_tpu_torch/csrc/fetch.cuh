@@ -9,7 +9,6 @@
 #include "common.cuh"
 
 #ifndef PTT_HOST_EMULATION
-#define PTT_FULL_WARP 0xffffffffu
 
 // The warp's lanes in m (every lane of the warp calls this, m the same in
 // all) take consecutive pixels from ctr[C_FETCH] with one atomic; returns

@@ -4,8 +4,8 @@
 // function (walk_chunk, shade_lane, retire_lane, spawn_lane, mega_pixel,
 // adj_begin / adj_trip / adj_*_sweep, closest_hit_lane, ring_hop_lane,
 // tiled_lane; the walks' steps trav_step and trav_step16) and only the
-// grid plumbing (and K5's and K6's work fetching) in the __global__
-// wrapper.
+// grid plumbing (and K5's and K6's work fetching, K8's live lists) in the
+// __global__ wrapper.
 // Compiled by a host C++ compiler with PTT_HOST_EMULATION defined, the same
 // per-slot code runs here in a loop over slots, so the CPU test suite holds
 // the kernel sources — not only their plain-torch twins — against the JAX
@@ -271,13 +271,36 @@ extern "C" int emu_walk_step(WaveArgs* a, int step) {
   return 0;
 }
 
+// K8: the trip's lanes (every lane, or the live list's) in list order; with
+// live lists the lanes that stay alive are appended to the other list in
+// the order they ran, and the count read is cleared, as the launch's last
+// block does.
 extern "C" int emu_tiled_trip(WaveArgs* a) {
-  for (int i = 0; i < a->R; ++i) a->ctr[C_WALK_STEPS] += tiled_lane<false>(*a, i);
+  if (a->live != nullptr && a->live_parity != 0 && a->live_parity != 1)
+    return 1;
+  const TripLanes lanes = trip_lanes(*a);
+  for (int pos = 0; pos < lanes.n; ++pos) {
+    const int i = trip_lane_at(lanes, pos);
+    bool alive = false;
+    a->ctr[C_WALK_STEPS] += tiled_lane<false>(*a, i, &alive);
+    if (a->live != nullptr && alive) {
+      const int out = 1 - a->live_parity;
+      a->live[(size_t)out * a->R + a->live_n[out]++] = i;
+    }
+  }
+  if (a->live != nullptr) a->live_n[a->live_parity] = 0;
   return 0;
 }
 
 extern "C" int emu_tiled_spawn(WaveArgs* a) {
-  for (int i = 0; i < a->R; ++i) tiled_spawn_lane(*a, i);
+  WaveArgs b = *a;
+  frame_values(b);
+  for (int i = 0; i < a->R; ++i) tiled_spawn_lane(b, i);
+  if (a->live != nullptr) {
+    for (int i = 0; i < a->R; ++i) a->live[i] = i;
+    a->live_n[0] = a->R;
+    a->live_n[1] = a->live_n[2] = 0;
+  }
   return 0;
 }
 

@@ -14,16 +14,32 @@
 // (exit_found, exit_t, exit_pt, exit_pi); exit_med, when given, replaces the
 // medium lookup (the tensor-parallel mode broadcasts it from the shard that
 // owns the exit hit).  Every lane takes one sample: start_sample, or
-// *sample_dev when set (a captured trip graph replays each sample).  The rec
+// *sample_dev when set (a captured trip graph replays each sample); the
+// base key (and the spawn's camera) likewise come from frame_dev when set,
+// so that a kept graph renders every frame's key and view.  The rec
 // variant (tiled_trip_rec_kernel) shades the hit record rec of the pipeline
 // mode instead of refining (hit_pt, hit_pi) against the local rows
 // (bounce_shade_t's rec=, shade_tiled.py:775, 785-790).  The SSS walk's
 // trips are reduced per block into ctr[C_WALK_STEPS].
 //
 // Bound: per live lane one bounce, ~1,920 fp32 ops (12 threefry draws and a
-// few transcendentals) plus the walk, and ~5 scattered row reads; divergence
-// between families, and an SSS-volumetric lane walking while its warp waits
-// (the walk stays a __noinline__ call, as in K3).
+// few transcendentals) plus the walk, and ~5 scattered row reads.  What a
+// launch loses against that is in its warps: as paths die, live lanes
+// scatter over the chunk's 360,000 (from trip 6 of the 10-spp vol2_final
+// frame a warp with a live lane holds fewer than 4), and a warp mixes
+// material families, an SSS-volumetric lane walking while its warp waits
+// (the walk stays a __noinline__ call, as in K3).  The design fills the
+// warps: where the wrapper gives live lists (WaveArgs.live), a trip runs
+// only the lanes of its list, over a fixed grid of the blocks resident on
+// the card that strides over the list's count (read on the device, so a
+// captured graph needs no host value), and appends the lanes that stay
+// alive to the other list, one atomic ticket a warp; the launch's last
+// block clears the count it read.  tiled_spawn writes the first list.  A
+// lane's result does not depend on the thread that runs it (its keys fold
+// sample -> pixel -> iters), so the frame is bit-identical to a launch over
+// every lane.  Measured slower and not used (PERF.md): each block's lanes
+// sorted by material family before they run, and a grid of a block per
+// chunk of lanes in place of the resident one.
 //
 // The same source holds the engine's spawn (tiled_spawn_kernel): the first
 // trip's path state, spawn_paths (shade_tiled.py:741, B3) with K2's camera
@@ -32,6 +48,32 @@
 
 __device__ __forceinline__ int tiled_sample(const WaveArgs& a) {
   return a.sample_dev != nullptr ? *a.sample_dev : a.start_sample;
+}
+
+// The frame's base key: from card memory where frame_dev is set (a kept
+// trip graph renders each frame's key), else the argument block's.
+__device__ __forceinline__ Key frame_key(const WaveArgs& a) {
+  return a.frame_dev != nullptr ? Key{a.frame_dev[0], a.frame_dev[1]}
+                                : Key{a.key0, a.key1};
+}
+
+// The spawn's argument block with the frame's key and camera taken from
+// frame_dev where it is set (the layout in common.cuh).
+__device__ __forceinline__ void frame_values(WaveArgs& a) {
+  const unsigned int* f = a.frame_dev;
+  if (f == nullptr) return;
+  a.key0 = f[0];
+  a.key1 = f[1];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    a.cam_origin[k] = bits_as_float(f[2 + k]);
+    a.pixel00[k] = bits_as_float(f[5 + k]);
+    a.du[k] = bits_as_float(f[8 + k]);
+    a.dv[k] = bits_as_float(f[11 + k]);
+    a.defocus_u[k] = bits_as_float(f[14 + k]);
+    a.defocus_v[k] = bits_as_float(f[17 + k]);
+  }
+  a.defocus_angle = bits_as_float(f[20]);
 }
 
 // The primary ray of lane i and a fresh path state.
@@ -53,7 +95,8 @@ __device__ __forceinline__ void tiled_spawn_lane(const WaveArgs& a, int i) {
 }
 
 template <bool kRec>
-__device__ __forceinline__ int tiled_lane(const WaveArgs& a, int i) {
+__device__ __forceinline__ int tiled_lane(const WaveArgs& a, int i,
+                                          bool* alive_out = nullptr) {
   if (!a.alive[i]) return 0;
   PathRegs p;
 #pragma unroll
@@ -76,7 +119,7 @@ __device__ __forceinline__ int tiled_lane(const WaveArgs& a, int i) {
                          ? a.exit_med[i]
                          : medium_of(a, a.exit_pt[i], a.exit_pi[i]) >= 0;
   }
-  const Key kit = fold_in(fold_in(fold_in(Key{a.key0, a.key1},
+  const Key kit = fold_in(fold_in(fold_in(frame_key(a),
                                           (uint32_t)tiled_sample(a)),
                                   (uint32_t)a.pixel[i]),
                           (uint32_t)p.iters);
@@ -101,18 +144,88 @@ __device__ __forceinline__ int tiled_lane(const WaveArgs& a, int i) {
   a.depth[i] = p.depth;
   a.iters[i] = p.iters;
   a.alive[i] = p.alive;
+  if (alive_out != nullptr) *alive_out = p.alive;
   return trips;
 }
 
+// Threads a block of K8.
+#define PTT_TRIP_THREADS 128
+
+// The lanes a trip runs: n positions, position p lane list[p], or lane p
+// where list is null (no live lists: every lane, the dead ones returning
+// at once).
+struct TripLanes {
+  const int* list;
+  int n;
+};
+
+__device__ __forceinline__ TripLanes trip_lanes(const WaveArgs& a) {
+  if (a.live == nullptr) return TripLanes{nullptr, a.R};
+  return TripLanes{a.live + (size_t)a.live_parity * a.R,
+                   a.live_n[a.live_parity]};
+}
+
+// The lane at position pos (-1 past the end).
+__device__ __forceinline__ int trip_lane_at(const TripLanes& t, int pos) {
+  if (pos >= t.n) return -1;
+  return t.list != nullptr ? t.list[pos] : pos;
+}
+
 #ifndef PTT_HOST_EMULATION
-template <bool kRec>
+// Append lane i to the other live list where keep holds, one atomic a warp
+// (every lane of the warp calls it).
+__device__ __forceinline__ void live_append(const WaveArgs& a, bool keep,
+                                            int i) {
+  const unsigned m = __ballot_sync(PTT_FULL_WARP, keep);
+  if (m == 0) return;
+  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  const int out = 1 - a.live_parity;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(a.live_n + out, __popc(m));
+  base = __shfl_sync(PTT_FULL_WARP, base, leader);
+  if (keep)
+    a.live[(size_t)out * a.R + base + __popc(m & ((1u << lane) - 1u))] = i;
+}
+
+// One trip over this block's positions, a grid-stride loop over whole
+// blocks of positions (one step without live lists, whose grid covers the
+// lanes).
 __device__ __forceinline__ void trip_block(const WaveArgs& a) {
+  __shared__ unsigned long long s_walk;
+  if (threadIdx.x == 0) s_walk = 0ull;
+  __syncthreads();
+  const TripLanes lanes = trip_lanes(a);
+  unsigned long long trips = 0ull;
+  for (int b = blockIdx.x * PTT_TRIP_THREADS; b < lanes.n;
+       b += gridDim.x * PTT_TRIP_THREADS) {
+    const int i = trip_lane_at(lanes, b + threadIdx.x);
+    bool alive = false;
+    if (i >= 0) trips += tiled_lane<false>(a, i, &alive);
+    if (a.live != nullptr) live_append(a, alive, i);
+  }
+  if (trips) atomicAdd(&s_walk, trips);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (s_walk) atomicAdd((unsigned long long*)a.ctr + C_WALK_STEPS, s_walk);
+    if (a.live != nullptr) {
+      // the launch's last block clears the count every block has read
+      __threadfence();
+      if (atomicAdd(a.live_n + 2, 1) + 1 == (int)gridDim.x) {
+        a.live_n[a.live_parity] = 0;
+        a.live_n[2] = 0;
+      }
+    }
+  }
+}
+
+// The rec variant: one thread a lane, every lane of the chunk.
+__device__ __forceinline__ void trip_block_rec(const WaveArgs& a) {
   __shared__ unsigned long long s_walk;
   if (threadIdx.x == 0) s_walk = 0ull;
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < a.R) {
-    const int trips = tiled_lane<kRec>(a, i);
+    const int trips = tiled_lane<true>(a, i);
     if (trips) atomicAdd(&s_walk, (unsigned long long)trips);
   }
   __syncthreads();
@@ -121,33 +234,64 @@ __device__ __forceinline__ void trip_block(const WaveArgs& a) {
   }
 }
 
-__global__ void tiled_trip_kernel(WaveArgs a) { trip_block<false>(a); }
-
-__global__ void tiled_trip_rec_kernel(WaveArgs a) { trip_block<true>(a); }
-
-__global__ void tiled_spawn_kernel(WaveArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.R) tiled_spawn_lane(a, i);
+__global__ void __launch_bounds__(PTT_TRIP_THREADS)
+    tiled_trip_kernel(WaveArgs a) {
+  trip_block(a);
 }
 
-static int launch_trip(const WaveArgs* a, void* stream, bool rec) {
-  if (a->R == 0) return 0;
-  const int block = 128;
-  const int grid = (a->R + block - 1) / block;
-  if (rec) {
-    tiled_trip_rec_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
-  } else {
-    tiled_trip_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
+__global__ void tiled_trip_rec_kernel(WaveArgs a) { trip_block_rec(a); }
+
+// The first trip's state; with live lists, list 0 is every lane.
+__global__ void tiled_spawn_kernel(WaveArgs a) {
+  frame_values(a);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < a.R) {
+    tiled_spawn_lane(a, i);
+    if (a.live != nullptr) a.live[i] = i;
   }
+  if (i == 0 && a.live != nullptr) {
+    a.live_n[0] = a.R;
+    a.live_n[1] = 0;
+    a.live_n[2] = 0;
+  }
+}
+
+// A block per PTT_TRIP_THREADS lanes; with live lists a fixed grid of the
+// blocks that fit on the card at once (asked once), at most that many.
+static int launch_trip(const WaveArgs* a, void* stream) {
+  if (a->R == 0) return 0;
+  if (a->live != nullptr && a->live_parity != 0 && a->live_parity != 1)
+    return (int)cudaErrorInvalidValue;
+  int grid = (a->R + PTT_TRIP_THREADS - 1) / PTT_TRIP_THREADS;
+  if (a->live != nullptr) {
+    static int resident_blocks = 0;
+    if (resident_blocks == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, tiled_trip_kernel, PTT_TRIP_THREADS, 0);
+      if (err != cudaSuccess) return (int)err;
+      resident_blocks = per_sm * sms;
+    }
+    grid = grid < resident_blocks ? grid : resident_blocks;
+  }
+  tiled_trip_kernel<<<grid, PTT_TRIP_THREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ptt_launch_tiled_trip(const WaveArgs* a, void* stream) {
-  return launch_trip(a, stream, false);
+  return launch_trip(a, stream);
 }
 
 extern "C" int ptt_launch_tiled_trip_rec(const WaveArgs* a, void* stream) {
-  return launch_trip(a, stream, true);
+  if (a->R == 0) return 0;
+  const int block = 128;
+  const int grid = (a->R + block - 1) / block;
+  tiled_trip_rec_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ptt_launch_tiled_spawn(const WaveArgs* a, void* stream) {

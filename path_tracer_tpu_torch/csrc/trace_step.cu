@@ -11,7 +11,12 @@
 // count after every chunk, so a wave is one cooperative launch, which a
 // CUDA graph can hold (csrc/wave_loop.cu).  Its last chunk evaluates the
 // control predicate into ctr[C_DO_CTRL], which K3/K4/K2 read in the same
-// wave.  Like JAX, every lane whose node pointer is not done walks and
+// wave.  K1 also decides the device wave loop (wavefront.py:464-465): a
+// wave with no work left, or past the loop's wave bound, clears the loop's
+// WHILE condition and runs nothing (wave_runs); a wave that runs sets
+// nothing, so no device runtime call delays block 0 ahead of the grid's
+// barriers.
+// Like JAX, every lane whose node pointer is not done walks and
 // counts, occupied or not (an empty slot's pointer is done).  The stack
 // lives in device memory (R x sd ints, L1/L2-resident); a push at a full
 // stack is dropped exactly as in the JAX step and counted in
@@ -61,6 +66,19 @@ __device__ __forceinline__ int chunk_ctr(int b, int f) {
 struct ChunkCount {
   int act, act_end, ready, walk, ovf;
 };
+
+// The device wave loop's WHILE condition after this wave's start: on the
+// card K1 inside the loop's graph clears the graph's handle where no wave
+// runs (each launch of the graph starts it at 1); the g++ build writes the
+// value of every wave into h_while.
+__device__ __forceinline__ void set_loop(const WaveArgs& a, bool go) {
+#ifdef PTT_HOST_EMULATION
+  a.h_while = go ? 1ull : 0ull;
+#else
+  if (!go && a.loop_graph)
+    cudaGraphSetConditional((cudaGraphConditionalHandle)a.h_while, 0u);
+#endif
+}
 
 // One step from node `cur` of a K-wide BVH: traverse.cuh:trav_step term
 // for term, with the row read in 16-byte loads (the K boxes and pointers
@@ -256,18 +274,26 @@ __device__ __forceinline__ bool wave_is_live(const WaveArgs& a) {
   return spawned < a.items_total || a.ctr[C_N_OCC] > 0;
 }
 
-// Whether the wave runs; a wave with no work left clears the control flag
-// instead.
+// Whether the wave runs: work is left and the wave bound is not reached.
+// The writer sets the loop's WHILE condition to that; a wave that does not
+// run also clears the control flag, so K3, K4 and K2 after it do nothing.
 __device__ __forceinline__ bool wave_runs(const WaveArgs& a, bool writer) {
-  if (wave_is_live(a)) return true;
-  if (writer) a.ctr[C_DO_CTRL] = 0;
-  return false;
+  const bool go = wave_is_live(a) &&
+                  (a.max_waves <= 0 || a.ctr[C_WAVES] < a.max_waves);
+  if (writer) {
+    set_loop(a, go);
+    if (!go) a.ctr[C_DO_CTRL] = 0;
+  }
+  return go;
 }
 
 #ifndef PTT_HOST_EMULATION
-// One wave (see the top of the file).
+// One wave (see the top of the file).  Two blocks an SM hold the main
+// pool's grid (32,768 slots, 256 blocks); the bound lets ptxas go past 128
+// registers, where the loop's device call otherwise makes it spill.
 template <int K>
-__global__ void __launch_bounds__(PTT_K1_BLOCK) trace_step_kernel(WaveArgs a) {
+__global__ void __launch_bounds__(PTT_K1_BLOCK, 2)
+    trace_step_kernel(WaveArgs a) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const bool first = blockIdx.x == 0 && threadIdx.x == 0;
   if (!wave_runs(a, first) || a.steps <= 0) return;

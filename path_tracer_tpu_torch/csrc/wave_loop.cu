@@ -5,21 +5,26 @@
 // wavefront.py render_batch (:427-467, :509), which keeps the whole loop on
 // the TPU.  The graph is
 //
-//   head: wave_loop_kernel -> WHILE(handle) { K1, K3, K4, K2,
-//                                             wave_loop_kernel }
+//   WHILE(h_while, default 1) { K1, K3, K4, K2 }
 //
-// wave_loop_kernel evaluates the loop predicate (`live`, :464-465) from the
-// counters on the device and sets the node's condition, so the host
-// launches the frame once and reads the counters once, after the loop.  The
-// body is captured from the launchers of the other kernel libraries
-// (cudaStreamBeginCaptureToGraph on a stream of this library), so a wave in
-// the graph is the very launch sequence of the per-wave host loop.  A wave
-// bound (`max_waves`) stops a loop that does not drain; the host then
-// raises.  Every pointer the body captures is the wave state's, which lives
-// as long as the graph.
+// K1 (csrc/trace_step.cu) evaluates the loop predicate (`live`, :464-465,
+// and the wave bound) at its start: a wave with no work left clears
+// h_while and the control flag and returns, K3, K4 and K2 after it return
+// at once, and the loop ends; every wave before sets nothing.  So the loop
+// has no kernel of its own: its cost is that last empty wave.  The host
+// launches the frame once and reads the counters once, after the loop.
+// The body is captured from the launchers of the other kernel libraries
+// (cudaStreamBeginCaptureToGraph on a stream of this library), so a wave
+// in the graph is the launch sequence of the per-wave host loop.  A wave
+// bound (WaveArgs.max_waves) stops a loop that does not drain; the host
+// then raises.  Every pointer the body captures is the wave state's, which
+// lives as long as the graph.
 //
-// wave_loop_kernel is one thread reading three counters: its cost is its
-// launch.
+// Measured slower and not used (PERF.md): a kernel of one thread after K2
+// that sets the condition (the loop's first form, 1.7 us a wave), and an
+// IF node around K3, K4 and K2 on K1's control predicate (it skips the 51
+// launches of each that find no control step, but each of the 516 waves
+// pays the conditional node's scheduling, ~5 us).
 // Needs CUDA 12.4 (conditional nodes, capture into a graph); any failure is
 // returned as the CUDA error code and the wrapper raises.
 #include "common.cuh"
@@ -27,19 +32,9 @@
 struct WaveLoop {
   cudaGraph_t graph;
   cudaGraphExec_t exec;
-  cudaGraphConditionalHandle handle;
+  cudaGraphConditionalHandle h_while;
   cudaStream_t stream;
 };
-
-__global__ void wave_loop_kernel(const long long* ctr, long long items_total,
-                                 long long max_waves,
-                                 cudaGraphConditionalHandle handle) {
-  const long long spawned =
-      ctr[C_SPAWNED] < items_total ? ctr[C_SPAWNED] : items_total;
-  const bool live = (spawned < items_total || ctr[C_N_OCC] > 0) &&
-                    ctr[C_WAVES] < max_waves;
-  cudaGraphSetConditional(handle, live ? 1u : 0u);
-}
 
 #define PTT_TRY(x)              \
   do {                          \
@@ -49,50 +44,38 @@ __global__ void wave_loop_kernel(const long long* ctr, long long items_total,
     }                           \
   } while (0)
 
-// Build the graph's head and its WHILE node, then start capturing the body
-// on the loop's own stream (returned in *stream): the caller launches one
-// wave's kernels there and calls ptt_wave_loop_end.
-extern "C" int ptt_wave_loop_begin(const long long* ctr, long long items_total,
-                                   long long max_waves, WaveLoop** out,
+// Build the graph and its WHILE node, make its condition handle (returned
+// for K1's argument block) and start capturing the body on the loop's own
+// stream (returned in *stream): the caller launches one wave's kernels
+// there and calls ptt_wave_loop_end.
+extern "C" int ptt_wave_loop_begin(WaveLoop** out,
+                                   unsigned long long* h_while,
                                    void** stream) {
   WaveLoop* L = new WaveLoop{};
   *out = L;
   PTT_TRY(cudaGraphCreate(&L->graph, 0));
-  PTT_TRY(cudaGraphConditionalHandleCreate(&L->handle, L->graph, 0, 0));
-  cudaGraphNode_t head;
-  cudaKernelNodeParams kp = {};
-  void* kargs[] = {(void*)&ctr, (void*)&items_total, (void*)&max_waves,
-                   (void*)&L->handle};
-  kp.func = (void*)wave_loop_kernel;
-  kp.gridDim = dim3(1);
-  kp.blockDim = dim3(1);
-  kp.kernelParams = kargs;
-  PTT_TRY(cudaGraphAddKernelNode(&head, L->graph, nullptr, 0, &kp));
+  PTT_TRY(cudaGraphConditionalHandleCreate(&L->h_while, L->graph, 1,
+                                           cudaGraphCondAssignDefault));
   cudaGraphNodeParams cp = {};
   cp.type = cudaGraphNodeTypeConditional;
-  cp.conditional.handle = L->handle;
+  cp.conditional.handle = L->h_while;
   cp.conditional.type = cudaGraphCondTypeWhile;
   cp.conditional.size = 1;
   cudaGraphNode_t loop;
-  PTT_TRY(cudaGraphAddNode(&loop, L->graph, &head, 1, &cp));
+  PTT_TRY(cudaGraphAddNode(&loop, L->graph, nullptr, 0, &cp));
   PTT_TRY(cudaStreamCreateWithFlags(&L->stream, cudaStreamNonBlocking));
   cudaGraph_t body = cp.conditional.phGraph_out[0];
   PTT_TRY(cudaStreamBeginCaptureToGraph(L->stream, body, nullptr, nullptr, 0,
                                         cudaStreamCaptureModeRelaxed));
+  *h_while = (unsigned long long)L->h_while;
   *stream = (void*)L->stream;
   return 0;
 }
 
-// End the body with wave_loop_kernel, close the capture and instantiate.
-extern "C" int ptt_wave_loop_end(WaveLoop* L, const long long* ctr,
-                                 long long items_total, long long max_waves) {
-  wave_loop_kernel<<<1, 1, 0, L->stream>>>(ctr, items_total, max_waves,
-                                           L->handle);
-  const cudaError_t launch = cudaGetLastError();
+// Close the capture and instantiate.
+extern "C" int ptt_wave_loop_end(WaveLoop* L) {
   cudaGraph_t body;
-  const cudaError_t end = cudaStreamEndCapture(L->stream, &body);
-  PTT_TRY(launch);
-  PTT_TRY(end);
+  PTT_TRY(cudaStreamEndCapture(L->stream, &body));
   PTT_TRY(cudaGraphInstantiate(&L->exec, L->graph, 0));
   return 0;
 }

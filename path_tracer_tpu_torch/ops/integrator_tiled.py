@@ -13,23 +13,30 @@ and finished lanes keep their state.  The keys fold as the megakernel's
 ``trace_ray_scan``'s sample set, lane for lane; that is why the replay of
 :mod:`.adjoint` (K6) is its backward.
 
-On the card one launch of K7 or K8 covers every lane of a chunk; the
-chunk's first state comes from ``tiled_spawn`` (``spawn_paths``, B3, with
-K2's camera code).  :func:`render_tiled` captures a chunk's spawn and trips
-once as a CUDA graph (:class:`TripGraph`) and replays it for every sample
-and chunk; :func:`render_sample_tiled` is the same work queued launch by
-launch from the host.
+On the card one launch of K7 covers every lane of a chunk; K8, given live
+lists (:func:`new_live_list`), runs only the lanes still alive, over a
+fixed grid that strides over the list; the chunk's first state comes from
+``tiled_spawn`` (``spawn_paths``, B3, with K2's camera code), which also
+writes the first list.  :func:`render_tiled` replays a chunk's spawn and
+trips captured once as a CUDA graph (:class:`TripGraph`) for every sample
+and chunk, and keeps that graph for the next frame of the same BVH and
+configuration, whatever its key and camera (:func:`trip_graph`; a train
+step's renders replay one graph); :func:`render_sample_tiled` is the same
+work queued launch by launch from the host.
 On CPU tensors every wrapper runs its plain-torch version.  The
 pipeline-parallel mode's K9 (``ring_hop``) and the rec variant of K8 live
 beside K7 and K8 (``csrc/closest_hit.cu``, ``csrc/tiled_trip.cu``).
 """
 from __future__ import annotations
 
+import copy
+import types
+
 import torch
 
 from . import adjoint, kernels
-from .shade_tiled import (HitT, bounce_shade_t, make_tables, prim_medium_t,
-                          spawn_paths, wave_rng)
+from .shade_tiled import (HitT, ShadeTables, bounce_shade_t, make_tables,
+                          prim_medium_t, spawn_paths, wave_rng)
 from .traverse import _traverse_impl
 from .types import (C_STACK_OVF, C_TRAV_STEPS, C_WALK_STEPS, N_COUNTERS,
                     PathState, RenderConfig)
@@ -38,6 +45,8 @@ from .types import (C_STACK_OVF, C_TRAV_STEPS, C_WALK_STEPS, N_COUNTERS,
 REC_FIELDS = ("t", "px", "py", "pz", "nx", "ny", "nz", "front", "u", "v",
               "mat", "medium")
 CHUNK = 1 << 20      # lanes per chunk: on the card one launch covers a chunk
+# The scene arrays the trip kernels read besides the shade tables.
+SCENE_FIELDS = ("img_data", "img_hw", "perlin_vec", "perlin_perm")
 
 
 class TiledEngine:
@@ -146,10 +155,28 @@ def _set_sample(a: kernels.WaveArgs, sample) -> None:
         a.start_sample = int(sample)
 
 
-def tiled_spawn(eng: TiledEngine, sample, pix) -> PathState:
+def new_live_list(n: int, device):
+    """K8's live lists for ``n`` lanes: two lists of lane indices (2, n)
+    and their counts and the launch ticket (3,), all int32 on ``device``;
+    ``tiled_spawn`` fills list 0 with every lane."""
+    return (torch.zeros((2, n), dtype=torch.int32, device=device),
+            torch.zeros((3,), dtype=torch.int32, device=device))
+
+
+def _set_live(a: kernels.WaveArgs, live, parity: int = 0) -> None:
+    """Point K8's (or the spawn's) live-list fields at ``live`` (None: K8
+    runs every lane), trip ``parity`` reading list ``parity``."""
+    a.live = kernels._ptr(None if live is None else live[0])
+    a.live_n = kernels._ptr(None if live is None else live[1])
+    a.live_parity = int(parity)
+    a._keep_live = live
+
+
+def tiled_spawn(eng: TiledEngine, sample, pix, live=None) -> PathState:
     """The first trip's state of the lanes ``pix`` (frame pixels) for
     sample ``sample``: ``spawn_paths``; on the card ``tiled_spawn`` (the
-    sample may then be a (1,) int32 card tensor)."""
+    sample may then be a (1,) int32 card tensor), which also makes list 0
+    of ``live`` (:func:`new_live_list`) every lane."""
     if not pix.is_cuda:
         smp = torch.full_like(pix, int(sample))
         st = spawn_paths(eng.cam, eng.cfg, eng.key, smp, pix)
@@ -166,6 +193,7 @@ def tiled_spawn(eng: TiledEngine, sample, pix) -> PathState:
         alive=torch.empty((R,), dtype=torch.bool, device=dev))
     a = eng.args()
     _set_sample(a, sample)
+    _set_live(a, live)
     kernels.set_lanes(a, R, dev, new_counters(dev), pixel=pix.contiguous(),
                       **st._asdict())
     kernels.launch_args("tiled_spawn", a, dev)
@@ -221,10 +249,15 @@ def tiled_trip_plain(eng: TiledEngine, st: PathState, sample: int, pix, hit,
 
 
 def tiled_trip(eng: TiledEngine, st: PathState, sample, pix, hit,
-               ext=None, exit_med=None, rec=None, ctr=None) -> PathState:
+               ext=None, exit_med=None, rec=None, ctr=None, live=None,
+               parity: int = 0) -> PathState:
     """K8 wrapper (``tiled_trip``, or ``tiled_trip_rec`` with ``rec``): on
     the card it updates ``st`` in place and returns it (the sample may be a
-    (1,) int32 card tensor); on the CPU the plain version's new state."""
+    (1,) int32 card tensor); on the CPU the plain version's new state.
+
+    ``live`` (:func:`new_live_list`, card only, not with ``rec``): the trip
+    runs the lanes of list ``parity`` and appends those that stay alive to
+    the other list; every lane not in the list must be dead."""
     if not pix.is_cuda:
         return tiled_trip_plain(eng, st, sample, pix, hit, ext, exit_med, rec,
                                 ctr)
@@ -236,8 +269,11 @@ def tiled_trip(eng: TiledEngine, st: PathState, sample, pix, hit,
         e_found, e_pt, e_pi, t_exit = ext
         lanes.update(exit_found=e_found, exit_pt=e_pt, exit_pi=e_pi,
                      exit_t=t_exit, exit_med=exit_med)
+    if live is not None and rec is not None:
+        raise ValueError("the rec variant of K8 runs every lane")
     a = eng.args()
     _set_sample(a, sample)
+    _set_live(a, live, parity)
     kernels.set_lanes(a, R, dev, ctr if ctr is not None else new_counters(dev),
                       **lanes)
     kernels.launch_args("tiled_trip" if rec is None else "tiled_trip_rec", a,
@@ -259,19 +295,19 @@ def exit_lanes(eng: TiledEngine, alive, found, pt, pi):
 
 
 def trace_rays_tiled(eng: TiledEngine, path0: PathState, sample: int, pix,
-                     ctr=None):
+                     ctr=None, live=None):
     """Trace the lanes' paths ``cfg.iters`` trips → their radiance (R, 3).
 
     ``path0`` is the lanes' first state (it is updated in place on the
     card), ``pix`` their frame pixels and ``sample`` the sample index of
-    every lane.  Same keys, same colours as ``trace_ray_scan``, lane for
-    lane.
+    every lane; ``live`` the live lists ``tiled_spawn`` filled (card
+    only).  Same keys, same colours as ``trace_ray_scan``, lane for lane.
     """
     cfg, bvh = eng.cfg, eng.bvh
     R = path0.origin.shape[0]
     t_min_v = torch.full((R,), cfg.t_min, device=pix.device)
     s = path0
-    for _ in range(cfg.iters):
+    for trip in range(cfg.iters):
         found, pt, pi, t_hit = closest_hit_batched(
             bvh, s.origin, s.direction, s.time, t_min_v, cfg.t_max,
             cfg.stack_depth, active=s.alive, ctr=ctr)
@@ -281,7 +317,8 @@ def trace_rays_tiled(eng: TiledEngine, path0: PathState, sample: int, pix,
                 bvh, s.origin, s.direction, s.time, t_hit + 1e-4, cfg.t_max,
                 cfg.stack_depth, active=s.alive, ctr=ctr,
                 exit_of=(eng, found, pt, pi))
-        s = tiled_trip(eng, s, sample, pix, (found, pt, pi), ext, ctr=ctr)
+        s = tiled_trip(eng, s, sample, pix, (found, pt, pi), ext, ctr=ctr,
+                       live=live, parity=trip & 1)
     return s.color
 
 
@@ -289,19 +326,38 @@ class TripGraph:
     """One chunk of the tiled engine as a CUDA graph (the device form of
     JAX's ``lax.scan`` over trips, :91-118): ``tiled_spawn``, then
     ``cfg.iters`` trips of K7, K7 for the exit query in a medium scene, and
-    K8, each launch over every lane of the chunk as in the eager loop.
-    The chunk's pixels and the sample are read from card memory, so one
-    capture replays every (sample, chunk).  Launches count per replay.  The
-    graph holds the engine's tables and ``ctr``; build a new one for a new
-    engine.
+    K8 (on the live lists, :func:`new_live_list`).  The chunk's pixels and
+    the sample are read from card memory, so one capture replays every
+    (sample, chunk).  Launches count per replay.
+
+    The graph reads the engine's tables and scene arrays from copies it
+    owns, and the frame's base key and camera from card memory
+    (``kernels.frame_words``); :meth:`load` copies a frame's values in.  It
+    adds to ``ctr`` (default: counters it owns).  So it serves every frame
+    of the same BVH and configuration, whatever its key, view or table
+    values (:func:`trip_graph`).
     """
 
-    def __init__(self, eng: TiledEngine, n_lanes: int, ctr):
+    def __init__(self, eng: TiledEngine, n_lanes: int, ctr=None):
+        global CAPTURES
         dev = eng.device
+        self.bvh = eng.bvh
+        own = copy.copy(eng)          # the engine over tables the graph owns
+        own.tabs = ShadeTables(*(t.clone() if torch.is_tensor(t) else t
+                                 for t in eng.tabs))
+        own.scene = types.SimpleNamespace(**{
+            f: getattr(eng.scene, f).clone() for f in SCENE_FIELDS})
+        own._args = None
+        self.eng = own
+        self.frame = kernels.frame_words(eng.args()).to(dev)
+        self.ctr = new_counters(dev) if ctr is None else ctr
+        self.key = self.config(eng, n_lanes)
         self.pix = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
         self.sample = torch.zeros((1,), dtype=torch.int32, device=dev)
+        live = new_live_list(n_lanes, dev)
         kernels.build()     # host work before the capture: the libraries and
-        eng.args()          # the argument blocks
+        a = own.args()      # the argument blocks
+        a.frame_dev, a._keep_frame = kernels._ptr(self.frame), self.frame
         kernels.query_args(eng.bvh, eng.cfg.t_max,
                            min(eng.cfg.stack_depth, eng.bvh.max_stack))
         self.graph = torch.cuda.CUDAGraph()
@@ -312,13 +368,36 @@ class TripGraph:
         with kernels.captured_launches() as tally, torch.cuda.stream(side):
             self.graph.capture_begin()
             try:
-                path0 = tiled_spawn(eng, self.sample, self.pix)
-                self.color = trace_rays_tiled(eng, path0, self.sample,
-                                              self.pix, ctr)
+                path0 = tiled_spawn(own, self.sample, self.pix, live)
+                self.color = trace_rays_tiled(own, path0, self.sample,
+                                              self.pix, self.ctr, live)
             finally:
                 self.graph.capture_end()
         main.wait_stream(side)
         self.tally = dict(tally)
+        CAPTURES += 1
+
+    @staticmethod
+    def config(eng: TiledEngine, n_lanes: int) -> tuple:
+        """What a capture fixes besides the BVH: the argument block's
+        by-value fields but the frame's key and camera, the chunk and the
+        shapes of the tables."""
+        shapes = tuple(tuple(t.shape) for t in eng.tabs if torch.is_tensor(t))
+        shapes += tuple(tuple(getattr(eng.scene, f).shape)
+                        for f in SCENE_FIELDS)
+        return (int(n_lanes), str(eng.device), shapes,
+                kernels.value_fields(eng.args()))
+
+    @torch.no_grad()
+    def load(self, eng: TiledEngine) -> None:
+        """Copy ``eng``'s tables, scene arrays, key and camera into the
+        graph's."""
+        for dst, src in zip(self.eng.tabs, eng.tabs):
+            if torch.is_tensor(dst):
+                dst.copy_(src)
+        for f in SCENE_FIELDS:
+            getattr(self.eng.scene, f).copy_(getattr(eng.scene, f))
+        self.frame.copy_(kernels.frame_words(eng.args()))
 
     def run(self, sample: int, pix) -> torch.Tensor:
         """The chunk's radiance (R, 3) for ``sample`` of the lanes ``pix``;
@@ -328,6 +407,32 @@ class TripGraph:
         self.graph.replay()
         kernels.count(self.tally)
         return self.color
+
+
+CAPTURES = 0         # TripGraph captures made in this process
+_CACHED: TripGraph | None = None
+
+
+def trip_graph(eng: TiledEngine, n_lanes: int) -> TripGraph:
+    """The :class:`TripGraph` of ``eng``'s BVH and configuration for chunks
+    of ``n_lanes``, loaded with ``eng``'s tables, key and camera: the one
+    kept from an earlier frame where BVH and configuration match (a train
+    step's renders, a new view), else a new capture, which replaces it."""
+    global _CACHED
+    g = _CACHED
+    if (g is None or g.bvh is not eng.bvh
+            or g.key != TripGraph.config(eng, n_lanes)):
+        _CACHED = None                 # the old graph's memory first
+        g = _CACHED = TripGraph(eng, n_lanes)
+    else:
+        g.load(eng)
+    return g
+
+
+def clear_trip_graphs() -> None:
+    """Drop the kept :class:`TripGraph`."""
+    global _CACHED
+    _CACHED = None
 
 
 def _chunks(pix_idx, n: int, chunk_size: int, dev):
@@ -358,10 +463,11 @@ def render_sample_tiled(scene, flags, bvh, cam, cfg: RenderConfig,
     n = pix_idx.shape[0]
     idxs, chunk = _chunks(pix_idx, n, chunk_size, dev)
     out = []
+    live = new_live_list(chunk, dev) if dev.type == "cuda" else None
     for c in range(0, idxs.shape[0], chunk):
         pix = idxs[c:c + chunk]
-        path0 = tiled_spawn(eng, sample_idx, pix)
-        out.append(trace_rays_tiled(eng, path0, sample_idx, pix, ctr))
+        path0 = tiled_spawn(eng, sample_idx, pix, live)
+        out.append(trace_rays_tiled(eng, path0, sample_idx, pix, ctr, live))
     colors = torch.cat(out)[:n]
     return colors.reshape(cfg.height, cfg.width, 3) if full else colors
 
@@ -373,17 +479,20 @@ def _frame_pixels(cfg: RenderConfig, dev):
 def _graphed_samples(eng: TiledEngine, spp: int, pix_idx, chunk_size: int,
                      ctr):
     """Sum of ``spp`` samples of :func:`render_sample_tiled` through one
-    :class:`TripGraph` replayed per (sample, chunk)."""
+    :class:`TripGraph` (:func:`trip_graph`) replayed per (sample, chunk);
+    its counters are added to ``ctr``."""
     cfg, dev = eng.cfg, eng.device
     full = pix_idx is None
     pix_idx = _frame_pixels(cfg, dev) if full else pix_idx
     n = pix_idx.shape[0]
     idxs, chunk = _chunks(pix_idx, n, chunk_size, dev)
-    graph = TripGraph(eng, chunk, ctr)
+    graph = trip_graph(eng, chunk)
+    graph.ctr.zero_()
     acc = torch.zeros((idxs.shape[0], 3), device=dev)
     for s in range(spp):
         for c in range(0, idxs.shape[0], chunk):
             acc[c:c + chunk] += graph.run(s, idxs[c:c + chunk])
+    ctr += graph.ctr
     acc = acc[:n]
     return acc.reshape(cfg.height, cfg.width, 3) if full else acc
 

@@ -44,6 +44,7 @@ import itertools
 import os
 import re
 import shutil
+import struct
 import subprocess
 import time
 
@@ -112,7 +113,11 @@ class WaveArgs(ctypes.Structure):
                              "exit_found", "exit_pt", "exit_pi", "exit_t",
                              "exit_med", "rec")]
         + [("pix_offset", _I), ("sample_dev", _P), ("tape", _P),
-           ("walk", _P), ("gate_pt", _P), ("gate_pi", _P)])
+           ("walk", _P), ("gate_pt", _P), ("gate_pi", _P),
+           ("h_while", ctypes.c_ulonglong),
+           ("max_waves", ctypes.c_longlong), ("loop_graph", _I),
+           ("live", _P), ("live_n", _P), ("live_parity", _I),
+           ("frame_dev", _P)])
 
 
 def _nvcc() -> str:
@@ -233,6 +238,35 @@ def check_layout(lib, mirror=WaveArgs) -> None:
     if size != ctypes.sizeof(mirror):
         raise RuntimeError(f"WaveArgs layout mismatch: C {size} bytes, "
                            f"ctypes {ctypes.sizeof(mirror)}")
+
+
+# The frame's fields that the tiled kernels read from card memory where
+# frame_dev is set (WaveArgs.frame_dev, csrc/common.cuh): the base key and
+# the camera.
+FRAME_FIELDS = ("key0", "key1", "cam_origin", "pixel00", "du", "dv",
+                "defocus_u", "defocus_v", "defocus_angle")
+
+
+def frame_words(a: WaveArgs) -> torch.Tensor:
+    """``a``'s :data:`FRAME_FIELDS` as the (21,) int32 words that
+    ``frame_dev`` points at: the two key words, then the floats' bits."""
+    cam = [x for f in FRAME_FIELDS[2:-1] for x in getattr(a, f)]
+    raw = struct.pack("<2I19f", a.key0, a.key1, *cam, a.defocus_angle)
+    return torch.tensor(struct.unpack("<21i", raw), dtype=torch.int32)
+
+
+def value_fields(a: WaveArgs, skip=("R", "start_sample", "live_parity")
+                 + FRAME_FIELDS) -> tuple:
+    """The by-value fields of an argument block (every field but the
+    pointers, the per-launch ``skip`` and the frame's key and camera) as a
+    hashable tuple."""
+    out = []
+    for f, t in WaveArgs._fields_:
+        if t is _P or f in skip:
+            continue
+        v = getattr(a, f)
+        out.append((f, tuple(v) if isinstance(v, ctypes.Array) else v))
+    return tuple(out)
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:

@@ -16,9 +16,10 @@ wave machine of ``_make_engine`` (:135-467).  One wave is four kernels:
 
 K3, K4 and K2 return at once when ``do_ctrl`` is 0.  On the card the wave
 loop (B8', JAX's ``lax.while_loop(live, wave)``) runs on the device: one
-CUDA graph per frame whose conditional WHILE node repeats a wave while
-``live`` holds (``csrc/wave_loop.cu``, :func:`run_waves_graph`); the host
-launches it once and reads the counters once.  :func:`run_waves` is the
+CUDA graph per frame whose conditional WHILE node repeats a wave until K1
+finds no work left and clears the node's condition (``csrc/wave_loop.cu``,
+:func:`run_waves_graph`); the host launches it once and reads the counters
+once.  :func:`run_waves` is the
 same loop driven from the host, a wave's launches at a time, reading the
 counters every ``CHECK_EVERY`` waves (the comparison path, and the loop of
 the plain-torch twins).  On CPU tensors every kernel wrapper runs its
@@ -322,10 +323,11 @@ def run_waves(eng: WaveEngine, ws: WaveState, plain: bool = False) -> int:
 def _wave_loop_lib():
     lib = kernels.library("wave_loop")
     if not hasattr(lib, "_typed"):
-        P, LL = ctypes.c_void_p, ctypes.c_longlong
-        lib.ptt_wave_loop_begin.argtypes = [P, LL, LL, ctypes.POINTER(P),
-                                            ctypes.POINTER(P)]
-        lib.ptt_wave_loop_end.argtypes = [P, P, LL, LL]
+        P = ctypes.c_void_p
+        lib.ptt_wave_loop_begin.argtypes = [
+            ctypes.POINTER(P), ctypes.POINTER(ctypes.c_ulonglong),
+            ctypes.POINTER(P)]
+        lib.ptt_wave_loop_end.argtypes = [P]
         lib.ptt_wave_loop_launch.argtypes = [P, P]
         lib.ptt_wave_loop_free.argtypes = [P]
         for f in ("begin", "end", "launch", "free"):
@@ -344,28 +346,33 @@ def run_waves_graph(eng: WaveEngine, ws: WaveState) -> int:
     """Run waves on the device until no work is left; returns the host
     reads (1).
 
-    Captures one wave (K1, K3, K4, K2) from the state's persistent
-    tensors into the body of a CUDA graph's WHILE node, whose condition the
-    device evaluates after every wave (``live``); launches the graph once
-    and copies the counters to the host once.  Launches count per wave the
-    loop ran (``ctr[C_WAVES]``); ``wave_loop`` counts its predicate kernel,
-    run once before the loop and once per wave.  A failed capture or launch
-    raises; so does a frame that has not drained within ``MAX_WAVES``.
+    Captures one wave (K1, K3, K4, K2) from the state's persistent tensors
+    into the body of a CUDA graph's WHILE node (``csrc/wave_loop.cu``);
+    K1 ends the loop when it finds no work left (``live``) or the frame at
+    ``MAX_WAVES``.  Launches the graph once and copies the counters to the
+    host once.  Launches count from that read: each kernel ``waves + 1``
+    (the last wave's K1 finds no work and K3, K4 and K2 after it return at
+    once); ``wave_loop`` counts 0, as the loop has no kernel of its own.
+    A failed build, capture
+    or launch raises; so does a frame that has not drained within
+    ``MAX_WAVES``.
     """
     dev = ws.ctr.device
     lib = _wave_loop_lib()
     args = kernels.make_args(eng, ws)
-    ctr = ctypes.c_void_p(ws.ctr.data_ptr())
     loop, stream = ctypes.c_void_p(), ctypes.c_void_p()
+    h_while = ctypes.c_ulonglong()
     try:
-        _check(lib.ptt_wave_loop_begin(ctr, eng.items_total, MAX_WAVES,
-                                       ctypes.byref(loop), ctypes.byref(stream)),
+        _check(lib.ptt_wave_loop_begin(ctypes.byref(loop),
+                                       ctypes.byref(h_while),
+                                       ctypes.byref(stream)),
                "building the graph")
+        args.h_while, args.loop_graph = h_while.value, 1
+        args.max_waves = MAX_WAVES
         with kernels.captured_launches() as per_wave:
             for name in WAVE_NAMES:
                 kernels.launch_args(name, args, dev, stream=stream.value)
-        _check(lib.ptt_wave_loop_end(loop, ctr, eng.items_total, MAX_WAVES),
-               "capturing the wave")
+        _check(lib.ptt_wave_loop_end(loop), "capturing the wave")
         waves0 = ws.ctr[C_WAVES].clone()
         _check(lib.ptt_wave_loop_launch(
             loop, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
@@ -373,9 +380,7 @@ def run_waves_graph(eng: WaveEngine, ws: WaveState) -> int:
         host = torch.cat([ws.ctr, waves0[None]]).cpu()   # the one host read
     finally:
         lib.ptt_wave_loop_free(loop)
-    waves = int(host[C_WAVES] - host[-1])
-    kernels.count(per_wave, waves)
-    kernels.count({"wave_loop": waves + 1})
+    kernels.count(per_wave, int(host[C_WAVES] - host[-1]) + 1)
     if eng.live(host):
         raise RuntimeError(f"wavefront did not drain within {MAX_WAVES} waves")
     return 1

@@ -1,7 +1,10 @@
-"""A/B of K5 (megakernel) and K7 (closest_hit) between checkouts, on one card.
+"""A/B of K5 (megakernel), K7 (closest_hit) and K8 (tiled_trip) between
+checkouts, on one card.
 
     path_tracer_tpu_torch/scripts/ab_smoke.sh prepare HEAD    # in git
     python path_tracer_tpu_torch/scripts/mega_ab.py build/ab/parent build/ab/change
+    python path_tracer_tpu_torch/scripts/mega_ab.py --tiled --rounds 3 DIR ...
+    python path_tracer_tpu_torch/scripts/mega_ab.py --traffic --rounds 3 DIR ...
 
 Each argument is a checkout of the repo (``ab_smoke.sh prepare`` unpacks the
 parent and the working tree into ``build/ab/``).  The script builds each
@@ -31,10 +34,33 @@ checkout in the order 1 .. n, n .. 1; on vol2_final_scene(sphere_cluster=
   ms split between its main and its exit launches (each trip launches
   the main query, then the exit query, in that order) and K8's.
 
+``--tiled`` runs only the tiled engine, at node widths 4 and 8, and splits
+K8: the graphed frame's three walls and image hash, K8's device ms per
+trip (torch.profiler, each trip's mean over the frame's samples), the
+eager loop's live lanes per trip (every sample), the mean live lanes per
+warp and the mean distinct families per warp over warps with a live lane,
+in lane order and in the order of a block sort by family (128 lanes), the
+walk's steps per trip and each trip's bound (the larger of its bytes at
+3.35 TB/s and its fp32 ops at 67 TFLOP/s, as chip_smoke counts K8's), K8
+on the lanes of sample 0 after three trips (device ms, 10 launches on as
+many copies queued behind a spin kernel), a trip graph's capture seconds,
+the captures across two frames and, where the checkout keeps its graph, a
+kept frame bit-equal to a freshly captured one.  ``--rounds R``: R passes
+over the checkouts, every other one reversed (default 2).
+
+``--traffic`` runs the tiled engine under the traffic that renders over and
+over (every kernel built): the 10-spp frame with five new keys and from
+five camera positions (walls, image hashes, trip graph captures), and the
+tiled train step (``make_train_step(engine="megakernel")``, unbiased, 4 spp
+a render, ``med_density`` and ``tex_c1``): four step walls after a warm-up,
+the first step's loss and the captures; records in
+``chiprun_out/mega_ab_traffic.json``.
+
 It prints the card's ``nvidia-smi`` name and power limit, one JSON line per
 run, a summary (medians per checkout) and, per hash, whether every run of
 every checkout gave the first one's; every record goes to
-``chiprun_out/mega_ab.json``.  Needs a CUDA card and ``nvcc``.
+``chiprun_out/mega_ab.json`` (``mega_ab_tiled.json`` with ``--tiled``).
+Needs a CUDA card and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -56,6 +82,14 @@ QW, QH, QDEPTH = 400, 225, 12
 DEEP = 70
 N_QUEUED = 10
 SPIN_CYCLES = 200_000_000
+H100_BYTES_PER_S = 3.35e12     # as chip_smoke.py
+H100_F32_OPS_PER_S = 67e12
+STATE_BYTES = 61               # one lane's path state
+BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce
+WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
+SORT_LANES = 128               # a block of K8's family sort
+N_TRAFFIC = 5                  # --traffic: frames of new keys, of new views
+N_STEPS, TRAIN_SPP = 4, 4      # --traffic: train steps, samples a render
 _HERE = os.path.abspath(__file__)
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 
@@ -70,14 +104,15 @@ def _these_kernels_only(kernels) -> None:
 
 def build_side() -> int:
     from path_tracer_tpu_torch.ops import kernels
-    _these_kernels_only(kernels)
+    if "--all" not in sys.argv:
+        _these_kernels_only(kernels)
     t0 = time.perf_counter()
     kernels.build()
     print(json.dumps({"build_s": time.perf_counter() - t0, "ptxas": {
         n: [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         for n, log in kernels.BUILD_LOG.items()
-        if n in ("megakernel", "closest_hit")}}), flush=True)
+        if n in ("megakernel", "closest_hit", "tiled_trip")}}), flush=True)
     return 0
 
 
@@ -271,13 +306,312 @@ def measure_side() -> int:
     return 0
 
 
-def main(dirs) -> int:
+def _families(itl, eng, alive, hit):
+    """K8's family key per lane (dead 9, miss 7, medium 8, else the hit's
+    material type), computed here so that every checkout is split alike."""
+    import torch
+    from path_tracer_tpu_torch.ops import shade_tiled
+    found, pt, pi = hit
+    row = shade_tiled._prim_rows(eng.tabs, pt, pi)
+    mat = torch.clamp(row[0].to(torch.int32), 0, eng.tabs.mat.shape[0] - 1)
+    key = torch.clamp(eng.tabs.mat[mat.long(), 0].to(torch.int32), 0, 6)
+    key = torch.where(found, key, 7)
+    if eng.flags.has_medium:
+        key = torch.where(found & (row[1].to(torch.int32) >= 0), 8, key)
+    return torch.where(alive, key, 9)
+
+
+def _warp_stats(keys):
+    """(mean live lanes, mean distinct families) per warp of 32 positions
+    with a live lane; ``keys`` in run order, 9 (or -1 padding) dead."""
+    import torch
+    n = keys.shape[0]
+    k = torch.cat([keys, torch.full((-n % 32,), 9, dtype=keys.dtype,
+                                    device=keys.device)]).view(-1, 32)
+    live = k != 9
+    rows = live.any(1)
+    if not bool(rows.any()):
+        return 0.0, 0.0
+    fam = torch.zeros((k.shape[0], 10), dtype=torch.bool, device=k.device)
+    fam.scatter_(1, k.long().clamp(0, 9), True)
+    fam[:, 9] = False
+    return (float(live.sum(1)[rows].float().mean()),
+            float(fam.sum(1)[rows].float().mean()))
+
+
+def _sorted_keys(keys):
+    """Keys in the order of a stable sort by family within blocks of
+    SORT_LANES lanes (design (a)'s order)."""
+    import torch
+    n = keys.shape[0]
+    k = torch.cat([keys, torch.full((-n % SORT_LANES,), 9, dtype=keys.dtype,
+                                    device=keys.device)]).view(-1, SORT_LANES)
+    return torch.sort(k, dim=1, stable=True).values.reshape(-1)
+
+
+def tiled_side() -> int:
+    import torch
+
+    import path_tracer_tpu_torch as ptt
+    from path_tracer_tpu_torch.ops import kernels
+    from path_tracer_tpu_torch.ops import integrator_tiled as itl
+    from path_tracer_tpu_torch.ops.shade import SceneFlags
+    from path_tracer_tpu_torch.ops.types import (C_WALK_STEPS, PathState,
+                                                 RenderConfig)
+    from path_tracer_tpu_torch.utils import rng
+    _these_kernels_only(kernels)
+    kernels.build()
+    dev = torch.device("cuda")
+    key = rng.key(0, device=dev)
+    world, cam = ptt.scenes.vol2_final_scene(sphere_cluster=1000)
+    cam.aspect_ratio, cam.img_width = W / H, W
+    cam.samples_per_pixel, cam.max_depth = SPP, DEPTH
+    scene = ptt.compile_scene(world, device=dev)
+    flags = SceneFlags.from_scene(scene)
+    cam_a = cam.initialize(device=dev)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
+                       max_depth=DEPTH)
+    NL = W * H
+    pix = torch.arange(NL, dtype=torch.int32, device=dev)
+    t_min = torch.full((NL,), cfg.t_min, device=dev)
+    rec = {"dir": os.getcwd(), "hash": {}, "tiled": {}}
+    has_live = hasattr(itl, "new_live_list")
+    for K in (4, 8):
+        bvh = ptt.build_from_scene(scene, K)
+        teng = itl.TiledEngine(scene, flags, bvh, cam_a, cfg, key)
+        tabs = teng.tabs
+        shade_bytes = 4 * sum(x.numel() for x in (tabs.prim, tabs.mat,
+                                                  tabs.tex, tabs.med))
+
+        def query(st_, tmin_, act_, exit_of=None):
+            if exit_of is None:
+                return itl.closest_hit_batched(
+                    bvh, st_.origin, st_.direction, st_.time, tmin_,
+                    cfg.t_max, cfg.stack_depth, active=act_)
+            return itl.closest_hit_batched(
+                bvh, st_.origin, st_.direction, st_.time, tmin_, cfg.t_max,
+                cfg.stack_depth, active=act_, exit_of=exit_of)
+
+        # The eager loop, every sample: live lanes, warp fill, walk steps
+        # and the bound of every trip.
+        trips = []
+        for smp in range(SPP):
+            live = itl.new_live_list(NL, dev) if has_live else None
+            st = (itl.tiled_spawn(teng, smp, pix, live) if has_live
+                  else itl.tiled_spawn(teng, smp, pix))
+            ctr = itl.new_counters(dev)
+            for t in range(cfg.iters):
+                h_ = query(st, t_min, st.alive)
+                e_ = query(st, h_[3] + 1e-4, st.alive,
+                           exit_of=(teng, h_[0], h_[1], h_[2]))
+                keys = _families(itl, teng, st.alive, h_[:3])
+                n_live = int(st.alive.sum())
+                w0 = int(ctr[C_WALK_STEPS])
+                kw = dict(ctr=ctr)
+                if has_live:
+                    kw.update(live=live, parity=t & 1)
+                st = itl.tiled_trip(teng, st, smp, pix, h_[:3], e_, **kw)
+                walk = int(ctr[C_WALK_STEPS]) - w0
+                if smp == 0:
+                    lw, fw = _warp_stats(keys)
+                    slw, sfw = _warp_stats(_sorted_keys(keys))
+                    trips.append(dict(live=[n_live], walk=[walk],
+                                      live_per_warp=lw, fam_per_warp=fw,
+                                      sorted_live_per_warp=slw,
+                                      sorted_fam_per_warp=sfw))
+                else:
+                    trips[t]["live"].append(n_live)
+                    trips[t]["walk"].append(walk)
+        bound = []
+        for tr in trips:
+            b = 0.0
+            for n_live, walk in zip(tr["live"], tr["walk"]):
+                byts = shade_bytes + NL + n_live * (2 * STATE_BYTES + 26)
+                ops = n_live * BOUNCE_OPS + walk * WALK_TRIP_OPS
+                b += max(byts / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S)
+            bound.append(1e3 * b / len(tr["live"]))
+        # K8 on the lanes of sample 0 after three trips, as chip_smoke
+        st = itl.tiled_spawn(teng, 0, pix)
+        for _ in range(3):
+            h_ = query(st, t_min, st.alive)
+            e_ = query(st, h_[3] + 1e-4, st.alive & h_[0])
+            st = itl.tiled_trip(teng, st, 0, pix, h_[:3], e_)
+        hk = query(st, t_min, st.alive)
+        ek = query(st, hk[3] + 1e-4, st.alive,
+                   exit_of=(teng, hk[0], hk[1], hk[2]))
+        copies = [PathState(*(x.clone() for x in st)) for _ in range(N_QUEUED)]
+        it_ = iter(copies)
+        k8_state_ms = _device_ms(lambda: itl.tiled_trip(
+            teng, next(it_), 0, pix, hk[:3], ek))
+        three_live = int(st.alive.sum())
+        del copies, st, hk, ek
+
+        def tiled():
+            return itl.render_tiled(scene, flags, bvh, cam_a, cfg, key,
+                                    spp=SPP, with_stats=True)
+        tiled()                                      # warm-up
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, stt = tiled()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        rec["hash"][f"tiled_image_k{K}"] = _hash(img)
+        rec["hash"][f"tiled_steps_k{K}"] = _hash(stt["trav_steps"],
+                                                 stt["walk_steps"])
+        caps = getattr(itl, "CAPTURES", None)
+        tiled()
+        caps2 = getattr(itl, "CAPTURES", None)
+        kept_same = None
+        if hasattr(itl, "clear_trip_graphs"):
+            itl.clear_trip_graphs()
+            img2, _ = tiled()
+            kept_same = _hash(img2) == _hash(img)
+        ms, runs, seq = _profiled(tiled, ("closest_hit", "tiled_trip",
+                                          "tiled_spawn"))
+        k8_us = [us for n, us in seq if n == "tiled_trip"]
+        per_trip = [statistics.mean(k8_us[t::cfg.iters]) / 1e3
+                    for t in range(cfg.iters)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        itl.TripGraph(teng, NL, itl.new_counters(dev))
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        rec["tiled"][K] = dict(
+            walls=walls, device_ms=ms, runs=runs, k8_per_trip_ms=per_trip,
+            k8_bound_per_trip_ms=bound,
+            k8_bound_frame_ms=SPP * sum(bound),
+            live_per_trip=[tr["live"] for tr in trips],
+            walk_per_trip=[tr["walk"] for tr in trips],
+            warp=[{k: tr[k] for k in ("live_per_warp", "fam_per_warp",
+                                      "sorted_live_per_warp",
+                                      "sorted_fam_per_warp")}
+                  for tr in trips],
+            k8_three_trip_ms=k8_state_ms, three_trip_live=three_live,
+            capture_s=capture_s,
+            captures_two_frames=(None if caps is None else caps2 - caps),
+            kept_frame_same=kept_same)
+        del teng
+        torch.cuda.empty_cache()
+    print("RECORD " + json.dumps(rec), flush=True)
+    return 0
+
+
+def traffic_side() -> int:
+    import copy
+
+    import numpy as np
+    import torch
+
+    import path_tracer_tpu_torch as ptt
+    from path_tracer_tpu_torch.ops import integrator_tiled as itl
+    from path_tracer_tpu_torch.ops import kernels
+    from path_tracer_tpu_torch.ops.shade import SceneFlags
+    from path_tracer_tpu_torch.ops.types import RenderConfig
+    from path_tracer_tpu_torch.utils import rng
+    kernels.build()                   # every kernel: the step runs K6 too
+    dev = torch.device("cuda")
+    key = rng.key(0, device=dev)
+    world, cam = ptt.scenes.vol2_final_scene(sphere_cluster=1000)
+    cam.aspect_ratio, cam.img_width = W / H, W
+    scene = ptt.compile_scene(world, device=dev)
+    flags = SceneFlags.from_scene(scene)
+    bvh = ptt.build_from_scene(scene)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
+                       max_depth=DEPTH)
+    cams = []
+    for i in range(N_TRAFFIC):
+        c = copy.copy(cam)
+        c.lookfrom = np.asarray(cam.lookfrom, float) + np.array(
+            [0.25 * i, 0.0, 0.0])
+        cams.append(c.initialize(device=dev))
+    rec = {"dir": os.getcwd(), "hash": {}, "walls": {}, "captures": {}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def captures():
+        return getattr(itl, "CAPTURES", None)
+
+    itl.render_tiled(scene, flags, bvh, cams[0], cfg, key, spp=1)  # warm-up
+    for tag, frames in (("keys", [(rng.fold_in(key, i), cams[0])
+                                  for i in range(N_TRAFFIC)]),
+                        ("views", [(key, c) for c in cams])):
+        c0, walls, imgs = captures(), [], []
+        for k, c in frames:
+            w, img = timed(lambda: itl.render_tiled(scene, flags, bvh, c, cfg,
+                                                    k, spp=SPP))
+            walls.append(w)
+            imgs.append(img)
+        rec["walls"][tag] = walls
+        rec["hash"][tag] = _hash(*imgs)
+        rec["captures"][tag] = None if c0 is None else captures() - c0
+    # The tiled train step (vol2_final 800x450, 4 spp a render, two renders
+    # a step of their own keys, the full K6 backward).
+    cf_t = dataclasses.replace(cfg, samples_per_pixel=TRAIN_SPP)
+    target = itl.render_tiled(scene, flags, bvh, cams[0], cf_t,
+                              rng.key(10_000, device=dev), spp=8)
+    params = {"med_density": scene.med_density * 1.5,
+              "tex_c1": scene.tex_c1 * 0.9}
+    step = ptt.make_train_step(flags, cf_t, None, spp=TRAIN_SPP, lr=1e-9,
+                               engine="megakernel", unbiased=True)
+    step(params, scene, bvh, cams[0], rng.fold_in(key, 99), target)
+    c0, walls, losses = captures(), [], []
+    for i in range(N_STEPS):
+        w, out = timed(lambda: step(params, scene, bvh, cams[0],
+                                    rng.fold_in(key, i), target))
+        params = out[0]
+        walls.append(w)
+        losses.append(float(out[1]))
+    rec["walls"]["train"] = walls
+    rec["hash"]["train_loss0"] = repr(losses[0])
+    rec["captures"]["train"] = None if c0 is None else captures() - c0
+    print("RECORD " + json.dumps(rec), flush=True)
+    return 0
+
+
+def _traffic_summary(built, runs, ok) -> int:
+    med = statistics.median
+    for d in built:
+        rs = [r for r in runs if r["dir"] == d]
+        for tag in ("keys", "views", "train"):
+            ws = [w for r in rs for w in r["walls"][tag]]
+            if ws:
+                print(f"summary {os.path.basename(d)} {tag}: walls "
+                      + ", ".join(f"{w:.4f}" for w in ws)
+                      + f" (median {med(ws):.4f}, min {min(ws):.4f}, max "
+                      f"{max(ws):.4f}); captures "
+                      f"{[r['captures'][tag] for r in rs]}", flush=True)
+    if runs:
+        first = runs[0]["hash"]
+        for tag in first:
+            same = all(r["hash"].get(tag) == first[tag] for r in runs)
+            print(f"bit-equal {tag}: {same} across {len(runs)} runs",
+                  flush=True)
+            ok = ok and same
+    return 0 if ok else 1
+
+
+def main(args) -> int:
+    tiled = "--tiled" in args
+    traffic = "--traffic" in args
+    rounds = 2
+    if "--rounds" in args:
+        rounds = int(args[args.index("--rounds") + 1])
+        args = args[:args.index("--rounds")] + args[args.index("--rounds") + 2:]
+    dirs = [d for d in args if d not in ("--tiled", "--traffic")]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     dirs = [os.path.abspath(d) for d in dirs]
-    builds = {d: subprocess.Popen([sys.executable, _HERE, "--build"], cwd=d,
+    builds = {d: subprocess.Popen([sys.executable, _HERE, "--build"]
+                                  + (["--all"] if traffic else []), cwd=d,
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
               for d in dirs}
@@ -290,8 +624,12 @@ def main(dirs) -> int:
         if p.returncode == 0:
             built.append(d)
     ok = len(built) == len(dirs)
-    for d in built + built[::-1]:
-        p = subprocess.run([sys.executable, _HERE, "--side"], cwd=d,
+    order = [x for r in range(rounds) for x in (built if r % 2 == 0
+                                                 else built[::-1])]
+    for d in order:
+        side = ("--traffic-side" if traffic else
+                "--tiled-side" if tiled else "--side")
+        p = subprocess.run([sys.executable, _HERE, side], cwd=d,
                            capture_output=True, text=True, timeout=900)
         recs = [json.loads(ln[7:]) for ln in p.stdout.splitlines()
                 if ln.startswith("RECORD ")]
@@ -303,9 +641,15 @@ def main(dirs) -> int:
         print(json.dumps(recs[0]), flush=True)
         out_all["runs"].append(recs[0])
     os.makedirs(os.path.join(_REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(_REPO, "chiprun_out", "mega_ab.json"), "w") as f:
+    name = ("mega_ab_traffic.json" if traffic else
+            "mega_ab_tiled.json" if tiled else "mega_ab.json")
+    with open(os.path.join(_REPO, "chiprun_out", name), "w") as f:
         json.dump(out_all, f, indent=1)
     runs = out_all["runs"]
+    if traffic:
+        return _traffic_summary(built, runs, ok)
+    if tiled:
+        return _tiled_summary(built, runs, ok)
     for d in built:
         rs = [r for r in runs if r["dir"] == d]
         if not rs:
@@ -348,9 +692,58 @@ def main(dirs) -> int:
     return 0 if ok else 1
 
 
+def _tiled_summary(built, runs, ok) -> int:
+    med = statistics.median
+    for d in built:
+        rs = [r for r in runs if r["dir"] == d]
+        if not rs:
+            continue
+        name = os.path.basename(d)
+        for K in ("4", "8"):
+            t = [r["tiled"][K] for r in rs]
+            print(f"summary {name} K={K}: K8 device ms per frame "
+                  + ", ".join(f"{x['device_ms']['tiled_trip']:.3f}" for x in t)
+                  + f" (bound {t[0]['k8_bound_frame_ms']:.3f}); K7 "
+                  + ", ".join(f"{x['device_ms']['closest_hit']:.3f}" for x in t)
+                  + "; spawn " + ", ".join(
+                      f"{x['device_ms']['tiled_spawn']:.3f}" for x in t)
+                  + "; walls " + ", ".join(f"{w:.4f}" for x in t
+                                           for w in x["walls"])
+                  + f" (median {med(w for x in t for w in x['walls']):.4f})"
+                  + "; K8 on the 3-trip state " + ", ".join(
+                      f"{x['k8_three_trip_ms']:.4f}" for x in t)
+                  + f" ({t[0]['three_trip_live']} live); capture s "
+                  + ", ".join(f"{x['capture_s']:.4f}" for x in t)
+                  + f"; captures over two frames "
+                  f"{[x['captures_two_frames'] for x in t]}, kept frame = "
+                  f"fresh {[x['kept_frame_same'] for x in t]}", flush=True)
+            print(f"summary {name} K={K} per trip: " + "; ".join(
+                f"{i + 1}: {med(x['k8_per_trip_ms'][i] for x in t):.4f} ms "
+                f"(bound {t[0]['k8_bound_per_trip_ms'][i]:.4f}), live "
+                f"{t[0]['live_per_trip'][i][0]}, per warp "
+                f"{t[0]['warp'][i]['live_per_warp']:.1f} / "
+                f"{t[0]['warp'][i]['fam_per_warp']:.2f} fam, sorted "
+                f"{t[0]['warp'][i]['sorted_live_per_warp']:.1f} / "
+                f"{t[0]['warp'][i]['sorted_fam_per_warp']:.2f}"
+                for i in range(len(t[0]["k8_per_trip_ms"]))), flush=True)
+        ok = ok and all(x.get("kept_frame_same") in (None, True)
+                        for r in rs for x in r["tiled"].values())
+    if runs:
+        first = runs[0]["hash"]
+        for tag in first:
+            same = all(r["hash"].get(tag) == first[tag] for r in runs)
+            print(f"bit-equal {tag}: {same} across {len(runs)} runs",
+                  flush=True)
+            ok = ok and same
+    return 0 if ok else 1
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--build"], ["--side"]):
+    if sys.argv[1:2] in (["--build"], ["--side"], ["--tiled-side"],
+                         ["--traffic-side"]):
         sys.path.insert(0, os.getcwd())
-        sys.exit(build_side() if sys.argv[1] == "--build" else measure_side())
+        sys.exit({"--build": build_side, "--side": measure_side,
+                  "--tiled-side": tiled_side,
+                  "--traffic-side": traffic_side}[sys.argv[1]]())
     sys.path.insert(0, _REPO)
     sys.exit(main(sys.argv[1:]))

@@ -33,7 +33,8 @@ the order they appear.  Then it runs one process per checkout in the order
 - renders vol2_final_scene(sphere_cluster=1000) at 800x450, 10 spp, depth
   10 through the device wave loop (queue 32768, 32 steps per wave) at node
   widths 4 and 8: three frame walls, then one frame under torch.profiler,
-  the device ms and runs of each kernel (runs held equal to launches), and
+  the device ms and runs of each kernel and its launches (the summary
+  prints both, with the frame's waves and control waves), and
   hashes of the image and of the integer counters (paths, spawned, rays,
   depth sum, waves, control waves, walk and traversal steps, depth
   histogram, per-pixel paths).
@@ -92,7 +93,9 @@ def build_side(states: bool) -> int:
     t0 = time.perf_counter()
     kernels.build()
     print(json.dumps({"build_s": time.perf_counter() - t0, "ptxas": {
-        n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+        n: [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "stack frame" in ln
+            or "Compiling entry" in ln]
         for n, log in kernels.BUILD_LOG.items()
         if n in WAVE
     }}), flush=True)
@@ -312,6 +315,21 @@ def measure_side(states: bool) -> int:
                                    SPP, key, queue_size=QUEUE,
                                    steps_per_wave=STEPS, with_stats=True)
         frame()                                   # warm-up
+        # The device loop's graph launch between two CUDA events: the
+        # graph's run on the card, gaps and conditional nodes included; the
+        # rest of a frame's wall is host work (the graph's build).
+        lib = wf._wave_loop_lib()
+        launch, evs = lib.ptt_wave_loop_launch, []
+
+        def timed_launch(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r = launch(*a)
+            e1.record()
+            evs.append((e0, e1))
+            return r
+        lib.ptt_wave_loop_launch = timed_launch
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -319,6 +337,8 @@ def measure_side(states: bool) -> int:
             img, st = frame()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        lib.ptt_wave_loop_launch = launch
+        graph_ms = [e0.elapsed_time(e1) for e0, e1 in evs]
         torch.cuda.synchronize()
         kernels.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
@@ -336,7 +356,7 @@ def measure_side(states: bool) -> int:
                                           "depth_sum", "waves", "ctrls",
                                           "walk_steps", "trav_steps")}
         rec["frames"][K] = dict(
-            walls=walls, device_ms=ms, runs=runs,
+            walls=walls, graph_ms=graph_ms, device_ms=ms, runs=runs,
             launches={n: kernels.LAUNCHES[n] for n in KERNEL_NAMES},
             waves=int(st["waves"]), rays=int(st["rays"]),
             trav_steps=int(st["trav_steps"]), counters=counts,
@@ -430,10 +450,17 @@ def main(args) -> int:
                                         for r in rs) for n in KERNEL_NAMES}
             wall = statistics.median(w for r in rs
                                      for w in r["frames"][K]["walls"])
+            f0 = rs[0]["frames"][K]
             print(f"summary {name} K={K}: device ms per frame "
                   + ", ".join(f"{n} {v:.3f}" for n, v in med.items())
-                  + f"; wall median {wall:.4f} s; K1 exact "
-                  f"{all(r['k1_exact'][K] for r in rs)}", flush=True)
+                  + f"; wall median {wall:.4f} s (walls " + ", ".join(
+                      f"{w:.4f}" for r in rs for w in r["frames"][K]["walls"])
+                  + "); the graph's run ms " + ", ".join(
+                      f"{g:.3f}" for r in rs for g in r["frames"][K]["graph_ms"])
+                  + f"; K1 exact {all(r['k1_exact'][K] for r in rs)}; "
+                  f"waves {f0['counters']['waves']}, ctrls "
+                  f"{f0['counters']['ctrls']}, launches {f0['launches']}, "
+                  f"profiler runs {f0['runs']}", flush=True)
         print(f"summary {name}: K4 exact "
               f"{all(r['k4_exact'] for r in rs)}, graph ms per launch K4 "
               + ", ".join(f"{r['k4_graph_ms']:.4f}" for r in rs)

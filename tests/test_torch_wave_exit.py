@@ -337,8 +337,8 @@ def test_device_wave_loop_matches_host_loop_on_card(cuda_device):
         assert int(twf._stats(h, eng)[k]) == int(twf._stats(g, eng)[k]), k
     waves = int(g.ctr[ttr.C_WAVES])
     assert (launches["trace_step"] == launches["shade"] == launches["retire"]
-            == launches["spawn"] == waves)
-    assert launches["wave_loop"] == waves + 1
+            == launches["spawn"] == waves + 1)
+    assert launches["wave_loop"] == 0
 
 
 @pytest.mark.gpu
