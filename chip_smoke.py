@@ -131,19 +131,28 @@ engine walks it, on the lanes whose hit has a medium, each timed apart), K8
 (tiled_trip; over every lane, and on live lists as every tiled frame runs
 it: bit-identical to the every-lane launch, the list it writes the next
 live lanes, each once) and the tiled spawn on every lane of an 800x450
-vol2_final sample after three trips, K9 (ring_hop; the two hops of a 2-stage ring,
-each also bit-equal to the hop walked to t_max as JAX walks it) and K8's
-rec variant over the torus knot sharded two ways; and the P0 row gather
-(gather_rows) against torch.index_select at P0's shape.  Every K6 launch
-must leave the counters it fetches pixels from at 0.
+vol2_final sample after three trips (the spawn also on the kept trip
+graph's argument block and frame memory loaded with a new key and view,
+its sample read from card memory, against spawn_paths of that frame, and
+on NL - 7 scattered lanes into new rows and into rows 4 bytes off 16-byte
+alignment; its ptxas line, SASS instruction count and an estimate of the
+integer issue of its draws on the phase line), K9 (ring_hop; the two hops
+of a 2-stage ring, each also bit-equal to the hop walked to t_max as JAX
+walks it) and K8's rec variant over the torus knot sharded two ways; and
+the P0 row gather (gather_rows) against torch.index_select at P0's shape,
+with the empty kernel on its grid (its launch floor) and its ptxas line.
+The gather
+phase holds P0 equal to index_select at every shape of
+scripts/bench_gather.py and on out-of-range indices (clamped).  Every K6
+launch must leave the counters it fetches pixels from at 0.
 
 Each main phase sets the launch counts to 0 just before it runs and reads
 them just after; the table's ``launches`` come from those runs.  Every
 frame profiled under torch.profiler must show, for each kernel, as many
 runs as its wrapper counted (``profile_run``): the counts of launches that
 a CUDA graph replays are measured, not only derived from the waves run.  The build
-phase also holds K3, K5, K7, K1, K4, K6, K9 and K8 at their recorded ptxas
-resources (``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3
+phase also holds K3, K5, K7, K1, K4, K6, K9, K8 and the tiled spawn at
+their recorded ptxas resources (``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3
 and K5), fails on a spill in any walking kernel's instantiation, and
 prints K1's global loads by width from its SASS (``cuobjdump -sass``).
 """
@@ -152,6 +161,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -197,12 +207,14 @@ KERNELS = {
 }
 TILED_KERNELS = ("closest_hit", "tiled_trip", "tiled_spawn")
 STATE_BYTES = 61                # one lane's path state (PathState)
-N_GRAPH = 20                    # calls per CUDA graph in graph_ms
 SPIN_CYCLES = 50_000_000        # device_ms's spin kernel, which lasts at
 SPIN_MS_MIN = 10.0              # least this long (50M cycles at <= 5 GHz)
 REFINE_OPS = 150                # refine_hit of one primitive
 WAVE_KERNELS = ("trace_step", "spawn", "shade", "retire")
-BOUNCE_OPS = 600 + 12 * 110    # fp32 ops of one bounce (threefry at 110)
+THREEFRY_OPS = 110             # fp32-equivalent ops of one threefry2x32
+THREEFRY_INT = 70              # its least integer instructions: 20 rounds
+#                                of add, rotate, xor; 5 key injections
+BOUNCE_OPS = 600 + 12 * THREEFRY_OPS   # fp32 ops of one bounce
 WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
 SWEEP_OPS = 60                 # K6's reverse sweep, per tape entry
 # fp32 ops of one traversal step by node width: K slab tests, K inline leaf
@@ -216,8 +228,8 @@ STEP_OPS = {4: 220, 8: 440}
 # the bound, not part of it.
 FULL_SWEEP_OPS = BOUNCE_OPS
 FULL_WALK_OPS = WALK_TRIP_OPS
-# (registers, stack frame bytes) of K3, K5, K7, K1, K4, K6, K9 and K8 as
-# recorded in PERF.md (Findings); a key names a kernel or one of its
+# (registers, stack frame bytes) of K3, K5, K7, K1, K4, K6, K9, K8 and the
+# tiled spawn as recorded in PERF.md (Findings); a key names a kernel or one of its
 # INSTANCES.  K5 and K6 walk trav_step16 rolled, K7 and K9 unrolled
 # (csrc/path.cuh); K6's recorder hooks compile to nothing in K3 and K5.
 PTXAS_EXPECT = {"shade": (110, 104), "megakernel_k4": (117, 368),
@@ -227,7 +239,7 @@ PTXAS_EXPECT = {"shade": (110, 104), "megakernel_k4": (117, 368),
                 "closest_hit_k4_global": (65, 0),
                 "closest_hit_k8_global": (72, 0),
                 "trace_step_k4": (130, 0), "trace_step_k8": (162, 0),
-                "tiled_trip": (106, 104),
+                "tiled_trip": (106, 104), "tiled_spawn": (32, 0),
                 "retire": (24, 0),
                 "adjoint_k4": (121, 3696), "adjoint_k8": (121, 3696),
                 "adjoint_k4_global": (126, 104), "adjoint_k8_global": (126, 104),
@@ -366,30 +378,6 @@ def cuda_ms(fn, reps=25, setup=None):
     return statistics.median(times)
 
 
-def graph_ms(calls, restore=None, reps=5):
-    """Device ms per call: ``calls`` (each one launch or library call)
-    captured in one CUDA graph and replayed, the replay timed with CUDA
-    events and divided by their number (``restore`` untimed before each
-    replay); median of ``reps``.  No host launch work is inside."""
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for c in calls:
-            c()
-    times = []
-    for _ in range(reps):
-        if restore is not None:
-            restore()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        g.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / len(calls))
-    return statistics.median(times)
-
-
 def device_ms(fn, setup=None, n=10):
     """Device ms per call of ``fn`` (one kernel launch): ``n`` calls queued
     behind a spin kernel, so that the host has queued them all before the
@@ -426,11 +414,13 @@ def device_ms(fn, setup=None, n=10):
     return queued(both) - queued(setup)
 
 
-def ptxas_resources(log, name, targs=None):
+def ptxas_resources(log, name, targs=None, tag=None):
     """(registers, stack frame bytes, spill stores, spill loads) of
     ``<name>_kernel`` in a ptxas -v log: of its instantiation ``<targs>``
-    (e.g. ``"8, false"``) where given, else of its only (or last) entry."""
-    tag = f"{name}_kernel" + (mangled_targs(targs) if targs else "")
+    (e.g. ``"8, false"``) where given, else of its only (or last) entry;
+    ``tag``, where given, is the part of the mangled name to look for."""
+    if tag is None:
+        tag = f"{name}_kernel" + (mangled_targs(targs) if targs else "")
     regs = frame = stores = loads = None
     lines = log.splitlines()
     for i, line in enumerate(lines):
@@ -703,6 +693,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
+    sm_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
     phase("device", f"{card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     print(card, flush=True)
@@ -728,6 +722,7 @@ def main() -> int:
                                                  MAT_SSS_VOLUMETRIC, PH_EXIT,
                                                  TEX_NOISE, RenderConfig)
     from path_tracer_tpu_torch.render.renderer import Renderer
+    from path_tracer_tpu_torch.scripts.graph_timer import N_GRAPH, graph_ms
     from path_tracer_tpu_torch.utils import rng
 
     # --- 2. build ---
@@ -799,6 +794,9 @@ def main() -> int:
         for op in wf.KERNELS:
             op(eng, ws)
     torch.cuda.synchronize()
+    # the node rows K1 fetches here: P0's vol2_final case
+    k1_rows = (bvh.nodes.contiguous(),
+               ws.cur[ws.cur != traverse._DONE].contiguous())
 
     results = {}
     fields_int = ("cur", "sp", "best_pt", "best_pi")
@@ -1005,17 +1003,23 @@ def main() -> int:
     glms = cuda_ms(lambda: torch.index_select(gtab, 0, gidx))
     g_dev = graph_ms([lambda: gather.gather_rows(gtab, gidx)] * N_GRAPH)
     gl_dev = graph_ms([lambda: torch.index_select(gtab, 0, gidx)] * N_GRAPH)
+    gf_dev = graph_ms([lambda: gather.gather_rows_floor(gtab, gidx, glib)]
+                      * N_GRAPH)
+    ptx_g = ptxas_resources(kernels.BUILD_LOG.get("gather", ""), "gather_rows",
+                            tag="gather_rows_kernelI6float4E")
     results["gather_rows"] = dict(
         ok=g_ok, err=gerr, ms=gms, plain_ms=gpms, library_ms=glms, ops=0,
         bytes=gtab.numel() * 4 + gidx.numel() * 4 + glib.numel() * 4,
-        device_ms=g_dev, library_device_ms=gl_dev)
+        device_ms=g_dev, library_device_ms=gl_dev, floor_device_ms=gf_dev,
+        ptxas=list(ptx_g))
     phase("kernels", f"gather_rows: (512, 80) table, 16384 random rows, equal "
           f"to index_select {g_ok}, {gms:.4f} ms (plain {gpms:.4f} ms, "
           f"index_select {glms:.4f} ms, bound "
           f"{results['gather_rows']['bytes'] / H100_BYTES_PER_S * 1e3:.5f} ms); "
           f"device ms per call in a CUDA graph of {N_GRAPH}: gather_rows "
-          f"{g_dev:.5f}, index_select {gl_dev:.5f} "
-          f"{'PASS' if g_ok else 'FAIL'}")
+          f"{g_dev:.5f}, index_select {gl_dev:.5f}, an empty kernel on "
+          f"gather_rows' grid {gf_dev:.5f}; ptxas (registers, stack frame, "
+          f"spill stores, spill loads) {ptx_g} {'PASS' if g_ok else 'FAIL'}")
 
     def mega_pair(meng, w, h):
         """K5 and its twin on sample 0 from a zero frame: the share of pixels
@@ -1198,23 +1202,102 @@ def main() -> int:
                                        cfg.stack_depth, active=act_, ctr=ctr,
                                        exit_of=exit_of)
 
+    def spawn_check(got, want):
+        """(ok, err) of a spawned state against spawn_paths': rays within
+        rel 1e-6, time and the fresh state exact."""
+        err_ = max(float((got.origin - want.origin).abs().max())
+                   / max(float(want.origin.abs().max()), 1.0),
+                   float((got.direction - want.direction).abs().max()))
+        return err_ <= 1e-6 and torch.equal(got.time, want.time) and all(
+            torch.equal(getattr(got, f), getattr(want, f))
+            for f in ("color", "throughput", "depth", "iters", "alive")), err_
+
     sk = itl.tiled_spawn(teng, 0, tpix)
     sp_ = shade_tiled.spawn_paths(cam_a, cfg, key, torch.zeros_like(tpix), tpix)
-    err_s = max(float((sk.origin - sp_.origin).abs().max())
-                / max(float(sp_.origin.abs().max()), 1.0),
-                float((sk.direction - sp_.direction).abs().max()))
-    ok_s = err_s <= 1e-6 and torch.equal(sk.time, sp_.time) and all(
-        torch.equal(getattr(sk, f), getattr(sp_, f))
-        for f in ("color", "throughput", "depth", "iters", "alive"))
+    ok_s, err_s = spawn_check(sk, sp_)
+    # frame_dev set: the spawn on the kept trip graph's argument block and
+    # frame memory after it was loaded with a new key and a moved camera,
+    # sample 3 read from card memory, with the live list
+    cam_m = copy.copy(cam)
+    cam_m.lookfrom = np.asarray(cam.lookfrom, float) + np.array(
+        [0.25, 0.0, 0.0])
+    cam_ma, key_m = cam_m.initialize(device=dev), rng.fold_in(key, 5)
+    itl.clear_trip_graphs()
+    tg0 = itl.trip_graph(teng, NL)
+    tg = itl.trip_graph(itl.TiledEngine(scene, flags, bvh, cam_ma, cfg, key_m),
+                        NL)
+    tg.sample.fill_(3)
+    live_s = itl.new_live_list(NL, dev)
+    ok_f, err_f = spawn_check(
+        itl.tiled_spawn(tg.eng, tg.sample, tpix, live_s),
+        shade_tiled.spawn_paths(cam_ma, cfg, key_m, torch.full_like(tpix, 3),
+                                tpix))
+    ok_f = ok_f and tg is tg0 and torch.equal(live_s[0][0], tpix) and (
+        live_s[1].tolist() == [NL, 0, 0])
+    del tg0, tg, live_s
+    itl.clear_trip_graphs()
+    # A ragged lane count (NL - 7 scattered pixels, a partial last warp),
+    # into new rows (whole warps in 16-byte stores, the last in 4-byte ones)
+    # and into rows 4 bytes past 16-byte alignment (every lane in 4-byte
+    # stores).
+    NR = NL - 7
+    rpix = torch.randperm(NL, generator=torch.Generator().manual_seed(13))
+    rpix = rpix[:NR].sort().values.to(device=dev, dtype=torch.int32)
+    sp_r = shade_tiled.spawn_paths(cam_a, cfg, key, torch.zeros_like(rpix),
+                                   rpix)
+
+    def off4(*shape):
+        """An empty float32 tensor whose data starts 4 bytes past 16."""
+        n_ = math.prod(shape)
+        return torch.empty(n_ + 4, device=dev)[1:n_ + 1].view(shape)
+    st_u = itl.PathState(
+        origin=off4(NR, 3), direction=off4(NR, 3), time=off4(NR),
+        color=off4(NR, 3), throughput=off4(NR, 3),
+        depth=torch.empty(NR, dtype=torch.int32, device=dev),
+        iters=torch.empty(NR, dtype=torch.int32, device=dev),
+        alive=torch.empty(NR, dtype=torch.bool, device=dev))
+    ok_r, err_r = spawn_check(itl.tiled_spawn(teng, 0, rpix), sp_r)
+    ok_u, err_u = spawn_check(itl.tiled_spawn(teng, 0, rpix, out=st_u), sp_r)
+    ok_u = ok_u and st_u.origin.data_ptr() % 16 == 4
+    del sp_r, st_u
     ms_s = cuda_ms(lambda: itl.tiled_spawn(teng, 0, tpix))
     pms_s = cuda_ms(lambda: shade_tiled.spawn_paths(
         cam_a, cfg, key, torch.zeros_like(tpix), tpix), reps=5)
-    results["tiled_spawn"] = dict(ok=ok_s, err=err_s, ms=ms_s, plain_ms=pms_s,
-                                  bytes=NL * (4 + STATE_BYTES),
-                                  ops=NL * (6 * 110 + 60), library_ms=None)
+    # Integer issue beside the bound, on the phase line only (an estimate,
+    # not a measurement): the lanes' 7 threefry evaluations of at least
+    # THREEFRY_INT integer instructions each (the block's shared fold left
+    # out), and the SASS's static count of integer instructions (both store
+    # branches in it), each at 64 a clock an SM (CUDA Programming Guide,
+    # compute capability 9.0 throughput table) and the card's top SM clock.
+    mix = next(c for f, c in kernels.sass_opcodes(
+        kernels.library_path("tiled_trip")).items()
+        if "tiled_spawn_kernel" in f)
+    int_lane = kernels.sass_classes(mix)["integer"]
+    int_rate = (64 * torch.cuda.get_device_properties(0).multi_processor_count
+                * sm_hz / 1e3)
+    int_ms = NL * 7 * THREEFRY_INT / int_rate
+    ptx_s = ptxas_resources(kernels.BUILD_LOG.get("tiled_trip", ""),
+                            "tiled_spawn")
+    ok_sp = ok_s and ok_f and ok_r and ok_u
+    results["tiled_spawn"] = dict(
+        ok=ok_sp, err=max(err_s, err_f, err_r, err_u), ms=ms_s,
+        plain_ms=pms_s,
+        bytes=NL * (4 + STATE_BYTES + 4),   # pixel; state; list entry
+        ops=NL * (7 * THREEFRY_OPS + 60) + THREEFRY_OPS, library_ms=None,
+        int_ops_lane=int_lane, ptxas=list(ptx_s))
     phase("kernels", f"tiled_spawn: {NL} lanes, rays rel err {err_s:.2e}, "
-          f"time and fresh state exact, {ms_s:.3f} ms (plain {pms_s:.2f} ms) "
-          f"{'PASS' if ok_s else 'FAIL'}")
+          f"time and fresh state exact {ok_s}; frame_dev of the kept trip "
+          f"graph loaded with a new key and view, sample 3 from card memory: "
+          f"rel err {err_f:.2e}, exact {ok_f}, list 0 every lane; {NR} "
+          f"scattered lanes: rel err {err_r:.2e}, exact {ok_r}; into rows 4 "
+          f"bytes off 16-byte alignment: rel err {err_u:.2e}, exact {ok_u}; "
+          f"{ms_s:.3f} ms (plain {pms_s:.2f} ms); ptxas (registers, stack "
+          f"frame, spill stores, spill loads) {ptx_s}; SASS {sum(mix.values())}"
+          f" instructions, {int_lane} integer (static); integer issue "
+          f"estimated at {sm_hz / 1e6:.0f} MHz: the draws {int_ms:.4f} ms, "
+          f"the static count {NL * int_lane / int_rate:.4f} ms; bytes "
+          f"{results['tiled_spawn']['bytes'] / H100_BYTES_PER_S * 1e3:.4f} ms "
+          f"{'PASS' if ok_sp else 'FAIL'}")
     tst = sk
     for _ in range(3):                        # mid-frame lanes
         h_ = query(tst, t_min_v, tst.alive)
@@ -2421,10 +2504,15 @@ def main() -> int:
             *((f"width {w_}", torch.randn((4096, w_), device=dev,
                                           generator=g0),
                torch.randint(0, 4096, (16384,), device=dev, generator=g0,
-                             dtype=torch.int32)) for w_ in (80, 96, 184))):
+                             dtype=torch.int32)) for w_ in (80, 96, 184)),
+            ("vol2_final K1 rows", *k1_rows),
+            ("P0 out of range", gtab, torch.where(
+                torch.arange(16384, device=dev) % 3 == 0,
+                gidx * 7 - 1800, gidx).to(torch.int32).contiguous())):
         out_ = gather.gather_rows(tab_, idx_)
         probe.append((label, tuple(tab_.shape), bool(torch.equal(
-            out_, torch.index_select(tab_, 0, idx_)))))
+            out_, torch.index_select(tab_, 0, idx_.clamp(
+                0, tab_.shape[0] - 1))))))
     gather_launches = kernels.LAUNCHES["gather_rows"]
     probe_ok = all(p_[2] for p_ in probe) and gather_launches == len(probe)
     results["gather_rows"]["ok"] = results["gather_rows"]["ok"] and probe_ok
@@ -3187,7 +3275,9 @@ def main() -> int:
         for k_ in ("exit_ms", "exit_device_ms", "main_device_ms",
                    "exit_lanes", "hop_device_ms", "hop_steps",
                    "frame_bound_ms", "ms_every_lane", "state_device_ms",
-                   "state_device_ms_every_lane", "measures"):
+                   "state_device_ms_every_lane", "measures",
+                   "int_ops_lane", "floor_device_ms",
+                   "ptxas"):
             if k_ in res:
                 row[k_] = res[k_]
         if "graph_device_ms" in res:

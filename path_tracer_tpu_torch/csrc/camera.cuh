@@ -13,27 +13,29 @@ __device__ __forceinline__ Key path_key(const WaveArgs& a, int smp, int pix) {
   return fold_in(fold_in(Key{a.key0, a.key1}, (uint32_t)smp), (uint32_t)pix);
 }
 
-// Primary ray of pixel pix with path key key_p: origin o, unit direction d,
-// time; the five camera uniforms are written to u5.
-__device__ __forceinline__ void primary_ray(const WaveArgs& a, Key key_p,
-                                            int pix, float* o, float* d,
-                                            float& time, float* u5) {
+// Primary ray of pixel pix with path key key_p from the camera of c (the
+// argument block, or any struct with its camera fields and width): origin
+// o, unit direction d, time; the five camera uniforms are written to u5.
+template <class C>
+__device__ __forceinline__ void camera_ray(const C& c, Key key_p, int pix,
+                                           float* o, float* d, float& time,
+                                           float* u5) {
   const Key k7 = fold_in(key_p, 7u);
 #pragma unroll
   for (int k = 0; k < 5; ++k) u5[k] = uniform_at(k7, (uint32_t)k);
-  const float px = (float)(pix % a.width), py = (float)(pix / a.width);
+  const float px = (float)(pix % c.width), py = (float)(pix / c.width);
   const float sx = px + u5[0] - 0.5f, sy = py + u5[1] - 0.5f;
   float sm[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) sm[k] = a.pixel00[k] + sx * a.du[k] + sy * a.dv[k];
+  for (int k = 0; k < 3; ++k) sm[k] = c.pixel00[k] + sx * c.du[k] + sy * c.dv[k];
   const float r = sqrtf(u5[2]);
   const float phi = TWO_PI_F * u5[3];
   const float kx = r * cosf(phi), ky = r * sinf(phi);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    o[k] = a.defocus_angle <= 0.0f
-               ? a.cam_origin[k]
-               : a.cam_origin[k] + kx * a.defocus_u[k] + ky * a.defocus_v[k];
+    o[k] = c.defocus_angle <= 0.0f
+               ? c.cam_origin[k]
+               : c.cam_origin[k] + kx * c.defocus_u[k] + ky * c.defocus_v[k];
     d[k] = sm[k] - o[k];
   }
   const float ninv =
@@ -41,6 +43,13 @@ __device__ __forceinline__ void primary_ray(const WaveArgs& a, Key key_p,
 #pragma unroll
   for (int k = 0; k < 3; ++k) d[k] = d[k] * ninv;
   time = u5[4];
+}
+
+// The same from the argument block's camera (K2, K3, K5).
+__device__ __forceinline__ void primary_ray(const WaveArgs& a, Key key_p,
+                                            int pix, float* o, float* d,
+                                            float& time, float* u5) {
+  camera_ray(a, key_p, pix, o, d, time, u5);
 }
 
 // Background radiance seen along direction (dx, dy, dz).

@@ -292,12 +292,33 @@ extern "C" int emu_tiled_trip(WaveArgs* a) {
   return 0;
 }
 
+// The spawn block by block, each block's SpawnFrame staged once, and warp
+// by warp, a whole warp's rows staged and written in 16-byte pieces as the
+// kernel writes them (the last block and warp partial ones).
 extern "C" int emu_tiled_spawn(WaveArgs* a) {
-  WaveArgs b = *a;
-  frame_values(b);
-  for (int i = 0; i < a->R; ++i) tiled_spawn_lane(b, i);
+  for (int b = 0; b < a->R; b += PTT_SPAWN_THREADS) {
+    const SpawnFrame s = spawn_frame(*a);
+    for (int i0 = b; i0 < std::min(b + PTT_SPAWN_THREADS, a->R); i0 += 32) {
+      const bool rows16 = i0 + 32 <= a->R && spawn_rows16(*a);
+      alignas(16) float o96[96], d96[96];
+      for (int i = i0; i < std::min(i0 + 32, a->R); ++i) {
+        float o[3], d[3], time;
+        spawn_ray(s, a->pixel[i], o, d, time);
+        if (!rows16) {
+          spawn_store(*a, i, o, d, time);
+          continue;
+        }
+        for (int k = 0; k < 3; ++k) {
+          o96[3 * (i - i0) + k] = o[k];
+          d96[3 * (i - i0) + k] = d[k];
+        }
+        spawn_fresh(*a, i, time);
+      }
+      if (rows16)
+        for (int q = 0; q < 24; ++q) spawn_rows_piece(*a, i0, q, o96, d96);
+    }
+  }
   if (a->live != nullptr) {
-    for (int i = 0; i < a->R; ++i) a->live[i] = i;
     a->live_n[0] = a->R;
     a->live_n[1] = a->live_n[2] = 0;
   }

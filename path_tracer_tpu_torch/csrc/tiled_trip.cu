@@ -44,6 +44,18 @@
 // The same source holds the engine's spawn (tiled_spawn_kernel): the first
 // trip's path state, spawn_paths (shade_tiled.py:741, B3) with K2's camera
 // code (camera.cuh), for the sample (as above) of each lane's frame pixel.
+// Bound: 69 bytes a lane (its pixel read; origin, direction, colour,
+// throughput, time, depth, iters, alive and its list entry written), and
+// 8 threefry evaluations, one of them (the frame key folded with the
+// sample) the same for every lane.  On an H100 (80GB HBM3, 700 W) the
+// 4-byte stores of the three-float rows bounded it: a warp wrote each of
+// their 32-byte sectors in three parts, and a launch with its draws taken
+// out ran as long as the whole spawn.  So a whole warp writes those rows
+// in 16-byte stores (staged in shared memory), and each block folds the
+// sample once, with the camera, into a SpawnFrame that its lanes read, so
+// that the argument block stays read-only; the result is bit-identical.
+// Measured and not used (PERF.md): sincosf for the lens offset, blocks of
+// 256 lanes.
 #include "bounce.cuh"
 
 __device__ __forceinline__ int tiled_sample(const WaveArgs& a) {
@@ -57,30 +69,58 @@ __device__ __forceinline__ Key frame_key(const WaveArgs& a) {
                                 : Key{a.key0, a.key1};
 }
 
-// The spawn's argument block with the frame's key and camera taken from
-// frame_dev where it is set (the layout in common.cuh).
-__device__ __forceinline__ void frame_values(WaveArgs& a) {
+// What the lanes of a tiled_spawn block share, staged once a block in
+// shared memory: the frame's key folded with the launch's sample (the
+// same for every lane) and the camera, from frame_dev where it is set
+// (the layout in common.cuh), else from the argument block, which stays
+// read-only.
+struct SpawnFrame {
+  Key ks;
+  int width;
+  float cam_origin[3], pixel00[3], du[3], dv[3], defocus_u[3], defocus_v[3];
+  float defocus_angle;
+};
+
+__device__ __forceinline__ SpawnFrame spawn_frame(const WaveArgs& a) {
+  SpawnFrame s;
   const unsigned int* f = a.frame_dev;
-  if (f == nullptr) return;
-  a.key0 = f[0];
-  a.key1 = f[1];
+  s.ks = fold_in(frame_key(a), (uint32_t)tiled_sample(a));
+  s.width = a.width;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    a.cam_origin[k] = bits_as_float(f[2 + k]);
-    a.pixel00[k] = bits_as_float(f[5 + k]);
-    a.du[k] = bits_as_float(f[8 + k]);
-    a.dv[k] = bits_as_float(f[11 + k]);
-    a.defocus_u[k] = bits_as_float(f[14 + k]);
-    a.defocus_v[k] = bits_as_float(f[17 + k]);
+    s.cam_origin[k] = f ? bits_as_float(f[2 + k]) : a.cam_origin[k];
+    s.pixel00[k] = f ? bits_as_float(f[5 + k]) : a.pixel00[k];
+    s.du[k] = f ? bits_as_float(f[8 + k]) : a.du[k];
+    s.dv[k] = f ? bits_as_float(f[11 + k]) : a.dv[k];
+    s.defocus_u[k] = f ? bits_as_float(f[14 + k]) : a.defocus_u[k];
+    s.defocus_v[k] = f ? bits_as_float(f[17 + k]) : a.defocus_v[k];
   }
-  a.defocus_angle = bits_as_float(f[20]);
+  s.defocus_angle = f ? bits_as_float(f[20]) : a.defocus_angle;
+  return s;
 }
 
-// The primary ray of lane i and a fresh path state.
-__device__ __forceinline__ void tiled_spawn_lane(const WaveArgs& a, int i) {
-  float o[3], d[3], time, u5[5];
-  const int pix = a.pixel[i];
-  primary_ray(a, path_key(a, tiled_sample(a), pix), pix, o, d, time, u5);
+// The primary ray of frame pixel pix: origin o, unit direction d, time.
+__device__ __forceinline__ void spawn_ray(const SpawnFrame& s, int pix,
+                                          float* o, float* d, float& time) {
+  float u5[5];
+  camera_ray(s, fold_in(s.ks, (uint32_t)pix), pix, o, d, time, u5);
+}
+
+// Lane i's fresh path state but its three-float rows.
+__device__ __forceinline__ void spawn_fresh(const WaveArgs& a, int i,
+                                            float time) {
+  a.time[i] = time;
+  a.depth[i] = 0;
+  a.iters[i] = 0;
+  a.alive[i] = true;
+  if (a.live != nullptr) a.live[i] = i;
+}
+
+// Lane i's whole state in 4-byte stores (a warp past the lanes' end, or
+// rows not 16-byte aligned).
+__device__ __forceinline__ void spawn_store(const WaveArgs& a, int i,
+                                            const float* o, const float* d,
+                                            float time) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     a.origin[3 * i + k] = o[k];
@@ -88,10 +128,30 @@ __device__ __forceinline__ void tiled_spawn_lane(const WaveArgs& a, int i) {
     a.color[3 * i + k] = 0.0f;
     a.throughput[3 * i + k] = 1.0f;
   }
-  a.time[i] = time;
-  a.depth[i] = 0;
-  a.iters[i] = 0;
-  a.alive[i] = true;
+  spawn_fresh(a, i, time);
+}
+
+// Whether the four three-float rows take 16-byte stores.
+__device__ __forceinline__ bool spawn_rows16(const WaveArgs& a) {
+  return (((uintptr_t)a.origin | (uintptr_t)a.direction |
+           (uintptr_t)a.color | (uintptr_t)a.throughput) & 15u) == 0;
+}
+
+// Piece q (0..23) of the rows of the 32 lanes from i0 (a multiple of 32):
+// one 16-byte store into each of the four row arrays, whose 384 bytes for
+// those lanes are contiguous; o96 and d96 hold the warp's origins and
+// directions lane after lane.
+__device__ __forceinline__ void spawn_rows_piece(const WaveArgs& a, int i0,
+                                                 int q, const float* o96,
+                                                 const float* d96) {
+  const size_t at = (size_t)3 * i0 / 4 + q;
+  reinterpret_cast<float4*>(a.origin)[at] =
+      reinterpret_cast<const float4*>(o96)[q];
+  reinterpret_cast<float4*>(a.direction)[at] =
+      reinterpret_cast<const float4*>(d96)[q];
+  reinterpret_cast<float4*>(a.color)[at] = float4{0.0f, 0.0f, 0.0f, 0.0f};
+  reinterpret_cast<float4*>(a.throughput)[at] =
+      float4{1.0f, 1.0f, 1.0f, 1.0f};
 }
 
 template <bool kRec>
@@ -148,8 +208,9 @@ __device__ __forceinline__ int tiled_lane(const WaveArgs& a, int i,
   return trips;
 }
 
-// Threads a block of K8.
+// Threads a block of K8, and of the spawn.
 #define PTT_TRIP_THREADS 128
+#define PTT_SPAWN_THREADS 128
 
 // The lanes a trip runs: n positions, position p lane list[p], or lane p
 // where list is null (no live lists: every lane, the dead ones returning
@@ -241,13 +302,37 @@ __global__ void __launch_bounds__(PTT_TRIP_THREADS)
 
 __global__ void tiled_trip_rec_kernel(WaveArgs a) { trip_block_rec(a); }
 
-// The first trip's state; with live lists, list 0 is every lane.
-__global__ void tiled_spawn_kernel(WaveArgs a) {
-  frame_values(a);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < a.R) {
-    tiled_spawn_lane(a, i);
-    if (a.live != nullptr) a.live[i] = i;
+// The first trip's state; with live lists, list 0 is every lane.  Thread 0
+// stages the block's SpawnFrame while the lanes load their pixels.  A
+// whole warp stages its origins and directions in shared memory (stride 3:
+// no bank conflict) and writes its four three-float rows as 16-byte
+// stores, each a full 32-byte sector, where lane by lane 4-byte stores at
+// a 12-byte stride would write every sector in three parts.
+__global__ void __launch_bounds__(PTT_SPAWN_THREADS)
+    tiled_spawn_kernel(WaveArgs a) {
+  __shared__ SpawnFrame s_frame;
+  __shared__ __align__(16) float s_rows[PTT_SPAWN_THREADS / 32][2][96];
+  const int i = blockIdx.x * PTT_SPAWN_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31, i0 = i - lane;
+  const int pix = i < a.R ? a.pixel[i] : 0;
+  if (threadIdx.x == 0) s_frame = spawn_frame(a);
+  __syncthreads();
+  if (i0 >= a.R) return;
+  float o[3], d[3], time;
+  spawn_ray(s_frame, pix, o, d, time);
+  if (i0 + 32 <= a.R && spawn_rows16(a)) {
+    float* o96 = s_rows[threadIdx.x >> 5][0];
+    float* d96 = s_rows[threadIdx.x >> 5][1];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      o96[3 * lane + k] = o[k];
+      d96[3 * lane + k] = d[k];
+    }
+    __syncwarp();
+    if (lane < 24) spawn_rows_piece(a, i0, lane, o96, d96);
+    spawn_fresh(a, i, time);
+  } else if (i < a.R) {
+    spawn_store(a, i, o, d, time);
   }
   if (i == 0 && a.live != nullptr) {
     a.live_n[0] = a.R;
@@ -296,9 +381,8 @@ extern "C" int ptt_launch_tiled_trip_rec(const WaveArgs* a, void* stream) {
 
 extern "C" int ptt_launch_tiled_spawn(const WaveArgs* a, void* stream) {
   if (a->R == 0) return 0;
-  const int block = 128;
-  const int grid = (a->R + block - 1) / block;
-  tiled_spawn_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(*a);
+  const int grid = (a->R + PTT_SPAWN_THREADS - 1) / PTT_SPAWN_THREADS;
+  tiled_spawn_kernel<<<grid, PTT_SPAWN_THREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 #endif

@@ -16,8 +16,11 @@ from . import kernels
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx, :]`` → (R, W): the plain version."""
-    return table[idx.long()]
+    """``table[idx, :]`` → (R, W): the plain version.  An index outside
+    ``[0, B)`` is clamped into it, as ``jax.lax.gather``'s clip mode (and
+    ``jnp.take(..., mode="clip")``) does; ``table[idx, :]`` in JAX clamps
+    too, after wrapping an index in ``[-B, 0)`` as Python does."""
+    return table[idx.long().clamp(0, table.shape[0] - 1)]
 
 
 def _lib():
@@ -27,6 +30,8 @@ def _lib():
         lib.ptt_gather_rows.argtypes = [P, ctypes.c_int, ctypes.c_int, P,
                                         ctypes.c_longlong, P, P]
         lib.ptt_gather_rows.restype = ctypes.c_int
+        lib.ptt_gather_rows_floor.argtypes = lib.ptt_gather_rows.argtypes
+        lib.ptt_gather_rows_floor.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -34,9 +39,9 @@ def _lib():
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` (R,) int32 of ``table`` (B, W) float32 → (R, W) float32.
 
-    Indices must lie in ``[0, B)`` (the plain version raises outside; the
-    kernel clamps, as JAX's gather does).  CUDA tensors launch
-    ``gather_rows``; CPU tensors take the plain version.
+    An index outside ``[0, B)`` is clamped into it (kernel and plain
+    version alike).  CUDA tensors launch ``gather_rows``; CPU tensors take
+    the plain version.
     """
     if not table.is_cuda:
         return gather_rows_plain(table, idx)
@@ -58,3 +63,18 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                            f"{err}")
     kernels.count({"gather_rows": 1})
     return out
+
+
+def gather_rows_floor(table: torch.Tensor, idx: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """The launch floor of :func:`gather_rows` on these tensors (CUDA only,
+    for measurement): an empty kernel on the grid, block and shared memory
+    that ``gather_rows`` would launch, writing nothing.  Not counted in
+    ``kernels.LAUNCHES``."""
+    B, W = table.shape
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    err = _lib().ptt_gather_rows_floor(table.data_ptr(), B, W, idx.data_ptr(),
+                                       idx.shape[0], out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of the gather_rows floor failed with "
+                           f"error {err}")

@@ -172,17 +172,24 @@ def _set_live(a: kernels.WaveArgs, live, parity: int = 0) -> None:
     a._keep_live = live
 
 
-def tiled_spawn(eng: TiledEngine, sample, pix, live=None) -> PathState:
+def tiled_spawn(eng: TiledEngine, sample, pix, live=None,
+                out: PathState | None = None) -> PathState:
     """The first trip's state of the lanes ``pix`` (frame pixels) for
     sample ``sample``: ``spawn_paths``; on the card ``tiled_spawn`` (the
     sample may then be a (1,) int32 card tensor), which also makes list 0
-    of ``live`` (:func:`new_live_list`) every lane."""
+    of ``live`` (:func:`new_live_list`) every lane.  ``out``: the state's
+    tensors to write into (contiguous; a row need not start 16-byte
+    aligned), else new ones."""
     if not pix.is_cuda:
         smp = torch.full_like(pix, int(sample))
         st = spawn_paths(eng.cam, eng.cfg, eng.key, smp, pix)
-        return PathState(*(x.contiguous() for x in st))
+        if out is None:
+            return PathState(*(x.contiguous() for x in st))
+        for dst, src in zip(out, st):
+            dst.copy_(src)
+        return out
     R, dev = pix.shape[0], pix.device
-    st = PathState(
+    st = out if out is not None else PathState(
         origin=torch.empty((R, 3), device=dev),
         direction=torch.empty((R, 3), device=dev),
         time=torch.empty((R,), device=dev),

@@ -184,30 +184,78 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"{source}-{_source_hash()}.so")
 
 
-def sass_global_loads(so: str) -> dict:
-    """Global loads by width in the kernels of the library ``so``, from
-    ``cuobjdump -sass``: ``{kernel: {bits: n}}`` with bits 8, 16, 32, 64
-    or 128 per ``LDG`` instruction."""
+def _sass(so: str, count) -> dict:
+    """``{kernel: Counter}`` over the kernels of the library ``so``, from
+    ``cuobjdump -sass``: ``count(text)`` gives the key an instruction line
+    adds to, or None."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                          check=True).stdout
-    loads: dict = {}
+    tally: dict = {}
     fn = None
     for line in out.splitlines():
         text = line.strip()
         if text.startswith("Function :"):
             fn = text.split(":", 1)[1].strip()
-            loads[fn] = collections.Counter()
+            tally[fn] = collections.Counter()
             continue
-        m = re.search(r"\bLDG(?:\.[A-Z0-9]+)*\b", text)
-        if fn is None or m is None:
-            continue
-        parts = m.group(0).split(".")[1:]
-        bits = (128 if "128" in parts else 64 if "64" in parts
-                else 16 if {"U16", "S16"} & set(parts)
-                else 8 if {"U8", "S8"} & set(parts) else 32)
-        loads[fn][bits] += 1
-    return {f: dict(c) for f, c in loads.items()}
+        key = count(text) if fn is not None else None
+        if key is not None:
+            tally[fn][key] += 1
+    return {f: dict(c) for f, c in tally.items()}
+
+
+def _load_bits(text: str):
+    m = re.search(r"\bLDG(?:\.[A-Z0-9]+)*\b", text)
+    if m is None:
+        return None
+    parts = set(m.group(0).split(".")[1:])
+    return (128 if "128" in parts else 64 if "64" in parts
+            else 16 if {"U16", "S16"} & parts
+            else 8 if {"U8", "S8"} & parts else 32)
+
+
+def sass_global_loads(so: str) -> dict:
+    """Global loads by width in the kernels of the library ``so``, from
+    ``cuobjdump -sass``: ``{kernel: {bits: n}}`` with bits 8, 16, 32, 64
+    or 128 per ``LDG`` instruction."""
+    return _sass(so, _load_bits)
+
+
+def _opcode(text: str):
+    m = re.match(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_]*)",
+                 text)
+    return None if m is None else m.group(1)
+
+
+def sass_opcodes(so: str) -> dict:
+    """Instructions by opcode in the kernels of the library ``so``:
+    ``{kernel: {opcode: n}}`` (the static count; in straight-line code,
+    the count a thread issues)."""
+    return _sass(so, _opcode)
+
+
+# SASS opcodes by the pipe class they issue on (sass_classes).
+_SASS_CLASSES = (
+    ("integer", ("IADD", "IMAD", "IMUL", "ISETP", "IABS", "IMNMX", "LOP",
+                 "SHF", "SHL", "SHR", "SEL", "LEA", "PRMT", "FLO", "POPC",
+                 "BMSK", "BREV", "I2F", "F2I")),
+    ("fp32", ("F", "MUFU")),
+    ("memory", ("LD", "ST", "ATOM", "RED")),
+    ("control", ("BRA", "EXIT", "BAR", "BSYNC", "BSSY", "RET", "CALL",
+                 "WARPSYNC", "NOP")))
+
+
+def sass_classes(mix: dict) -> dict:
+    """A kernel's opcodes (:func:`sass_opcodes`) summed by class: integer
+    (add, multiply-add, logic, shift, compare, select, lea, prmt), fp32 (F*
+    and MUFU), memory, control and other."""
+    out = dict.fromkeys([c for c, _ in _SASS_CLASSES] + ["other"], 0)
+    for op, n in mix.items():
+        cls = next((c for c, pre in _SASS_CLASSES if op.startswith(pre)),
+                   "other")
+        out[cls] += n
+    return out
 
 
 def library(name: str):

@@ -5,6 +5,8 @@ checkouts, on one card.
     python path_tracer_tpu_torch/scripts/mega_ab.py build/ab/parent build/ab/change
     python path_tracer_tpu_torch/scripts/mega_ab.py --tiled --rounds 3 DIR ...
     python path_tracer_tpu_torch/scripts/mega_ab.py --traffic --rounds 3 DIR ...
+    python path_tracer_tpu_torch/scripts/mega_ab.py --spawn --rounds 3 DIR ...
+    python path_tracer_tpu_torch/scripts/mega_ab.py --gather --rounds 3 DIR ...
 
 Each argument is a checkout of the repo (``ab_smoke.sh prepare`` unpacks the
 parent and the working tree into ``build/ab/``).  The script builds each
@@ -56,6 +58,24 @@ a render, ``med_density`` and ``tex_c1``): four step walls after a warm-up,
 the first step's loss and the captures; records in
 ``chiprun_out/mega_ab_traffic.json``.
 
+``--spawn`` builds ``tiled_trip.cu`` alone and times the tiled engine's
+spawn (``tiled_spawn``) over the 360,000 lanes of the 800x450 frame: device
+ms a launch (20 launches captured in one CUDA graph and replayed) as the
+eager loop launches it (``frame_dev`` unset, the sample an int) and as the
+trip graph does (``frame_dev`` set, the sample on the card, live lists),
+for the frame's own key and camera and for another frame's (a new key, a
+moved camera), with a hash of each spawned state, which must match across
+checkouts, and the spawn kernel's SASS instructions by class
+(``kernels.sass_opcodes``); records in ``chiprun_out/mega_ab_spawn.json``.
+
+``--gather`` builds ``gather.cu`` alone and times P0 (``gather_rows``) on
+every case of ``scripts/bench_gather.py`` (made once, by this process, and
+read by every run): device ms a call, 20 calls captured in one CUDA graph
+and replayed, beside ``index_select`` and, where the checkout has it, the
+empty kernel on the gather's grid (``gather_rows_floor``); each output held
+equal to ``index_select``; records in ``chiprun_out/mega_ab_gather.json``.
+A design of ``gather.cu`` is a copied checkout with that file replaced.
+
 It prints the card's ``nvidia-smi`` name and power limit, one JSON line per
 run, a summary (medians per checkout) and, per hash, whether every run of
 every checkout gave the first one's; every record goes to
@@ -74,6 +94,8 @@ import subprocess
 import sys
 import time
 
+from graph_timer import N_GRAPH, graph_ms   # this script's directory
+
 SOURCES = ("megakernel", "closest_hit", "tiled_trip")
 NAMES = ("megakernel", "closest_hit", "ring_hop", "tiled_trip",
          "tiled_trip_rec", "tiled_spawn")
@@ -90,6 +112,7 @@ WALK_TRIP_OPS = 3 * 110 + 60   # one SSS walk trip
 SORT_LANES = 128               # a block of K8's family sort
 N_TRAFFIC = 5                  # --traffic: frames of new keys, of new views
 N_STEPS, TRAIN_SPP = 4, 4      # --traffic: train steps, samples a render
+SPAWN_SAMPLE = 3               # --spawn: the sample the lanes take
 _HERE = os.path.abspath(__file__)
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 
@@ -102,9 +125,29 @@ def _these_kernels_only(kernels) -> None:
     kernels.SOURCE_OF = {n: kernels.SOURCE_OF[n] for n in NAMES}
 
 
+def _spawn_kernels_only(kernels) -> None:
+    """Make ``kernels.build`` compile and load ``tiled_trip.cu`` alone."""
+    kernels.SOURCES = ("tiled_trip",)
+    kernels.NAMES = ("tiled_trip", "tiled_trip_rec", "tiled_spawn")
+    kernels.OWN_API = {}
+    kernels.SOURCE_OF = {n: "tiled_trip" for n in kernels.NAMES}
+
+
+def _gather_kernels_only(kernels) -> None:
+    """Make ``kernels.build`` compile and load ``gather.cu`` alone."""
+    kernels.SOURCES = ("gather",)
+    kernels.NAMES = ()
+    kernels.OWN_API = {"gather_rows": "gather"}
+    kernels.SOURCE_OF = dict(kernels.OWN_API)
+
+
 def build_side() -> int:
     from path_tracer_tpu_torch.ops import kernels
-    if "--all" not in sys.argv:
+    if "--spawn" in sys.argv:
+        _spawn_kernels_only(kernels)
+    elif "--gather" in sys.argv:
+        _gather_kernels_only(kernels)
+    elif "--all" not in sys.argv:
         _these_kernels_only(kernels)
     t0 = time.perf_counter()
     kernels.build()
@@ -112,7 +155,8 @@ def build_side() -> int:
         n: [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         for n, log in kernels.BUILD_LOG.items()
-        if n in ("megakernel", "closest_hit", "tiled_trip")}}), flush=True)
+        if n in ("megakernel", "closest_hit", "tiled_trip", "gather")}}),
+          flush=True)
     return 0
 
 
@@ -498,6 +542,156 @@ def tiled_side() -> int:
     return 0
 
 
+def spawn_side() -> int:
+    import copy
+
+    import numpy as np
+    import torch
+
+    import path_tracer_tpu_torch as ptt
+    from path_tracer_tpu_torch.ops import kernels
+    from path_tracer_tpu_torch.ops import integrator_tiled as itl
+    from path_tracer_tpu_torch.ops.shade import SceneFlags
+    from path_tracer_tpu_torch.ops.types import RenderConfig
+    from path_tracer_tpu_torch.utils import rng
+    _spawn_kernels_only(kernels)
+    kernels.build()
+    dev = torch.device("cuda")
+    world, cam = ptt.scenes.vol2_final_scene(sphere_cluster=1000)
+    cam.aspect_ratio, cam.img_width = W / H, W
+    scene = ptt.compile_scene(world, device=dev)
+    flags = SceneFlags.from_scene(scene)
+    bvh = ptt.build_from_scene(scene)
+    cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
+                       max_depth=DEPTH)
+    moved = copy.copy(cam)
+    moved.lookfrom = np.asarray(cam.lookfrom, float) + np.array(
+        [0.25, 0.0, 0.0])
+    key = rng.key(0, device=dev)
+    own = itl.TiledEngine(scene, flags, bvh, cam.initialize(device=dev), cfg,
+                          key)
+    other = itl.TiledEngine(scene, flags, bvh, moved.initialize(device=dev),
+                            cfg, rng.fold_in(key, 5))
+    NL = W * H
+    pix = torch.arange(NL, dtype=torch.int32, device=dev)
+    rec = {"dir": os.getcwd(), "hash": {}, "spawn_ms": {}}
+    # the eager loop's spawn (frame_dev unset, an int sample) and the trip
+    # graph's (frame_dev set, the sample on the card, live lists), the
+    # latter with this frame's words and with another key and view's
+    sample_t = torch.full((1,), SPAWN_SAMPLE, dtype=torch.int32, device=dev)
+    for tag, eng, frame_of in (("eager", own, None), ("eager_other", other,
+                                                       None),
+                               ("graph", own, own), ("graph_other", own,
+                                                     other)):
+        eng._args = None
+        live, sample = None, SPAWN_SAMPLE
+        if frame_of is not None:
+            a = eng.args()
+            frame = kernels.frame_words(frame_of.args()).to(dev)
+            a.frame_dev, a._keep_frame = kernels._ptr(frame), frame
+            live, sample = itl.new_live_list(NL, dev), sample_t
+        st = itl.tiled_spawn(eng, sample, pix, live)
+        torch.cuda.synchronize()
+        rec["hash"][tag] = _hash(*st)
+        if live is not None:
+            rec["hash"][tag + "_live"] = _hash(live[0][0], live[1])
+        rec["spawn_ms"][tag] = graph_ms(
+            [lambda: itl.tiled_spawn(eng, sample, pix, live)] * N_GRAPH)
+        eng._args = None
+    rec["so"] = kernels.library_path("tiled_trip")
+    print("RECORD " + json.dumps(rec), flush=True)
+    return 0
+
+
+def _spawn_summary(built, runs, ok) -> int:
+    from path_tracer_tpu_torch.ops import kernels
+    med = statistics.median
+    for r in runs:
+        r["sass"] = {f: c for f, c in kernels.sass_opcodes(r["so"]).items()
+                     if "tiled_spawn_kernel" in f}
+    for d in built:
+        rs = [r for r in runs if r["dir"] == d]
+        if not rs:
+            continue
+        for tag in rs[0]["spawn_ms"]:
+            v = [r["spawn_ms"][tag] for r in rs]
+            print(f"summary {os.path.basename(d)} spawn {tag}: device ms a "
+                  f"launch " + ", ".join(f"{x:.5f}" for x in v)
+                  + f" (median {med(v):.5f})", flush=True)
+        for f, mix in rs[0]["sass"].items():
+            print(f"summary {os.path.basename(d)} {f} SASS: "
+                  f"{sum(mix.values())} instructions, by class "
+                  f"{kernels.sass_classes(mix)}", flush=True)
+    for r in runs:           # the card's frame words read as the block's own
+        same = (r["hash"]["graph"] == r["hash"]["eager"]
+                and r["hash"]["graph_other"] == r["hash"]["eager_other"]
+                and r["hash"]["eager"] != r["hash"]["eager_other"])
+        print(f"{os.path.basename(r['dir'])}: frame_dev spawns equal the "
+              f"eager ones, the other frame's differs: {same}", flush=True)
+        ok = ok and same
+    if runs:
+        first = runs[0]["hash"]
+        for tag in first:
+            same = all(r["hash"].get(tag) == first[tag] for r in runs)
+            print(f"bit-equal {tag}: {same} across {len(runs)} runs",
+                  flush=True)
+            ok = ok and same
+    return 0 if ok else 1
+
+
+def gather_side() -> int:
+    import torch
+
+    from path_tracer_tpu_torch.ops import gather, kernels
+    _gather_kernels_only(kernels)
+    kernels.build()
+    probe = torch.load(sys.argv[2], map_location="cuda")
+    floor = getattr(gather, "gather_rows_floor", None)
+    rec = {"dir": os.getcwd(), "cases": {}}
+    for name, table, idx in probe:
+        lib = torch.index_select(table, 0, idx)
+        got = gather.gather_rows(table, idx)
+        out = torch.empty_like(lib)
+        torch.cuda.synchronize()
+        c = {"shape": [*table.shape, idx.shape[0]],
+             "equal": bool(torch.equal(got, lib)),
+             "device_ms": graph_ms(
+                 [lambda: gather.gather_rows(table, idx)] * N_GRAPH),
+             "library_device_ms": graph_ms(
+                 [lambda: torch.index_select(table, 0, idx)] * N_GRAPH),
+             "floor_device_ms": None}
+        if floor is not None:
+            floor(table, idx, out)
+            c["floor_device_ms"] = graph_ms(
+                [lambda: floor(table, idx, out)] * N_GRAPH)
+        rec["cases"][name] = c
+    print("RECORD " + json.dumps(rec), flush=True)
+    return 0
+
+
+def _gather_summary(built, runs, ok) -> int:
+    import bench_gather
+    med = statistics.median
+    for name in (runs[0]["cases"] if runs else ()):
+        B, W, R = runs[0]["cases"][name]["shape"]
+        print(f"summary {name} ({B}, {W}) x {R}: bound "
+              f"{bench_gather.bound_ms(B, W, R):.5f} ms", flush=True)
+        for d in built:
+            cs = [r["cases"][name] for r in runs if r["dir"] == d]
+            if not cs:
+                continue
+            line = f"  {os.path.basename(d)}:"
+            for key in ("device_ms", "floor_device_ms", "library_device_ms"):
+                v = [c[key] for c in cs if c[key] is not None]
+                if v:
+                    line += (f" {key} " + ", ".join(f"{x:.5f}" for x in v)
+                             + f" (median {med(v):.5f});")
+            equal = all(c["equal"] for c in cs)
+            print(f"{line} equal to index_select {equal}", flush=True)
+            ok = ok and equal
+    return 0 if ok else 1
+
+
 def traffic_side() -> int:
     import copy
 
@@ -600,18 +794,23 @@ def _traffic_summary(built, runs, ok) -> int:
 def main(args) -> int:
     tiled = "--tiled" in args
     traffic = "--traffic" in args
+    spawn = "--spawn" in args
+    gath = "--gather" in args
     rounds = 2
     if "--rounds" in args:
         rounds = int(args[args.index("--rounds") + 1])
         args = args[:args.index("--rounds")] + args[args.index("--rounds") + 2:]
-    dirs = [d for d in args if d not in ("--tiled", "--traffic")]
+    dirs = [d for d in args
+            if d not in ("--tiled", "--traffic", "--spawn", "--gather")]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     dirs = [os.path.abspath(d) for d in dirs]
     builds = {d: subprocess.Popen([sys.executable, _HERE, "--build"]
-                                  + (["--all"] if traffic else []), cwd=d,
+                                  + (["--all"] if traffic else
+                                     ["--spawn"] if spawn else
+                                     ["--gather"] if gath else []), cwd=d,
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
               for d in dirs}
@@ -626,10 +825,17 @@ def main(args) -> int:
     ok = len(built) == len(dirs)
     order = [x for r in range(rounds) for x in (built if r % 2 == 0
                                                  else built[::-1])]
+    side = ["--traffic-side" if traffic else "--spawn-side" if spawn
+            else "--gather-side" if gath else "--tiled-side" if tiled
+            else "--side"]
+    if gath:                     # the cases, made once for every run
+        import bench_gather
+        import torch
+        side.append(os.path.join(_REPO, "build", "gather_cases.pt"))
+        os.makedirs(os.path.dirname(side[1]), exist_ok=True)
+        torch.save(bench_gather.cases(torch.device("cuda")), side[1])
     for d in order:
-        side = ("--traffic-side" if traffic else
-                "--tiled-side" if tiled else "--side")
-        p = subprocess.run([sys.executable, _HERE, side], cwd=d,
+        p = subprocess.run([sys.executable, _HERE, *side], cwd=d,
                            capture_output=True, text=True, timeout=900)
         recs = [json.loads(ln[7:]) for ln in p.stdout.splitlines()
                 if ln.startswith("RECORD ")]
@@ -642,12 +848,18 @@ def main(args) -> int:
         out_all["runs"].append(recs[0])
     os.makedirs(os.path.join(_REPO, "chiprun_out"), exist_ok=True)
     name = ("mega_ab_traffic.json" if traffic else
+            "mega_ab_spawn.json" if spawn else
+            "mega_ab_gather.json" if gath else
             "mega_ab_tiled.json" if tiled else "mega_ab.json")
     with open(os.path.join(_REPO, "chiprun_out", name), "w") as f:
         json.dump(out_all, f, indent=1)
     runs = out_all["runs"]
     if traffic:
         return _traffic_summary(built, runs, ok)
+    if spawn:
+        return _spawn_summary(built, runs, ok)
+    if gath:
+        return _gather_summary(built, runs, ok)
     if tiled:
         return _tiled_summary(built, runs, ok)
     for d in built:
@@ -740,10 +952,13 @@ def _tiled_summary(built, runs, ok) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--build"], ["--side"], ["--tiled-side"],
-                         ["--traffic-side"]):
+                         ["--traffic-side"], ["--spawn-side"],
+                         ["--gather-side"]):
         sys.path.insert(0, os.getcwd())
         sys.exit({"--build": build_side, "--side": measure_side,
                   "--tiled-side": tiled_side,
-                  "--traffic-side": traffic_side}[sys.argv[1]]())
+                  "--traffic-side": traffic_side,
+                  "--spawn-side": spawn_side,
+                  "--gather-side": gather_side}[sys.argv[1]]())
     sys.path.insert(0, _REPO)
     sys.exit(main(sys.argv[1:]))

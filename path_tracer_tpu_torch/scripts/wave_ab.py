@@ -64,12 +64,13 @@ import subprocess
 import sys
 import time
 
+from graph_timer import N_GRAPH, graph_ms   # this script's directory
+
 WAVE = ("trace_step", "shade", "retire", "spawn")
 CTRL = ("shade", "retire", "spawn")
 KERNEL_NAMES = WAVE + ("wave_loop",)
 W, H, SPP, DEPTH = 800, 450, 10, 10
 QUEUE, STEPS = 32768, 32
-N_GRAPH = 20
 N_POOL = 48                 # waves before the measured one
 SASS_OPS = ("LDL", "STL", "VOTE", "POPC", "FLO", "REDUX", "SHFL", "ATOMG",
             "ATOM", "ATOMS", "RED", "REDG")
@@ -128,29 +129,6 @@ def sass_ops(so: str) -> dict:
             for f, v in res.items() if v["counts"]}
 
 
-def _graph_ms(calls, restore=None, reps=5):
-    """Device ms per call: ``calls`` captured in one CUDA graph, the replay
-    timed with CUDA events (``restore`` untimed before each), median."""
-    import torch
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for c in calls:
-            c()
-    times = []
-    for _ in range(reps):
-        if restore is not None:
-            restore()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        g.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / len(calls))
-    return statistics.median(times)
-
-
 def _hash(*tensors) -> str:
     h = hashlib.sha256()
     for t in tensors:
@@ -176,8 +154,8 @@ def _kernel_graph_ms(kernels, eng, name, snap):
             for f in fields:
                 getattr(c, f).copy_(getattr(snap, f))
 
-    return _graph_ms([lambda c=c, a=a: kernels.launch(name, eng, c, args=a)
-                      for c, a in zip(copies, args)], restore)
+    return graph_ms([lambda c=c, a=a: kernels.launch(name, eng, c, args=a)
+                     for c, a in zip(copies, args)], restore)
 
 
 def control_wave(torch, wf, kernels, traverse, eng, types) -> dict:
@@ -295,7 +273,7 @@ def measure_side(states: bool) -> int:
                               "pix_paths", "accum"):
                         getattr(c, f).copy_(getattr(snap, f))
 
-            rec["k4_graph_ms"] = _graph_ms(
+            rec["k4_graph_ms"] = graph_ms(
                 [lambda c=c, a=a: kernels.launch("retire", eng, c, args=a)
                  for c, a in zip(copies, args)], restore)
             m = snap.flag == FL_FINISHED                  # paths that retire
@@ -304,7 +282,7 @@ def measure_side(states: bool) -> int:
             idx = snap.pixel[m].long()
             src = snap.color[m].contiguous()
             accs = [snap.accum.clone() for _ in range(N_GRAPH)]
-            rec["index_add_graph_ms"] = _graph_ms(
+            rec["index_add_graph_ms"] = graph_ms(
                 [lambda acc=acc: acc.index_add_(0, idx, src) for acc in accs])
             del copies, args, accs
         del ws, k1, p1
@@ -338,7 +316,7 @@ def measure_side(states: bool) -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         lib.ptt_wave_loop_launch = launch
-        graph_ms = [e0.elapsed_time(e1) for e0, e1 in evs]
+        g_ms = [e0.elapsed_time(e1) for e0, e1 in evs]
         torch.cuda.synchronize()
         kernels.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
@@ -356,7 +334,7 @@ def measure_side(states: bool) -> int:
                                           "depth_sum", "waves", "ctrls",
                                           "walk_steps", "trav_steps")}
         rec["frames"][K] = dict(
-            walls=walls, graph_ms=graph_ms, device_ms=ms, runs=runs,
+            walls=walls, graph_ms=g_ms, device_ms=ms, runs=runs,
             launches={n: kernels.LAUNCHES[n] for n in KERNEL_NAMES},
             waves=int(st["waves"]), rays=int(st["rays"]),
             trav_steps=int(st["trav_steps"]), counters=counts,

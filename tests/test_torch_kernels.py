@@ -229,4 +229,8 @@ def test_kernel_wrappers_launch_on_card(cuda_device):
                               torch.zeros((4,), dtype=torch.int32,
                                           device=cuda_device))
     assert torch.equal(rows, r.bvh.nodes[[0, 0, 0, 0]])
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    # every wrapper launched; the device wave loop has no kernel of its own
+    # (K1 ends it), so it counts none
+    assert kernels.LAUNCHES["wave_loop"] == 0, kernels.LAUNCHES
+    assert all(v > 0 for n, v in kernels.LAUNCHES.items()
+               if n != "wave_loop"), kernels.LAUNCHES

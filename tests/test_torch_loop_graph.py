@@ -26,6 +26,11 @@
   argument block's own fields, and ``TripGraph.config`` leaves the key and
   camera out, so a kept trip graph serves every frame of its
   configuration.
+* The spawn built by g++, run block by block (each block stages the
+  frame's camera and the key folded with the sample once), equals JAX's
+  ``spawn_paths`` on a ragged lane count, a sample read from memory,
+  ``frame_dev`` set to this frame's and to another frame's key and camera,
+  and with the live list 0.
 
 32x18, 2 spp, on vol2_final_scene(sphere_cluster=20) and cornell_box.
 """
@@ -320,6 +325,124 @@ def test_emulated_tiled_kernels_read_frame_from_memory(name):
         out.append((st, ctr))
     assert all(torch.equal(x, y) for x, y in zip(out[0][0], out[1][0]))
     assert torch.equal(out[0][1], out[1][1])
+
+
+def _jax_spawn(name, key_seed, cam_edit, smp, pix):
+    """JAX's ``spawn_paths`` (``shade_tiled.py:741``) for the lanes ``pix``
+    of sample ``smp``, the frame of ``name`` keyed by ``key_seed`` with its
+    camera edited by ``cam_edit``."""
+    from path_tracer_tpu.ops.shade_tiled import spawn_paths
+    _, cam = _world(name)
+    cam_edit(cam)
+    cfg = JCfg(width=W, height=H, samples_per_pixel=SPP, max_depth=10)
+    st = spawn_paths(cam.initialize(), cfg, jax.random.key(key_seed),
+                     jnp.full(pix.shape, smp, jnp.int32), jnp.asarray(pix))
+    return [np.asarray(x) for x in st]
+
+
+def _other_camera(cam):
+    """Another view with a lens: moved, and a defocus angle (the camera's
+    defocus branch)."""
+    cam.lookfrom = np.asarray(cam.lookfrom, float) + np.array([1.0, 0.5, 0.0])
+    cam.defocus_angle = 2.0
+
+
+SPAWN_CASES = ["ragged", "sample_dev", "frame_dev", "frame_dev_other",
+               "live_list", "rows_unaligned"]
+
+
+@pytest.mark.parametrize("case", SPAWN_CASES)
+def test_emulated_spawn_blocks_match_jax(case):
+    """The g++-built ``tiled_spawn`` run block by block
+    (``csrc/host_emulation.cpp``: each block of ``PTT_SPAWN_THREADS`` lanes
+    stages its ``SpawnFrame`` once, the sample's fold included, and each
+    whole warp writes its three-float rows in 16-byte pieces; the last block
+    and warp are partial ones) against JAX's ``spawn_paths``: rays within
+    1e-6 (g++'s libm against XLA's), time and the fresh state exact.
+    Cases: 300 lanes of scattered pixels (not a multiple of the block or of
+    a warp); the sample read from memory (``sample_dev``); ``frame_dev``
+    holding this frame's key and camera, and another frame's (a new key, a
+    moved camera with a lens), which the spawn then renders; the live list
+    0 (every lane) and its count; origins not 16-byte aligned (every lane
+    in 4-byte stores)."""
+    _needs_cxx()
+    emu = kernels.host_emulation_lanes()
+    name = "vol2_final_scene"
+    eng = it.TiledEngine(*_port(name))
+    g = np.random.default_rng(13)
+    R = 300 if case == "ragged" else W * H
+    pix_np = (np.sort(g.choice(W * H, R, replace=False)) if case == "ragged"
+              else np.arange(R)).astype(np.int32)
+    pix = torch.from_numpy(pix_np)
+    smp = 3
+    st = it.PathState(*(torch.full_like(x, 7) for x in
+                        it.tiled_spawn(eng, 0, pix)))
+    if case == "rows_unaligned":           # origins 4 bytes off 16
+        st = st._replace(origin=torch.full((3 * R + 1,), 7.0)[1:].view(R, 3))
+    a = kernels.set_lanes(kernels.fill_args(eng), R, CPU,
+                          it.new_counters(CPU), pixel=pix, **st._asdict())
+    it._set_sample(a, torch.tensor([smp], dtype=torch.int32)
+                   if case == "sample_dev" else smp)
+    key_seed, cam_edit = 0, (lambda c: None)
+    if case.startswith("frame_dev"):
+        src = eng
+        if case == "frame_dev_other":
+            scene, flags, bvh, _, cfg, _ = _port(name)
+            _, cam_o = _world(name)
+            _other_camera(cam_o)
+            key_o = interop.key_from_data(np.asarray(jax.random.key_data(
+                jax.random.key(5))), "cpu")
+            src = it.TiledEngine(scene, flags, bvh, interop.from_numpy_camera(
+                cam_o.initialize(), "cpu"), cfg, key_o)
+            key_seed, cam_edit = 5, _other_camera
+        words = kernels.frame_words(src.args())
+        a.frame_dev, a._keep_frame = kernels._ptr(words), words
+    live = it.new_live_list(R, CPU) if case == "live_list" else None
+    it._set_live(a, live, 0)
+    emu["tiled_spawn"](a)
+    ref = _jax_spawn(name, key_seed, cam_edit, smp, pix_np)
+    got = [x.numpy() for x in st]
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[1], ref[1], rtol=0, atol=1e-6)
+    for k in range(2, 8):                  # time and the fresh state exact
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=str(k))
+    if case == "frame_dev_other":          # not this frame's rays
+        mine = _jax_spawn(name, 0, lambda c: None, smp, pix_np)
+        assert not np.allclose(got[1], mine[1])
+    if live is not None:
+        assert torch.equal(live[0][0], torch.arange(R, dtype=torch.int32))
+        assert live[1].tolist() == [R, 0, 0]
+
+
+def test_tiled_spawn_writes_into_given_rows():
+    """``tiled_spawn(..., out=)`` on the CPU writes the state into the given
+    tensors (rows 4 bytes off 16-byte alignment, as the card's check
+    passes them) and returns them: JAX's ``spawn_paths`` on 300 scattered
+    lanes of sample 3, rays within 1e-6, time and the fresh state exact."""
+    name = "vol2_final_scene"
+    eng = it.TiledEngine(*_port(name))
+    pix_np = np.sort(np.random.default_rng(5).choice(W * H, 300,
+                                                     replace=False))
+    pix = torch.from_numpy(pix_np.astype(np.int32))
+    R = pix.shape[0]
+
+    def off4(*shape):
+        n = int(np.prod(shape))
+        return torch.full((n + 4,), 7.0)[1:n + 1].view(shape)
+    out = it.PathState(
+        origin=off4(R, 3), direction=off4(R, 3), time=off4(R),
+        color=off4(R, 3), throughput=off4(R, 3),
+        depth=torch.full((R,), 7, dtype=torch.int32),
+        iters=torch.full((R,), 7, dtype=torch.int32),
+        alive=torch.zeros((R,), dtype=torch.bool))
+    st = it.tiled_spawn(eng, 3, pix, out=out)
+    assert all(x is y for x, y in zip(st, out))
+    ref = _jax_spawn(name, 0, lambda c: None, 3, pix_np.astype(np.int32))
+    got = [x.numpy() for x in out]
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[1], ref[1], rtol=0, atol=1e-6)
+    for k in range(2, 8):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=str(k))
 
 
 @pytest.mark.parametrize("name", SCENES)

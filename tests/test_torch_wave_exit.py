@@ -15,7 +15,8 @@
   vol2_final pools where a leaf child's hit clips a later child's box,
   and a whole Cornell frame at chunk 4 has the twin's wave counters.
 * ``gather_rows_plain`` equals JAX's ``table[idx, :]`` and ``jnp.take``
-  exactly, and the wrapper takes it for CPU tensors.
+  exactly, and the wrapper takes it for CPU tensors; indices outside
+  ``[0, B)`` are clamped as JAX's clip-mode gather clamps them.
 * ``Renderer(engine="megakernel")`` warns when the config sets a wavefront
   knob, and renders the same image.
 * On a CUDA card (marker ``gpu``): the device wave loop against the host
@@ -280,6 +281,31 @@ def test_gather_rows_plain_matches_jax():
     cpu = gather.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
     assert torch.equal(cpu, torch.from_numpy(got))
     assert kernels.LAUNCHES["gather_rows"] == 0
+
+
+@pytest.mark.parametrize("where", ["above", "below", "wrapped"])
+def test_gather_rows_plain_clamps_as_jax(where):
+    """Indices outside ``[0, B)`` are clamped, as JAX's clip-mode gather
+    does (``jnp.take(..., mode="clip")``, ``lax.gather``) and as
+    ``table[idx, :]`` does past either end; ``table[idx, :]`` alone wraps
+    an index in ``[-B, 0)`` first, which the port does not."""
+    g = np.random.default_rng(7)
+    B = 512
+    table = g.normal(size=(B, 80)).astype(np.float32)
+    idx = g.integers(0, B, 4096).astype(np.int32)
+    lo, hi = {"above": (B, 3 * B), "below": (-4 * B, -B),
+              "wrapped": (-B, 0)}[where]
+    idx[::3] = g.integers(lo, hi, idx[::3].shape[0])
+    got = gather.gather_rows_plain(torch.from_numpy(table),
+                                   torch.from_numpy(idx)).numpy()
+    jt, ji = jnp.asarray(table), jnp.asarray(idx)
+    np.testing.assert_array_equal(
+        got, np.asarray(jnp.take(jt, ji, axis=0, mode="clip")))
+    np.testing.assert_array_equal(got, table[np.clip(idx, 0, B - 1)])
+    if where != "wrapped":
+        np.testing.assert_array_equal(got, np.asarray(jt[ji, :]))
+    else:
+        assert not np.array_equal(got, np.asarray(jt[ji, :]))
 
 
 def test_megakernel_warns_on_wavefront_knobs():
