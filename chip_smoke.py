@@ -8,7 +8,8 @@ Phases (each prints its own line; any failure exits non-zero):
 2. build      — compile the CUDA kernels (one nvcc per source, all
                 started together; adjoint.cu holds K6's two
                 instantiations) and print the build seconds and ptxas
-                resources.
+                resources.  The last phase line before the JSON lines
+                gives chip_smoke's total seconds.
 3. kernels    — at the full configuration's shapes (vol2_final_scene,
                 800x450, depth 10, 32768 slots, 32 steps per wave) hold each
                 wavefront kernel against its plain-torch twin on the same
@@ -117,6 +118,30 @@ Phases (each prints its own line; any failure exits non-zero):
                 one-rank tiled image, tests/test_tp_scale.py's graded
                 rule), the same two modes over BVH8 shards, and DP x TP on a
                 2x2 grid on vol2_final at 400x225.
+10b. entry    — the entry points users start from, at the main
+                configuration: (a) a Renderer checkpointed at 4 spp
+                (batches of 2, a metrics file) and a new one resumed to
+                10, against one uninterrupted render (bit-identical),
+                five metrics lines, a mesh_perlin_sss checkpoint refused;
+                (b) autotune's probe, prediction, timed candidates and
+                choice, the tuned frame against the preset frame (graded,
+                paths and rays exact); (c) K2 with tile_spawn_order(800,
+                450) against its twin on control waves (exact), the frame
+                with the order against the default (graded, paths and
+                rays exact), both frames' walls and K1 device ms (data,
+                not gated: the profiler's runs printed beside the
+                launches); (d)
+                OrbitCamera.rotate(40, 0), restart and 2 spp, bit-identical
+                to a fresh Renderer at the moved camera; (e) the CLI as a
+                subprocess (800x800, 10 spp, batch 2, checkpoint, metrics,
+                autotune, torch.profiler trace holding the wave kernels);
+                (f) 2 gloo ranks through the CLI against the one-rank frame
+                (tests/test_multihost.py:81-82's rule), and a run to 4 spp
+                resumed to 10 bit-identical to the uninterrupted run.
+10c. ladder   — scripts/bench_ladder.py's five BASELINE.json configs at
+                their own sizes through the device loop: finite, paths =
+                pixels x spp, no stack overflow, the image against K5's
+                (graded), one JSON line each.
 11. the JSON kernel table (every kernel, then every instantiation timed in
     phases 9b-9c: ``<kernel>_k8``, ``<kernel>_k4_global``, with its ptxas
     registers, stack frame and spills, and ``device_ms``, its device time
@@ -151,7 +176,7 @@ them just after; the table's ``launches`` come from those runs.  Every
 frame profiled under torch.profiler must show, for each kernel, as many
 runs as its wrapper counted (``profile_run``): the counts of launches that
 a CUDA graph replays are measured, not only derived from the waves run.  The build
-phase also holds K3, K5, K7, K1, K4, K6, K9, K8 and the tiled spawn at
+phase also holds K3, K5, K7, K1, K4, K2, K6, K9, K8 and the tiled spawn at
 their recorded ptxas resources (``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3
 and K5), fails on a spill in any walking kernel's instantiation, and
 prints K1's global loads by width from its SASS (``cuobjdump -sass``).
@@ -228,7 +253,7 @@ STEP_OPS = {4: 220, 8: 440}
 # the bound, not part of it.
 FULL_SWEEP_OPS = BOUNCE_OPS
 FULL_WALK_OPS = WALK_TRIP_OPS
-# (registers, stack frame bytes) of K3, K5, K7, K1, K4, K6, K9, K8 and the
+# (registers, stack frame bytes) of K3, K5, K7, K1, K4, K2, K6, K9, K8 and the
 # tiled spawn as recorded in PERF.md (Findings); a key names a kernel or one of its
 # INSTANCES.  K5 and K6 walk trav_step16 rolled, K7 and K9 unrolled
 # (csrc/path.cuh); K6's recorder hooks compile to nothing in K3 and K5.
@@ -240,7 +265,7 @@ PTXAS_EXPECT = {"shade": (110, 104), "megakernel_k4": (117, 368),
                 "closest_hit_k8_global": (72, 0),
                 "trace_step_k4": (130, 0), "trace_step_k8": (162, 0),
                 "tiled_trip": (106, 104), "tiled_spawn": (32, 0),
-                "retire": (24, 0),
+                "retire": (24, 0), "spawn": (42, 32),
                 "adjoint_k4": (121, 3696), "adjoint_k8": (121, 3696),
                 "adjoint_k4_global": (126, 104), "adjoint_k8_global": (126, 104),
                 "adjoint_full_k4": (164, 4832), "adjoint_full_k8": (164, 4832),
@@ -684,7 +709,374 @@ def trip_work(itl, scene, flags, bvh, cam_a, cfg, key, spp, c_walk):
     return out
 
 
+ENTRY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_entry")   # scratch files of the entry phase
+
+
+def vol2_renderer(engine="wavefront", w=800, h=450, spp=10, depth=10,
+                  cam_=None):
+    """A Renderer of vol2_final_scene(sphere_cluster=1000) at w x h (or at
+    the camera ``cam_``) on the card."""
+    import path_tracer_tpu_torch as ptt
+    world, cam = ptt.scenes.vol2_final_scene(sphere_cluster=1000)
+    if cam_ is None:
+        cam.aspect_ratio, cam.img_width = w / h, w
+        cam.samples_per_pixel, cam.max_depth = spp, depth
+    else:
+        cam = cam_
+    return ptt.Renderer(world, cam, engine=engine)
+
+
+def cli_command(*args):
+    return [sys.executable, "-m", "path_tracer_tpu_torch.render.cli",
+            "--scene", "vol2_final_scene", "--width", "800", "--spp", "10",
+            "--max-depth", "10", "--batch", "2", *args]
+
+
+def entry_phase(card):
+    """Phase 10b: the entry points users start from, at the main
+    configuration.  Returns (ok, record)."""
+    import shutil
+    import path_tracer_tpu_torch as ptt
+    from path_tracer_tpu_torch.ops import kernels, shade_tiled
+    from path_tracer_tpu_torch.ops import wavefront as wf
+    from path_tracer_tpu_torch.ops.types import (C_DO_CTRL, C_N_OCC,
+                                                 FL_RESAMPLE)
+    from path_tracer_tpu_torch.parallel.launch import run_ranks as launch
+    from path_tracer_tpu_torch.render.orbit import OrbitCamera, restart
+    repo = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    os.makedirs(ENTRY_DIR)
+    W, H, SPP = 800, 450, 10
+    npix = W * H
+    rec, oks = {}, {}
+    t_phase = time.perf_counter()
+
+    def launched(tag, need):
+        got = dict(kernels.LAUNCHES)
+        missing = [n for n in need if got[n] == 0]
+        assert not missing, f"{tag}: kernels not launched: {missing}"
+        return {n: got[n] for n in need}
+
+    # (a) checkpoint and resume: 4 spp in batches of 2, checkpointed every
+    # 2 samples with a metrics file; a new Renderer resumes to 10.
+    ck = os.path.join(ENTRY_DIR, "vol2.ckpt.npz")
+    met = os.path.join(ENTRY_DIR, "metrics.jsonl")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    vol2_renderer().render(spp=4, batch=2, checkpoint_path=ck,
+                           checkpoint_every=2, metrics_path=met)
+    with np.load(ck) as z:
+        first = int(z["samples_done"])
+    res = vol2_renderer()
+    res.render(spp=SPP, batch=2, checkpoint_path=ck, checkpoint_every=2,
+               metrics_path=met)
+    torch.cuda.synchronize()
+    la = launched("entry", WAVE_KERNELS)
+    ref = vol2_renderer()
+    ref.render(spp=SPP, batch=2)
+    acc_r, acc_u = res.accum.cpu().numpy(), ref.accum.cpu().numpy()
+    bit = np.array_equal(acc_r, acc_u)
+    g_ok, g_out, g_clean = graded_agreement(acc_r / SPP, acc_u / SPP)
+    n_lines = len(open(met).read().splitlines())
+    sss_world, sss_cam = ptt.scenes.mesh_perlin_sss()
+    sss_cam.aspect_ratio, sss_cam.img_width = W / H, W
+    sss_cam.samples_per_pixel, sss_cam.max_depth = SPP, 10
+    ck_sss = os.path.join(ENTRY_DIR, "sss.ckpt.npz")
+    ptt.Renderer(sss_world, sss_cam, engine="wavefront").save_checkpoint(
+        ck_sss)
+    try:
+        vol2_renderer().load_checkpoint(ck_sss)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    oks["a"] = ((bit or g_ok) and first == 4 and res.samples_done == SPP
+                and res.stats.paths == npix * (SPP - 4) and n_lines == 5
+                and "fingerprint" in refused)
+    why = "" if bit else (" (not bit-identical: held to the graded rule; "
+                          "the resumed frame differs in float add order)")
+    phase("entry", f"(a) checkpoint 4 spp (batch 2, every 2) then a new "
+          f"Renderer resumed to {SPP}: bit-identical to one uninterrupted "
+          f"render of the same batches {bit}, graded outliers {g_out:.5f} "
+          f"clean mean {g_clean:.2e}{why}; checkpoint at {first} samples, "
+          f"resumed paths {res.stats.paths}, metrics lines {n_lines} (5 "
+          f"expected); mesh_perlin_sss {W}x{H} checkpoint refused: "
+          f"{refused[:90]!r}; launches {la} -> "
+          f"{'PASS' if oks['a'] else 'FAIL'}")
+
+    # (b) autotune: probe, prediction, the candidates, the choice; the
+    # tuned frame against the preset frame.
+    kernels.reset_launches()
+    rt = vol2_renderer()
+    chosen = rt.autotune()
+    img_t = rt.render(spp=SPP, batch=SPP)
+    torch.cuda.synchronize()
+    lb = launched("entry", WAVE_KERNELS)
+    rp = vol2_renderer()
+    img_p = rp.render(spp=SPP, batch=SPP)
+    tb_ok, tb_out, tb_clean = graded_agreement(img_t, img_p)
+    tu = rt.tuning
+    oks["b"] = (tb_ok and rt.stats.paths == rp.stats.paths == npix * SPP
+                and rt.stats.rays == rp.stats.rays
+                and chosen in tu["ms_per_sample"])
+    rec["autotune"] = dict(probe=tu["probe"], reading=tu["reading"],
+                           predicted=tu["predicted"], preset=tu["preset"],
+                           ms_per_sample={str(c): v for c, v in
+                                          tu["ms_per_sample"].items()},
+                           chosen=chosen)
+    phase("entry", f"(b) autotune probe {tu['probe']} (occupancy "
+          f"{tu['reading']['occ']:.4f}, steps a segment "
+          f"{tu['reading']['steps_seg']:.3f}) -> predicted (queue, steps, "
+          f"ctrl_den, stride) {tu['predicted']}, preset {tu['preset']}; ms a "
+          f"sample " + ", ".join(f"{c} {v:.3f}" for c, v in
+                                  tu["ms_per_sample"].items())
+          + f"; chosen {chosen}; tuned {SPP}-spp frame vs the preset frame: "
+          f"outliers {tb_out:.5f}, clean mean {tb_clean:.2e}, paths "
+          f"{rt.stats.paths}/{rp.stats.paths}, rays {rt.stats.rays}/"
+          f"{rp.stats.rays}; launches {lb} -> {'PASS' if oks['b'] else 'FAIL'}")
+
+    # (c) the spawn order: K2 with tile_spawn_order(800, 450) against its
+    # twin on control waves; the frame with the order against the default.
+    sc, fl, bvh, ca, cf = vol2(torch.device("cuda"))
+    key = ptt.utils.rng.key(0, device=torch.device("cuda"))
+    order = wf.tile_spawn_order(W, H)
+    eng = wf.WaveEngine(sc, fl, bvh, ca, cf, 0, SPP, key, 32768, 32, 8,
+                        spawn_order=order)
+    ws = eng.init_state(torch.zeros((H, W, 3), device="cuda"))
+    for _ in range(48):
+        for op in wf.KERNELS:
+            op(eng, ws)
+    k2_ok, n_waves_k2, renewed = True, 0, 0
+    while n_waves_k2 < 3:
+        wf.trace_step(eng, ws)
+        if int(ws.ctr[C_DO_CTRL]) == 0:
+            for op in wf.KERNELS[1:]:
+                op(eng, ws)
+            continue
+        shade_tiled.shade(eng, ws)
+        wf.retire(eng, ws)
+        snap = ws.clone()
+        k2, p2 = snap.clone(), snap.clone()
+        kernels.launch("spawn", eng, k2)
+        wf.spawn_plain(eng, p2)
+        torch.cuda.synchronize()
+        mk = (snap.flag == FL_RESAMPLE) | (~snap.occupied & k2.occupied)
+        mp = (snap.flag == FL_RESAMPLE) | (~snap.occupied & p2.occupied)
+        ik = k2.sample[mk].long() * npix + k2.pixel[mk].long()
+        ip = p2.sample[mp].long() * npix + p2.pixel[mp].long()
+        eq = torch.equal(torch.sort(ik).values, torch.sort(ip).values)
+        if eq:
+            a_, b_ = torch.argsort(ik), torch.argsort(ip)
+            eq = all(torch.equal(getattr(k2, f)[mk][a_], getattr(p2, f)[mp][b_])
+                     for f in ("origin", "direction", "time", "sample",
+                               "pixel", "last", "throughput"))
+            eq = eq and torch.equal(k2.ctr[C_N_OCC], p2.ctr[C_N_OCC])
+        k2_ok = k2_ok and eq
+        renewed += int(mk.sum())
+        n_waves_k2 += 1
+        ws = k2
+    del ws, snap, k2, p2, eng
+    torch.cuda.empty_cache()
+
+    def frame(order_):
+        return wf.render_batch(sc, fl, bvh, ca, cf, torch.zeros(
+            (H, W, 3), device="cuda"), 0, SPP, key, queue_size=32768,
+            steps_per_wave=32, with_stats=True, spawn_order=order_)
+
+    frame(None)
+    frame(order)
+    walls = {"default": [], "tiled order": []}
+    for _ in range(2):
+        for name, o_ in (("default", None), ("tiled order", order)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img_, st_ = frame(o_)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            if name == "default":
+                img_d, st_d = img_.cpu().numpy(), st_
+            else:
+                img_o, st_o = img_.cpu().numpy(), st_
+    # K1's device ms a frame, data for a later PR and no gate: the runs the
+    # profiler saw are printed beside the launches (it lost 4 of 517 of
+    # every wave kernel, three profiles in a row, late in one session).
+    from torch.profiler import ProfilerActivity, profile
+    k1 = {}
+    for name, o_ in (("default", None), ("tiled order", order)):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            frame(o_)
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if is_kernel(ev.key, "trace_step")]
+        k1[name] = (sum(ev.device_time_total for ev in evs) / 1e3,
+                    sum(ev.count for ev in evs), kernels.LAUNCHES["trace_step"])
+    c_ok, c_out, c_clean = graded_agreement(img_o / SPP, img_d / SPP)
+    oks["c"] = (k2_ok and c_ok and int(st_o["paths"]) == int(st_d["paths"])
+                == npix * SPP and int(st_o["rays"]) == int(st_d["rays"])
+                and (st_o["pixel_paths"] == SPP).all().item())
+    rec["spawn_order"] = dict(walls=walls, k1_device_ms=k1,
+                              waves={"default": int(st_d["waves"]),
+                                     "tiled order": int(st_o["waves"])})
+    phase("entry", f"(c) spawn order: K2 with tile_spawn_order({W}, {H}) vs "
+          f"its twin on {n_waves_k2} control waves ({renewed} renewed slots): "
+          f"items, rays and counters exact {k2_ok}; the {SPP}-spp frame with "
+          f"the order vs the default frame: outliers {c_out:.5f}, clean mean "
+          f"{c_clean:.2e}, paths {int(st_o['paths'])}/{int(st_d['paths'])}, "
+          f"rays {int(st_o['rays'])}/{int(st_d['rays'])}, waves "
+          f"{int(st_o['waves'])}/{int(st_d['waves'])}; walls s (alternating) "
+          f"default {', '.join(f'{w:.4f}' for w in walls['default'])}, order "
+          f"{', '.join(f'{w:.4f}' for w in walls['tiled order'])}; K1 device "
+          f"ms a frame (torch.profiler) default {k1['default'][0]:.3f} "
+          f"({k1['default'][1]} runs seen of {k1['default'][2]} launched), "
+          f"order {k1['tiled order'][0]:.3f} ({k1['tiled order'][1]} of "
+          f"{k1['tiled order'][2]}) -> {'PASS' if oks['c'] else 'FAIL'}")
+    del sc, bvh
+
+    # (d) orbit: rotate(40, 0), restart, 2 spp against a fresh Renderer.
+    ro = vol2_renderer()
+    ro.render(spp=2, batch=2)
+    OrbitCamera(ro.camera).rotate(40, 0)
+    kernels.reset_launches()
+    restart(ro)
+    ro.render(spp=2, batch=2)
+    torch.cuda.synchronize()
+    ld = launched("entry", WAVE_KERNELS)
+    fresh = vol2_renderer(cam_=ro.camera)
+    fresh.render(spp=2, batch=2)
+    oks["d"] = (ro.samples_done == 2 and torch.equal(ro.accum, fresh.accum)
+                and bool(torch.isfinite(ro.accum).all()))
+    phase("entry", f"(d) orbit rotate(40, 0), restart, 2 spp: lookfrom "
+          f"{np.round(ro.camera.lookfrom, 4).tolist()}, bit-identical to a "
+          f"fresh Renderer at the moved camera {oks['d']}; launches {ld} -> "
+          f"{'PASS' if oks['d'] else 'FAIL'}")
+    del ro, fresh, rt, rp, res, ref
+    torch.cuda.empty_cache()
+
+    # (e) the CLI as a subprocess on the card, profiled.
+    env = dict(os.environ, PYTHONPATH=repo)
+    ck_e, met_e = (os.path.join(ENTRY_DIR, "cli.ckpt.npz"),
+                   os.path.join(ENTRY_DIR, "cli.jsonl"))
+    prof_dir = os.path.join(ENTRY_DIR, "profile")
+    png = os.path.join(RUN_DIR, "cli.png")
+    t0 = time.perf_counter()
+    p = subprocess.run(cli_command("--checkpoint", ck_e, "--metrics", met_e,
+                                   "--autotune", "--profile", prof_dir,
+                                   "--out", png),
+                       capture_output=True, text=True, env=env, cwd=repo,
+                       timeout=300)
+    cli_s = time.perf_counter() - t0
+    summary = {}
+    if p.returncode == 0:
+        summary = json.loads(p.stdout.strip().splitlines()[-1])
+    with open(os.path.join(RUN_DIR, "cli.log"), "w") as f:
+        f.write(p.stdout + p.stderr)
+    trace = ""
+    if os.path.exists(os.path.join(prof_dir, "trace.json")):
+        trace = open(os.path.join(prof_dir, "trace.json")).read()
+    in_trace = {n: f"{n}_kernel" in trace for n in WAVE_KERNELS}
+    oks["e"] = (p.returncode == 0 and summary.get("samples") == SPP
+                and summary.get("rays_traced", 0) > 0 and all(in_trace.values())
+                and os.path.exists(png))
+    rec["cli"] = dict(rc=p.returncode, seconds=cli_s, summary=summary)
+    phase("entry", f"(e) CLI (--width 800: the scene's aspect, 800x800; "
+          f"{SPP} spp, batch 2, --checkpoint --metrics --autotune --profile) "
+          f"as a subprocess: exit {p.returncode} in {cli_s:.1f} s, samples "
+          f"{summary.get('samples')}, rays_traced "
+          f"{summary.get('rays_traced')}, wall_s {summary.get('wall_s')} "
+          f"(under the profiler); wave kernels in its trace {in_trace}; "
+          f"{png} -> {'PASS' if oks['e'] else 'FAIL'}")
+
+    # (f) the distributed CLI: 2 gloo ranks sharing the card.
+    def dist_run(tag, spp, ckpt):
+        out = os.path.join(ENTRY_DIR, f"{tag}.npz")
+        secs = launch(2, lambda r, port: cli_command(
+            "--spp", str(spp), "--checkpoint", ckpt, "--checkpoint-every",
+            "4", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+            "2", "--process-id", str(r), "--backend", "gloo", "--out", out),
+            ENTRY_DIR, 300, env=env, cwd=repo)
+        with open(os.path.join(ENTRY_DIR, "rank2_0.log")) as f:
+            log = f.read()
+        with open(os.path.join(RUN_DIR, f"cli_{tag}.log"), "w") as f:
+            f.write(log)
+        with np.load(out) as z:
+            return z["img"], secs, log
+
+    img_a, secs_a, log_a = dist_run("dist", SPP,
+                                    os.path.join(ENTRY_DIR, "dist.ckpt.npz"))
+    ck_b = os.path.join(ENTRY_DIR, "resume.ckpt.npz")
+    _, secs_b1, _ = dist_run("part", 4, ck_b)
+    img_b, secs_b2, log_b = dist_run("resumed", SPP, ck_b)
+    one = vol2_renderer(w=800, h=800)
+    img_1 = one.render(spp=SPP, batch=2)
+    d = np.abs(img_a - img_1)
+    mh_mean, mh_frac = float(d.mean()), float((d.max(-1) > 1e-4).mean())
+    f_bit = np.array_equal(img_a, img_b)
+    oks["f"] = (mh_mean < 3e-5 and mh_frac <= 0.01 and f_bit
+                and "backend gloo" in log_a and "resuming at sample 4" in log_b
+                and bool(np.isfinite(img_a).all()))
+    rec["dist"] = dict(seconds=[secs_a, secs_b1, secs_b2], mean=mh_mean,
+                       frac=mh_frac, bit=f_bit)
+    phase("entry", f"(f) 2 gloo ranks on the card through the CLI (800x800, "
+          f"{SPP} spp, batch 2, --checkpoint-every 4): vs the one-rank "
+          f"Renderer frame mean |d| {mh_mean:.2e} (< 3e-5), pixels beyond "
+          f"1e-4 {mh_frac:.5f} (<= 0.01); a run to 4 spp then a resumed run "
+          f"to {SPP} bit-identical to the uninterrupted run {f_bit}; runs "
+          f"{secs_a:.1f}, {secs_b1:.1f}, {secs_b2:.1f} s -> "
+          f"{'PASS' if oks['f'] else 'FAIL'}")
+    del one
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = oks
+    ok = all(oks.values())
+    phase("entry", f"{rec['seconds']:.1f} s; parts {oks} -> "
+          f"{'PASS' if ok else 'FAIL'} ({card})")
+    return ok, rec
+
+
+def ladder_phase(card):
+    """Phase 10c: scripts/bench_ladder.py's five BASELINE.json configs
+    through the device loop, each image against K5's.  Returns (ok, rows)."""
+    from path_tracer_tpu_torch.ops import integrator, kernels
+    from path_tracer_tpu_torch.scripts import bench_ladder
+    t_phase = time.perf_counter()
+    rows, ok = [], True
+    for c in bench_ladder.CONFIGS:
+        name, W, H, spp = c[0], c[2], c[3], c[4]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        row, img, (sc, fl, bvh, ca, cf, key) = bench_ladder.run_config(*c)
+        launches = {n: kernels.LAUNCHES[n] for n in WAVE_KERNELS}
+        mega = integrator.render_batch(sc, fl, bvh, ca, cf, torch.zeros(
+            (H, W, 3), device="cuda"), 0, spp, key) / spp
+        a_ok, outl, clean = graded_agreement(img.cpu().numpy(),
+                                             mega.cpu().numpy())
+        ok_c = (bool(torch.isfinite(img).all()) and row["paths"] == W * H * spp
+                and row["stack_overflows"] == 0 and a_ok
+                and all(v > 0 for v in launches.values()))
+        row.update(k5_outliers=outl, k5_clean_mean=clean, launches=launches,
+                   ok=ok_c)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        phase("ladder", f"{name} {W}x{H} {spp} spp: finite, paths "
+              f"{row['paths']} (= pixels x spp), stack overflows "
+              f"{row['stack_overflows']}, vs K5: outliers {outl:.5f}, clean "
+              f"mean {clean:.2e}; {row['mrays_ub']:.3f} upper-bound / "
+              f"{row['mrays_measured']:.3f} measured Mrays/s, wall "
+              f"{row['wall_s']:.4f} s, waves {row['waves']} -> "
+              f"{'PASS' if ok_c else 'FAIL'}")
+        ok = ok and ok_c
+        del img, mega, sc, bvh
+        torch.cuda.empty_cache()
+    phase("ladder", f"{time.perf_counter() - t_phase:.1f} s ({card}) -> "
+          f"{'PASS' if ok else 'FAIL'}")
+    return ok, rows
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     # --- 1. device ---
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3211,6 +3603,12 @@ def main() -> int:
                                         for i in INSTANCES})
                    for job, outs in par_rec.items()}
 
+    # --- 10b. the entry points; 10c. the config ladder ---
+    phase("entry", f"chip_smoke at {time.perf_counter() - t_main:.1f} s "
+          f"before the entry and ladder phases")
+    entry_ok, entry_rec = entry_phase(card)
+    ladder_ok, ladder_rows = ladder_phase(card)
+
     # --- 11. the kernel table ---
     launches = dict(rec["main"]["launches"])
     launches["megakernel"] = rec["main-mega"]["launches"]["megakernel"]
@@ -3295,18 +3693,20 @@ def main() -> int:
                                     for k in ("rows", "fd")},
                    "train": train_rec, "parallel": par_summary,
                    "bvh8": rec8, "stack": rec_stack, "ptxas": ptxas,
+                   "entry": entry_rec, "ladder": ladder_rows,
                    "kernels": table},
                   f, indent=1, default=str)
     failed = [t["name"] for t in table if not t["pass"]]
+    phase("total", f"chip_smoke {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": table}), flush=True)
     tiled_ok = rec["tiled"]["ok"]
     loop_ok = rec["loop"]["ok"]
     if failed or not (agree and train_ok and tiled_ok and par_ok and loop_ok
-                      and bvh8_ok and stack_ok):
+                      and bvh8_ok and stack_ok and entry_ok and ladder_ok):
         print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok} "
               f"tiled={tiled_ok} parallel={par_ok} loop={loop_ok} "
-              f"bvh8={bvh8_ok} stack={stack_ok}",
-              file=sys.stderr)
+              f"bvh8={bvh8_ok} stack={stack_ok} entry={entry_ok} "
+              f"ladder={ladder_ok}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

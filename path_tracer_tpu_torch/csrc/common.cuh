@@ -169,6 +169,10 @@ struct WaveArgs {
   // then those 19 floats' bits, which tiled_spawn and K8 read, so that a
   // kept trip graph renders a new key or view without a new capture
   const unsigned int* frame_dev;
+  // K2's spawn order (null: the identity): a work item's block pixel p
+  // (id % npix) spawns block pixel spawn_order[p], a permutation of
+  // [0, npix) (wavefront.tile_spawn_order)
+  const int* spawn_order;
 };
 
 #define PTT_FRAME_WORDS 21
@@ -196,7 +200,7 @@ struct WaveArgs {
   X(q_tmin) X(q_active) X(exit_found) X(exit_pt) X(exit_pi) X(exit_t)        \
   X(exit_med) X(rec) X(pix_offset) X(sample_dev) X(tape) X(walk)            \
   X(gate_pt) X(gate_pi) X(h_while) X(max_waves) X(loop_graph)      \
-  X(live) X(live_n) X(live_parity) X(frame_dev)
+  X(live) X(live_n) X(live_parity) X(frame_dev) X(spawn_order)
 
 // Fills names[k], offsets[k] for each field when the arrays are given;
 // returns the number of fields.  Each kernel library exports its own copy.

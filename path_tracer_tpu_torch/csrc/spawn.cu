@@ -5,9 +5,11 @@
 // shade_tiled.py spawn_rng (:730, B2), spawn_paths/get_rays_t (:741, :333,
 // B3; camera.cuh) and traversal_init_batched (traverse.py:280, root-leaf
 // case included; traverse.cuh).  A work item id maps to (window g, pixel) =
-// (id / npix, pix_offset + id % npix) with samples
+// (id / npix, pix_offset + order[id % npix]) with samples
 // [start + g*stride, start + min((g+1)*stride, n)); with stride 1 it is one
-// (sample, pixel).  A slot keeps its frame pixel, which the camera and the
+// (sample, pixel).  order is WaveArgs.spawn_order, the identity where it is
+// null (wavefront.py:237-243: JAX permutes the block pixel before it adds
+// the offset).  A slot keeps its frame pixel, which the camera and the
 // RNG take; K4 maps it into the block of npix pixels that starts at
 // pix_offset (the data-parallel shard).  FL_RESAMPLE slots start the
 // next sample of their window in place and keep their radiance sum.  The
@@ -43,7 +45,9 @@ __device__ __forceinline__ void spawn_lane(const WaveArgs& a, int i) {
       smp = a.start_sample + (int)(id / a.npix);
       last = smp;
     }
-    pix = a.pix_offset + (int)(id % a.npix);
+    int p = (int)(id % a.npix);
+    if (a.spawn_order != nullptr) p = a.spawn_order[p];
+    pix = a.pix_offset + p;
   } else {
     smp = a.sample[i] + 1;
     pix = a.pixel[i];

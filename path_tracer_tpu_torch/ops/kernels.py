@@ -117,7 +117,7 @@ class WaveArgs(ctypes.Structure):
            ("h_while", ctypes.c_ulonglong),
            ("max_waves", ctypes.c_longlong), ("loop_graph", _I),
            ("live", _P), ("live_n", _P), ("live_parity", _I),
-           ("frame_dev", _P)])
+           ("frame_dev", _P), ("spawn_order", _P)])
 
 
 def _nvcc() -> str:
@@ -340,8 +340,10 @@ def make_args(eng, ws, u5_out: torch.Tensor | None = None) -> WaveArgs:
     dev = ws.ctr.device
     if dev.type != "cuda":
         raise ValueError("the CUDA kernels take CUDA tensors")
+    order = getattr(eng, "spawn_order", None)
     for t in (*(getattr(ws, f.name) for f in dataclasses.fields(ws)),
-              eng.bvh.nodes, eng.tabs.prim):
+              eng.bvh.nodes, eng.tabs.prim,
+              *(() if order is None else (order,))):
         if t.device != dev:
             raise ValueError("engine tables and state are on different devices")
     return fill_args(eng, ws, u5_out)
@@ -379,6 +381,7 @@ def fill_args(eng, ws=None, u5_out: torch.Tensor | None = None) -> WaveArgs:
     a.perlin_vec = _ptr(sc.perlin_vec)
     a.perlin_perm = _ptr(sc.perlin_perm)
     a.u5_out = _ptr(u5_out)
+    a.spawn_order = _ptr(getattr(eng, "spawn_order", None))
     a.items_total = eng.items_total
     a.R, a.steps, a.ctrl_den = eng.R, eng.steps, eng.ctrl_den
     from .traverse import ADAPTIVE_EXIT_DEN, wave_chunk

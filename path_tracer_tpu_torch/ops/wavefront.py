@@ -104,7 +104,8 @@ class WaveEngine:
                  start_sample: int, n_samples: int, base_key,
                  queue_size: int, steps_per_wave: int, ctrl_den: int,
                  sample_stride: int | None = None, pix_offset: int = 0,
-                 n_pix: int | None = None, chunk: int | None = None):
+                 n_pix: int | None = None, chunk: int | None = None,
+                 spawn_order=None):
         self.scene, self.flags, self.bvh, self.cam, self.cfg = (
             scene, flags, bvh, cam, cfg)
         self.device = scene.sph_c0.device
@@ -129,6 +130,18 @@ class WaveEngine:
         self.sd = min(cfg.stack_depth, bvh.max_stack)
         self.root = int(bvh.root)
         self.tabs = make_tables(scene)
+        # The block pixel a work item spawns (tile_spawn_order; None: its own)
+        self.spawn_order = None
+        if spawn_order is not None:
+            order = torch.as_tensor(spawn_order).to(self.device, torch.int32)
+            if tuple(order.shape) != (self.npix,):
+                raise ValueError(f"spawn_order must have one entry per block "
+                                 f"pixel ({self.npix},), not "
+                                 f"{tuple(order.shape)}")
+            if int(order.min()) < 0 or int(order.max()) >= self.npix:
+                raise ValueError(f"spawn_order holds block pixels, in "
+                                 f"[0, {self.npix})")
+            self.spawn_order = order.contiguous()
 
     def init_state(self, accum) -> WaveState:
         R, dev, cfg = self.R, self.device, self.cfg
@@ -160,6 +173,24 @@ class WaveEngine:
         """The B8 loop predicate from a host copy of the counters."""
         spawned = min(int(ctr_host[C_SPAWNED]), self.items_total)
         return spawned < self.items_total or int(ctr_host[C_N_OCC]) > 0
+
+
+def tile_spawn_order(width: int, height: int, tile: int = 16,
+                     device="cuda") -> torch.Tensor:
+    """The ``(width * height,)`` int32 spawn order of JAX's
+    ``tile_spawn_order`` (``ops/wavefront.py:115-127``): consecutive work
+    items fill one ``tile`` x ``tile`` pixel block before the next, so the
+    slots a control wave renews trace neighbouring pixels.  Pass it as
+    ``render_batch(..., spawn_order=)``."""
+    ys, xs = torch.meshgrid(torch.arange(height), torch.arange(width),
+                            indexing="ij")
+    ys, xs = ys.reshape(-1), xs.reshape(-1)
+    # np.lexsort's last key is the primary one: tile row, tile column, then
+    # the row and column within the tile.
+    key = (((ys // tile) * (-(-width // tile)) + xs // tile) * tile
+           + ys % tile) * tile + xs % tile
+    order = torch.argsort(key, stable=True)
+    return (ys[order] * width + xs[order]).to(device, torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +247,8 @@ def spawn_plain(eng: WaveEngine, ws: WaveState) -> None:
     item is a (pixel, sample window) with ``stride`` samples, or one
     (pixel, sample) when ``stride`` is 1.  ``FL_RESAMPLE`` slots start the
     next sample of their window in place, carrying the radiance sum.  A
-    slot holds its frame pixel (``pix_offset`` + its block index).
+    slot holds its frame pixel (``pix_offset`` + its block index); with a
+    spawn order, item ``id``'s block index is ``spawn_order[id % npix]``.
     """
     if int(ws.ctr[C_DO_CTRL]) == 0:
         return
@@ -236,8 +268,10 @@ def spawn_plain(eng: WaveEngine, ws: WaveState) -> None:
     else:
         s_idx = eng.start_sample + new_id // npix
         new_last = s_idx
-    pix = W(can, new_id % npix + eng.pix_offset, ws.pixel.long()).to(
-        torch.int32)
+    local = new_id % npix
+    if eng.spawn_order is not None:
+        local = eng.spawn_order.long()[local]
+    pix = W(can, local + eng.pix_offset, ws.pixel.long()).to(torch.int32)
     smp = W(can, s_idx, W(resample, ws.sample + 1, ws.sample).long()).to(
         torch.int32)
     renew = can | resample
@@ -404,7 +438,8 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
                  queue_size: int = 4096, steps_per_wave: int = 12,
                  with_stats: bool = False, ctrl_den: int = 8,
                  sample_stride: int | None = None, plain: bool = False,
-                 pix_offset: int = 0, n_pix: int | None = None):
+                 pix_offset: int = 0, n_pix: int | None = None,
+                 spawn_order=None):
     """Accumulate ``n_samples`` samples into a copy of ``accum`` (H, W, 3).
 
     Same arguments and result as the JAX ``render_batch``; ``base_key`` is
@@ -417,11 +452,14 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     host loop); the default runs the CUDA kernels in the device wave loop
     (:func:`run_waves_graph`) for CUDA tensors.  With ``with_stats`` the
     stats dict adds ``pixel_paths`` (finished paths per pixel),
-    ``stack_overflows`` (must be 0) and ``host_reads``.
+    ``stack_overflows`` (must be 0) and ``host_reads``.  ``spawn_order``
+    (:func:`tile_spawn_order`, one entry per block pixel) permutes the
+    order in which work items take pixels; the sample set stays the same.
     """
     eng = WaveEngine(scene, flags, bvh, cam, cfg, start_sample, n_samples,
                      base_key, queue_size, steps_per_wave, ctrl_den,
-                     sample_stride, pix_offset, n_pix)
+                     sample_stride, pix_offset, n_pix,
+                     spawn_order=spawn_order)
     ws = eng.init_state(accum)
     if ws.ctr.is_cuda and not plain:
         reads = run_waves_graph(eng, ws)

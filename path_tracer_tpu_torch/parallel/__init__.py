@@ -10,11 +10,12 @@
 """
 from .pipeline import render_pp
 from .render_dist import (calibrate_n_waves, global_mesh, init_distributed,
-                          make_mesh, make_train_step, render_sharded,
-                          render_sharded_wavefront)
+                          make_mesh, make_train_step, render_distributed,
+                          render_sharded, render_sharded_wavefront)
 from .scene_shard import render_dp_tp, render_tp, shard_scene
 
 __all__ = ["calibrate_n_waves", "global_mesh", "init_distributed",
-           "make_mesh", "make_train_step", "render_dp_tp", "render_pp",
+           "make_mesh", "make_train_step", "render_distributed",
+           "render_dp_tp", "render_pp",
            "render_sharded", "render_sharded_wavefront", "render_tp",
            "shard_scene"]

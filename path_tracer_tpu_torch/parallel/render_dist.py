@@ -3,8 +3,9 @@
 Port of ``path_tracer_tpu/parallel/render_dist.py``: ``make_mesh`` (:31),
 ``init_distributed`` (:38), ``global_mesh`` (:61), ``_shard_map``'s role
 (:186, here :class:`Mesh` and its axes), ``_pixel_blocks`` (:200),
-``render_sharded`` (:207), ``render_sharded_wavefront`` (:247),
-``calibrate_n_waves`` (:284) and ``make_train_step`` (:300).
+``render_distributed`` (:68), ``render_sharded`` (:207),
+``render_sharded_wavefront`` (:247), ``calibrate_n_waves`` (:284) and
+``make_train_step`` (:300).
 
 One rank of a ``torch.distributed`` job is one device of the JAX mesh.
 NCCL is the backend with one card per rank; gloo serves CPU processes and
@@ -19,7 +20,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -165,6 +168,95 @@ def make_mesh(n_devices=None, axis="d") -> Mesh:
 def global_mesh(axis: str = "d") -> Mesh:
     """1-D mesh over every rank of the job."""
     return make_mesh(None, axis)
+
+
+def render_distributed(world, camera, *, engine_cfg: RenderConfig | None = None,
+                       spp: int | None = None, seed: int = 0,
+                       queue_size: int = 4096, steps_per_wave: int = 16,
+                       checkpoint_path: str | None = None,
+                       checkpoint_every: int = 0, batch: int = 0,
+                       device="cuda") -> np.ndarray:
+    """Render ``world`` seen by ``camera`` over every rank of the job → the
+    (H, W, 3) mean as a numpy array, the same on every rank (rank 0 writes
+    it).  Every rank must call it with the same arguments.
+
+    Each rank compiles the scene and builds the BVH on ``device``, then the
+    wavefront renders data-parallel over :func:`global_mesh`
+    (:func:`render_sharded_wavefront`) in rounds of ``batch`` samples
+    (default ``checkpoint_every``, else ``spp``) from the first sample not
+    yet done.  With ``checkpoint_path`` rank 0 writes ``{accum,
+    samples_done, fingerprint}`` (the sum of the samples done) through a
+    ``.tmp.npz`` file and ``os.replace`` whenever a multiple of
+    ``checkpoint_every`` samples is passed, at the end and on
+    ``KeyboardInterrupt``; a job started on an existing checkpoint resumes
+    from it, and refuses one whose fingerprint (scene, camera,
+    configuration, ``seed``, ``queue_size``, ``steps_per_wave``) differs.
+    Each (sample, pixel) radiance is fixed by the RNG folds, so a resumed
+    run whose rounds start where the uninterrupted run's did gives that
+    run's image bit for bit.  With a checkpoint, no rank returns before rank
+    0 has written the last one.
+    """
+    from ..models.compile import compile_scene
+    from ..ops.bvh_build import build_from_scene
+    from ..ops.shade import SceneFlags
+    from ..render.renderer import fingerprint, save_npz
+
+    cfg = engine_cfg or RenderConfig(
+        width=camera.img_width, height=camera.img_height,
+        samples_per_pixel=camera.samples_per_pixel,
+        max_depth=camera.max_depth)
+    spp = spp if spp is not None else cfg.samples_per_pixel
+    dev = torch.device(device)
+    scene = compile_scene(world, device=dev)
+    bvh = build_from_scene(scene)
+    flags = SceneFlags.from_scene(scene)
+    cam = camera.initialize(device=dev)
+    mesh = global_mesh()
+    digest = fingerprint(scene, cam, cfg, seed, queue_size, steps_per_wave)
+
+    accum = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    done = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        with np.load(checkpoint_path) as z:
+            saved = str(z["fingerprint"])
+            if saved != digest:
+                raise ValueError(
+                    f"checkpoint {checkpoint_path!r} was written by a "
+                    f"different scene/camera/config (fingerprint "
+                    f"{saved[:12]}… != {digest[:12]}…)")
+            accum = z["accum"].astype(np.float32)
+            done = int(z["samples_done"])
+        print(f"resuming at sample {done}/{spp}", flush=True)
+
+    def save():
+        if checkpoint_path and mesh.rank == 0:
+            save_npz(checkpoint_path, accum=accum, samples_done=done,
+                     fingerprint=digest)
+
+    step = batch or checkpoint_every or spp
+    key = rng.key(seed, device=dev)
+    last_saved = done // checkpoint_every if checkpoint_every else 0
+    try:
+        while done < spp:
+            n = min(step, spp - done)
+            img = render_sharded_wavefront(
+                scene, flags, bvh, cam, cfg, key, mesh, spp=n,
+                queue_size=queue_size, steps_per_wave=steps_per_wave,
+                start_sample=done)
+            # One commit: an interrupt lands before or after both move.
+            accum, done = accum + img.cpu().numpy() * n, done + n
+            print(f"sample {done}/{spp}", flush=True)
+            if (checkpoint_every and done // checkpoint_every > last_saved
+                    and done < spp):
+                last_saved = done // checkpoint_every
+                save()
+    except KeyboardInterrupt:
+        save()
+        raise
+    save()
+    if checkpoint_path and dist.is_initialized():
+        dist.barrier()          # no rank returns before the file is written
+    return accum / max(done, 1)
 
 
 def _mesh_size(mesh) -> int:

@@ -6,11 +6,20 @@ batches through the megakernel (:func:`~..ops.integrator.render_batch`, the
 default engine, as in JAX) or the wavefront
 (:func:`~..ops.wavefront.render_batch`, with the JAX ``_render_batch``
 presets: queue 32768 / 32 steps per wave for big scenes, 8192 / 12
-otherwise).  Not ported yet: checkpoints, metrics files and ``autotune``
-(ROADMAP.md A.8); they are absent rather than doing something else.
+otherwise, or the values :meth:`Renderer.autotune` measured).
+
+The progressive state ``(accum, samples_done, key)`` is written to a
+checkpoint (JAX's npz fields) every ``checkpoint_every`` samples, at the end
+and on ``KeyboardInterrupt``; a render given an existing checkpoint resumes
+from it, and refuses one of another resolution, scene, camera or
+configuration.  ``metrics_path`` appends one JSON line per batch.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
+import os
 import time as _time
 import warnings
 from dataclasses import dataclass, field
@@ -129,28 +138,120 @@ class Renderer:
         self.accum = torch.zeros((self.cfg.height, self.cfg.width, 3),
                                  dtype=torch.float32, device=self.device)
         self.samples_done = 0
+        self._tuned = None       # (queue, steps, ctrl_den, stride): autotune
+        self.tuning = None       # autotune's probe, candidates and choice
 
+    # --- wavefront engine tuning -----------------------------------------
+    def autotune(self, verbose: bool = False, samples: int = 2):
+        """Pick the wavefront's ``(queue, steps, ctrl_den, stride)`` for this
+        scene: one stats probe of one sample at the preset predicts them
+        (:func:`predict_tuning`, JAX's rule), then the prediction and the
+        preset are each timed over ``max(2, samples)`` samples and the
+        faster is kept.  Values pinned in ``cfg`` hold in every candidate.
+        On the card each candidate's first render pays its build and graph
+        capture; the second, between two ``torch.cuda.synchronize()``, is
+        timed.  Records ``self.tuning`` and returns the choice; on the
+        megakernel it warns and returns None."""
+        if self.engine != "wavefront":
+            warnings.warn("Renderer.autotune tunes the wavefront's slot pool; "
+                          "Renderer(engine='megakernel') ignores it",
+                          stacklevel=2)
+            return None
+        cfg = self.cfg
+        big = self.bvh.nodes.shape[0] >= 256
+        preset = tuning_preset(cfg, big)
+
+        def run_batch(q, s, d, stride, n, with_stats=False):
+            scratch = torch.zeros_like(self.accum)
+            return wavefront.render_batch(
+                self.scene, self.flags, self.bvh, self.cam_arrays, cfg,
+                scratch, 0, n, self.key, queue_size=q, steps_per_wave=s,
+                ctrl_den=d, sample_stride=stride, with_stats=with_stats)
+
+        _, st = run_batch(*preset, 1, with_stats=True)
+        probe = {k: int(st[k]) for k in PROBE_COUNTERS}
+        predicted, reading = predict_tuning(cfg, big, probe)
+        if verbose:
+            print(f"  autotune probe: occ={reading['occ']:.2f} steps/seg="
+                  f"{reading['steps_seg']:.1f} waves={reading['waves']} "
+                  f"ctrls={reading['ctrls']} -> predict q={predicted[0]} "
+                  f"s={predicted[1]} den={predicted[2]} "
+                  f"stride={predicted[3]}")
+        n_t = max(2, samples)
+        timed = {}
+        for cand in dict.fromkeys([predicted, preset]):
+            run_batch(*cand, n_t)                    # build, capture, warm
+            _sync(self.device)
+            t0 = _time.perf_counter()
+            run_batch(*cand, n_t)
+            _sync(self.device)
+            timed[cand] = (_time.perf_counter() - t0) / n_t
+            if verbose:
+                print(f"  autotune q={cand[0]} s={cand[1]} den={cand[2]} "
+                      f"stride={cand[3]}: {timed[cand] * 1e3:.1f} ms/sample")
+        self._tuned = min(timed, key=timed.get)
+        self.tuning = dict(probe=probe, reading=reading, preset=preset,
+                           predicted=predicted,
+                           ms_per_sample={c: 1e3 * t for c, t in timed.items()},
+                           chosen=self._tuned)
+        return self._tuned
+
+    # --- progressive rendering -------------------------------------------
     def render(self, spp: int | None = None, batch: int = 4,
-               verbose: bool = False):
-        """Accumulate ``spp`` samples; returns the (H, W, 3) mean."""
+               checkpoint_path: str | None = None, checkpoint_every: int = 0,
+               metrics_path: str | None = None, verbose: bool = False,
+               autotune: bool = False):
+        """Accumulate ``spp`` samples (resumable); returns the (H, W, 3)
+        mean.  An existing ``checkpoint_path`` is resumed from; the state is
+        saved there every ``checkpoint_every`` samples, at the end and on
+        ``KeyboardInterrupt`` (then re-raised).  ``autotune`` runs
+        :meth:`autotune` first unless it ran or ``cfg`` pins the queue and
+        the steps; on the megakernel it warns."""
         spp = spp if spp is not None else self.cfg.samples_per_pixel
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            self.load_checkpoint(checkpoint_path)
+        if autotune and (self.engine != "wavefront" or (
+                self._tuned is None and not (self.cfg.queue_size
+                                             and self.cfg.steps_per_wave))):
+            self.autotune(verbose=verbose)
         t_start = _time.perf_counter()
+        try:
+            self._render_loop(spp, batch, checkpoint_path, checkpoint_every,
+                              metrics_path, verbose)
+        except KeyboardInterrupt:
+            if checkpoint_path:
+                self.save_checkpoint(checkpoint_path)
+            raise
+        self.stats.samples = self.samples_done
+        self.stats.wall_s = _time.perf_counter() - t_start
+        if checkpoint_path:
+            self.save_checkpoint(checkpoint_path)
+        return self.image()
+
+    def _render_loop(self, spp, batch, checkpoint_path, checkpoint_every,
+                     metrics_path, verbose):
         while self.samples_done < spp:
             n = min(batch, spp - self.samples_done)
             t0 = _time.perf_counter()
-            self.accum, bstats = _render_batch(
+            accum, bstats = _render_batch(
                 self.scene, self.flags, self.bvh, self.cam_arrays, self.cfg,
-                self.accum, self.samples_done, n, self.key, self.engine)
+                self.accum, self.samples_done, n, self.key, self.engine,
+                tuned=self._tuned)
             self._add_stats(bstats)
+            # One commit: an interrupt leaves no uncounted samples in accum.
+            self.accum, self.samples_done = accum, self.samples_done + n
             dt = _time.perf_counter() - t0
-            self.samples_done += n
             self.stats.sample_times.append(dt / n)
             if verbose:
                 print(f"  sample {self.samples_done}/{spp}  "
-                      f"{1000 * dt / n:.1f} ms/sample")
-        self.stats.samples = self.samples_done
-        self.stats.wall_s = _time.perf_counter() - t_start
-        return self.image()
+                      f"{1000 * dt / n:.1f} ms/sample  "
+                      f"{self.cfg.width * self.cfg.height * n / dt / 1e6:.2f}"
+                      f" Mpix/s")
+            if metrics_path:
+                self._log_metrics(metrics_path, n, dt)
+            if (checkpoint_path and checkpoint_every
+                    and self.samples_done % checkpoint_every == 0):
+                self.save_checkpoint(checkpoint_path)
 
     def _add_stats(self, b: dict) -> None:
         s = self.stats
@@ -181,10 +282,150 @@ class Renderer:
         n = max(self.samples_done, 1)
         (write_ppm if path.endswith(".ppm") else write_png)(path, acc, n)
 
+    # --- checkpoint / resume ----------------------------------------------
+    def _fingerprint(self) -> str:
+        """sha256 of the scene, camera and configuration of this render
+        (:func:`fingerprint`)."""
+        return fingerprint(self.scene, self.cam_arrays, self.cfg)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write ``accum`` (H, W, 3) float32, ``samples_done``, ``key`` (the
+        (2,) uint32 key data) and ``fingerprint``, JAX's npz fields,
+        through a ``.tmp.npz`` file and ``os.replace``."""
+        save_npz(path, accum=self.accum.cpu().numpy(),
+                 samples_done=self.samples_done,
+                 key=self.key.cpu().numpy().astype(np.uint32),
+                 fingerprint=self._fingerprint())
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from ``path``; raises ``ValueError`` for a checkpoint of
+        another resolution (naming both shapes) or of another scene, camera
+        or configuration (the fingerprint)."""
+        with np.load(path) as z:
+            accum = z["accum"]
+            expected = (self.cfg.height, self.cfg.width, 3)
+            if accum.shape != expected:
+                raise ValueError(
+                    f"checkpoint {path!r} has accum shape {accum.shape}, but "
+                    f"this renderer is configured for {expected}: it belongs "
+                    "to a different render configuration")
+            if "fingerprint" in z:
+                saved, mine = str(z["fingerprint"]), self._fingerprint()
+                if saved != mine:
+                    raise ValueError(
+                        f"checkpoint {path!r} was written by a different "
+                        f"scene/camera/config (fingerprint {saved[:12]}… != "
+                        f"{mine[:12]}…): resuming it here would blend two "
+                        "different renders")
+            self.accum = torch.from_numpy(accum.astype(np.float32)).to(
+                self.device)
+            self.samples_done = int(z["samples_done"])
+            self.key = torch.from_numpy(z["key"].astype(np.int64)).to(
+                self.device)
+
+    def _log_metrics(self, path: str, n: int, dt: float) -> None:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "a") as f:
+            f.write(json.dumps({
+                "ts": _time.time(), "samples_done": self.samples_done,
+                "batch": n, "batch_s": round(dt, 4),
+                "mpix_per_s": round(
+                    self.cfg.width * self.cfg.height * n / dt / 1e6, 3),
+            }) + "\n")
+
+
+def fingerprint(scene, cam, cfg, *extra) -> str:
+    """sha256 over the compiled scene's tensors and the camera arrays (each
+    field in declaration order: its name, shape and bytes, from a CPU copy),
+    ``repr(cfg)`` without its sample count and ``repr(extra)``: the same on
+    every rank of a job.  ``cfg.samples_per_pixel`` is left out because it
+    is only the target, so a checkpoint resumes to more samples."""
+    h = hashlib.sha256()
+    for obj in (scene, cam):
+        for f in dataclasses.fields(obj):
+            a = getattr(obj, f.name).detach().cpu().contiguous().numpy()
+            h.update(f.name.encode() + repr(a.shape).encode() + a.tobytes())
+    h.update(repr(dataclasses.replace(cfg, samples_per_pixel=0)).encode())
+    if extra:
+        h.update(repr(extra).encode())
+    return h.hexdigest()
+
+
+def save_npz(path: str, **fields) -> None:
+    """``np.savez`` to ``path + ".tmp.npz"``, then ``os.replace`` onto
+    ``path``: a reader never sees a partial file."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **fields)
+    os.replace(tmp, path)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# The probe's counters that predict_tuning reads (wavefront render_batch).
+PROBE_COUNTERS = ("waves", "ctrls", "rays", "slots", "occ_sum")
+
+
+def _pool_cap(cfg: RenderConfig) -> int:
+    """The largest pool worth tuning: one fill of the frame's pixels."""
+    return max(256, 1 << (cfg.width * cfg.height - 1).bit_length())
+
+
+def pin_tuning(cfg: RenderConfig, q, s, d, stride) -> tuple:
+    """``(queue, steps, ctrl_den, stride)`` with the values ``cfg`` pins in
+    place of these, the queue at most :func:`_pool_cap`."""
+    return (min(cfg.queue_size or q, _pool_cap(cfg)),
+            cfg.steps_per_wave or s, cfg.ctrl_den or d,
+            cfg.sample_stride or stride)
+
+
+def tuning_preset(cfg: RenderConfig, big: bool) -> tuple:
+    """Autotune's preset candidate (JAX ``renderer.py:169-170``): 32768
+    slots, 32 steps, ctrl_den 16 for a BVH of 256 rows or more, else 8192,
+    12, 8; the engine's default stride; pinned as :func:`pin_tuning`."""
+    return pin_tuning(cfg, *((32768, 32, 16, None) if big
+                             else (8192, 12, 8, None)))
+
+
+def predict_tuning(cfg: RenderConfig, big: bool, probe: dict):
+    """JAX's prediction (``renderer.py:178-206``) from the counters of one
+    sample rendered at :func:`tuning_preset` → ``(predicted, reading)``.
+
+    The pool halves where mean occupancy is under 0.75; the steps a wave
+    are 1.5x the steps a segment, rounded to 4 and clipped to [8, 32];
+    ctrl_den is 16 where control runs on 80% of the waves or more, else 8;
+    pools of 1/8 to 1/2 of the frame's pixels take stride 2 where control
+    runs on 40% of the waves or more, else 1, and other pools the engine's
+    default.  ``reading`` holds the occupancy, steps a segment, waves and
+    control waves it used."""
+    preset = tuning_preset(cfg, big)
+    total = cfg.width * cfg.height
+    waves = max(int(probe["waves"]), 1)
+    ctrls = max(int(probe["ctrls"]), 1)
+    segs = max(float(probe["rays"]), 1.0)
+    slots = int(probe["slots"])
+    occ = float(probe["occ_sum"]) / (waves * slots)
+    steps_seg = float(probe["occ_sum"]) * preset[1] / segs
+    q = preset[0] // 2 if occ < 0.75 else preset[0]
+    q = max(256, min(q, _pool_cap(cfg)))
+    s = int(min(32, max(8, round(1.5 * steps_seg / 4) * 4)))
+    d = 16 if ctrls >= waves * 0.8 else 8
+    if 2 * slots <= total < 8 * slots:
+        stride = 2 if ctrls >= waves * 0.4 else 1
+    else:
+        stride = None
+    return pin_tuning(cfg, q, s, d, stride), dict(
+        occ=occ, steps_seg=steps_seg, waves=waves, ctrls=ctrls)
+
 
 def _render_batch(scene, flags, bvh, cam, cfg, accum, start_sample,
-                  n_samples, key, engine):
-    """One batch through the engine → (accum, stats with the same keys)."""
+                  n_samples, key, engine, tuned=None):
+    """One batch through the engine → (accum, stats with the same keys);
+    ``tuned`` is autotune's ``(queue, steps, ctrl_den, stride)``, under
+    the values ``cfg`` pins."""
     if engine == "megakernel":
         accum, st = integrator.render_batch(scene, flags, bvh, cam, cfg,
                                             accum, start_sample, n_samples,
@@ -195,11 +436,13 @@ def _render_batch(scene, flags, bvh, cam, cfg, accum, start_sample,
         return accum, dict(st, waves=0, ctrls=0, occ_sum=0, slots=0,
                            host_reads=0, pixel_paths=None)
     big = bvh.nodes.shape[0] >= 256
-    queue = cfg.queue_size or (32768 if big else 8192)
-    steps = cfg.steps_per_wave or (32 if big else 12)
-    kw = {"ctrl_den": cfg.ctrl_den} if cfg.ctrl_den else {}
-    if cfg.sample_stride:
-        kw["sample_stride"] = cfg.sample_stride
+    t_q, t_s, t_d, t_st = tuned if tuned else (None,) * 4
+    queue = cfg.queue_size or t_q or (32768 if big else 8192)
+    steps = cfg.steps_per_wave or t_s or (32 if big else 12)
+    den, stride = cfg.ctrl_den or t_d, cfg.sample_stride or t_st
+    kw = {"ctrl_den": den} if den else {}
+    if stride:
+        kw["sample_stride"] = stride
     return wavefront.render_batch(scene, flags, bvh, cam, cfg, accum,
                                   start_sample, n_samples, key,
                                   queue_size=queue, steps_per_wave=steps,

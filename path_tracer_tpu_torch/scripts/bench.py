@@ -7,11 +7,17 @@ sphere_cluster=1000) at 800x450, 10 spp, depth 10, stack depth 32, through
 the wavefront (``wavefront.render_batch``: K1-K4 in the device wave loop,
 queue 32768, 32 steps per wave), with ``bench.py``'s schedule: one warm-up
 batch of 9 samples into a throwaway frame, then 9 timed samples in one batch,
-then one instrumented sample for the traced-segment count.  Prints
+then one instrumented sample for the traced-segment count.  The same
+schedule then runs the megakernel (``integrator.render_batch``, K5) and the
+tiled engine (``integrator_tiled.render_tiled``, K7 + K8 in its kept trip
+graph; it renders samples 0-8, so its warm-up renders them too).  Prints
 ``bench.py``'s one JSON line (``metric``, ``value`` in upper-bound Mrays/s =
-pixels x spp x depth / wall, ``unit``, ``vs_baseline``, ``mrays_measured``)
-with the card's ``nvidia-smi`` name and power limit.  It needs a CUDA card
-and has no other configuration: a failure raises.
+pixels x spp x depth / wall, ``unit``, ``vs_baseline``, ``mrays_measured``,
+for the wavefront) with a ``megakernel`` and a ``tiled`` entry of the same
+two rates (the tiled engine counts no segments: its measured rate takes the
+wavefront's count, the same sample set) and the card's ``nvidia-smi`` name
+and power limit.  It needs a CUDA card and has no other configuration: a
+failure raises.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ def main() -> int:
         print("bench: no CUDA device", file=sys.stderr)
         return 2
     import path_tracer_tpu_torch as ptt
-    from path_tracer_tpu_torch.ops import wavefront
+    from path_tracer_tpu_torch.ops import integrator, wavefront
     from path_tracer_tpu_torch.ops.shade import SceneFlags
     from path_tracer_tpu_torch.ops.types import RenderConfig
     from path_tracer_tpu_torch.utils import rng
@@ -60,32 +66,43 @@ def main() -> int:
     key = rng.key(0, device=dev)
     zero = torch.zeros((H, W, 3), device=dev)
 
-    def run(acc, s0, n, **kw):
-        return wavefront.render_batch(scene, flags, bvh, cam_a, cfg, acc, s0,
-                                      n, key, queue_size=QUEUE,
-                                      steps_per_wave=STEPS, **kw)
-
+    engines = {
+        "wavefront": lambda acc, s0, n: wavefront.render_batch(
+            scene, flags, bvh, cam_a, cfg, acc, s0, n, key, queue_size=QUEUE,
+            steps_per_wave=STEPS),
+        "megakernel": lambda acc, s0, n: integrator.render_batch(
+            scene, flags, bvh, cam_a, cfg, acc, s0, n, key),
+        "tiled": lambda acc, s0, n: acc + n * ptt.render_tiled(
+            scene, flags, bvh, cam_a, cfg, key, spp=n)}
     nb = min(BATCH, max(SPP - 1, 1))
-    run(zero, 0, nb)                                   # warm-up
-    torch.cuda.synchronize()
     n_timed = max((SPP // nb) * nb, nb)
-    out = zero
-    t0 = time.perf_counter()
-    for i in range(n_timed // nb):
-        out = run(out, i * nb, nb)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    img = out / n_timed
-    if not bool(torch.isfinite(img).all()):
-        raise RuntimeError("non-finite pixels in the bench render")
-    mrays = W * H * n_timed * DEPTH / dt / 1e6
-    _, stats = run(zero, 0, 1, with_stats=True)
-    mrays_meas = int(stats["rays"]) * n_timed / dt / 1e6
+    _, stats = wavefront.render_batch(scene, flags, bvh, cam_a, cfg, zero, 0,
+                                      1, key, queue_size=QUEUE,
+                                      steps_per_wave=STEPS, with_stats=True)
+    segments = int(stats["rays"])             # one sample's traced segments
+    rates = {}
+    for name, run in engines.items():
+        run(zero, 0, nb)                               # warm-up
+        torch.cuda.synchronize()
+        out = zero
+        t0 = time.perf_counter()
+        for i in range(n_timed // nb):
+            out = run(out, i * nb, nb)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"non-finite pixels in the {name} render")
+        rates[name] = (W * H * n_timed * DEPTH / dt / 1e6,
+                       segments * n_timed / dt / 1e6)
+    mrays, mrays_meas = rates["wavefront"]
     print(json.dumps({
         "metric": "mrays_per_s_chip_vol2_final", "value": round(mrays, 3),
         "unit": "Mrays/s", "vs_baseline": round(mrays / BASELINE_MRAYS, 3),
-        "mrays_measured": round(mrays_meas, 3), "card": card(),
-        "device": torch.cuda.get_device_name(0)}), flush=True)
+        "mrays_measured": round(mrays_meas, 3),
+        **{n: {"value": round(rates[n][0], 3),
+               "mrays_measured": round(rates[n][1], 3)}
+           for n in ("megakernel", "tiled")},
+        "card": card(), "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

@@ -77,10 +77,38 @@ class _Obj:
         self.__dict__.update(d)
 
 
+def _resume_job(job) -> dict:
+    """``render_distributed`` of a catalog scene three ways: to ``spp`` in
+    one go; to ``split`` samples with a checkpoint, then resumed from it to
+    ``spp`` (batches of one sample); then another seed on that checkpoint,
+    which must be refused."""
+    from path_tracer_tpu_torch import parallel as par
+    from path_tracer_tpu_torch import scenes
+
+    def run(spp, seed=job["seed"], ckpt=None):
+        world, cam = scenes.SCENES[job["scene"]]()
+        cam.img_width, cam.samples_per_pixel = job["width"], job["spp"]
+        return par.render_distributed(
+            world, cam, spp=spp, seed=seed, batch=1, checkpoint_path=ckpt,
+            checkpoint_every=1 if ckpt else 0, device="cpu")
+
+    ckpt = job["ckpt"]
+    out = {"whole": run(job["spp"]), "part": run(job["split"], ckpt=ckpt)}
+    out["resumed"] = run(job["spp"], ckpt=ckpt)
+    try:
+        run(job["spp"], seed=job["seed"] + 1, ckpt=ckpt)
+        out["refused"] = ""
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
+
+
 def _run_job(job, world: int) -> dict:
     import torch
     from path_tracer_tpu_torch import parallel as par
 
+    if job["name"] == "resume":
+        return _resume_job(job)
     scene, flags, bvh, cam, cfg, key = _inputs(job)
     name, spp = job["name"], job.get("spp", 1)
     if name in ("tp", "pp"):
