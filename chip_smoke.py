@@ -136,12 +136,31 @@ Phases (each prints its own line; any failure exits non-zero):
                 subprocess (800x800, 10 spp, batch 2, checkpoint, metrics,
                 autotune, torch.profiler trace holding the wave kernels);
                 (f) 2 gloo ranks through the CLI against the one-rank frame
-                (tests/test_multihost.py:81-82's rule), and a run to 4 spp
-                resumed to 10 bit-identical to the uninterrupted run.
+                (tests/test_multihost.py:81-82's rule), and 4 samples of
+                the 10-spp job (render_distributed(spp=4)) resumed by the
+                CLI to 10, bit-identical to the uninterrupted run.
 10c. ladder   — scripts/bench_ladder.py's five BASELINE.json configs at
                 their own sizes through the device loop: finite, paths =
                 pixels x spp, no stack overflow, the image against K5's
                 (graded), one JSON line each.
+10d. golden   — scripts/golden.py: the eight cases of tests/test_golden.py
+                through the wavefront (K1-K4, device loop) and the
+                megakernel (K5), each against the JAX package's stored
+                image (tests/golden/<name>.npz) under JAX's rule, and
+                vol2_final_mid under its own rule (golden.vol2_final_close);
+                each card wavefront image against the CPU twins' image of
+                the case (graded; vol2_final_mid's twin run is skipped,
+                minutes on the host).
+10e. ab       — scripts/bench_ab.py on wavefront_comparison and
+                vol2_final_scene at 400 wide, 8 spp, depth 10: both
+                engines' walls and the graded agreement of their images.
+10f. demo     — scripts/train_demo.py: run_demo at tests/test_train_demo.py's
+                configuration (both rows within 5%, the loss halved, every
+                path integrated at every step), run_texture_demo at its
+                defaults (texel mean |err| < 0.03, PSNR > 22 dB), and the
+                first 3 steps of a 24x24 run_demo on the card against the
+                CPU twins (losses and parameters within atol 2e-5 / rtol
+                1e-3); the demo's PNGs and JSONL in chiprun_out/.
 11. the JSON kernel table (every kernel, then every instantiation timed in
     phases 9b-9c: ``<kernel>_k8``, ``<kernel>_k4_global``, with its ptxas
     registers, stack frame and spills, and ``device_ms``, its device time
@@ -195,6 +214,8 @@ import time
 
 import numpy as np
 import torch
+
+from path_tracer_tpu_torch.utils.image import graded_agreement
 
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
@@ -376,15 +397,6 @@ def profile_run(prepare, names, kernels, tag, insts=(), seq=None):
         f"{tag}: the profiler's runs of the instantiations {i_counts} != the "
         f"wrappers' counts {i_launches}")
     return out, totals, launches, wall
-
-
-def graded_agreement(a, b):
-    """tools/bench_ab.py:74-89: outlier pixels (> 1e-3) ≤ 1%, clean mean < 1e-5."""
-    per_pix = np.abs(a - b).max(axis=-1)
-    outliers = float((per_pix > 1e-3).mean())
-    clean = per_pix[per_pix <= 1e-3]
-    clean_mean = float(clean.mean()) if clean.size else 0.0
-    return outliers <= 0.01 and clean_mean < 1e-5, outliers, clean_mean
 
 
 def cuda_ms(fn, reps=25, setup=None):
@@ -727,6 +739,22 @@ def vol2_renderer(engine="wavefront", w=800, h=450, spp=10, depth=10,
     return ptt.Renderer(world, cam, engine=engine)
 
 
+# One rank of a 2-rank job that renders the first 4 samples of
+# cli_command's 10-spp job (the CLI's scene, camera, seed and engine knobs)
+# into a checkpoint; argv: coordinator, rank, checkpoint path.
+PART_RUN = """
+import sys
+import path_tracer_tpu_torch as ptt
+from path_tracer_tpu_torch.parallel import render_dist
+render_dist.init_distributed(sys.argv[1], 2, int(sys.argv[2]), backend="gloo")
+world, cam = ptt.scenes.SCENES["vol2_final_scene"]()
+cam.img_width, cam.samples_per_pixel, cam.max_depth = 800, 10, 10
+render_dist.render_distributed(world, cam, spp=4, seed=0, batch=2,
+                               checkpoint_path=sys.argv[3],
+                               checkpoint_every=4)
+"""
+
+
 def cli_command(*args):
     return [sys.executable, "-m", "path_tracer_tpu_torch.render.cli",
             "--scene", "vol2_final_scene", "--width", "800", "--spp", "10",
@@ -1006,8 +1034,14 @@ def entry_phase(card):
 
     img_a, secs_a, log_a = dist_run("dist", SPP,
                                     os.path.join(ENTRY_DIR, "dist.ckpt.npz"))
+    # The partial run renders 4 samples of the CLI's 10-spp job through
+    # render_distributed(spp=4), which leaves the configuration (and so the
+    # fingerprint) the CLI's: the CLI's --spp sets the camera's sample
+    # count, and a checkpoint of another --spp is refused, as in JAX.
     ck_b = os.path.join(ENTRY_DIR, "resume.ckpt.npz")
-    _, secs_b1, _ = dist_run("part", 4, ck_b)
+    secs_b1 = launch(2, lambda r, port: [
+        sys.executable, "-c", PART_RUN, f"127.0.0.1:{port}", str(r), ck_b],
+        ENTRY_DIR, 300, env=env, cwd=repo)
     img_b, secs_b2, log_b = dist_run("resumed", SPP, ck_b)
     one = vol2_renderer(w=800, h=800)
     img_1 = one.render(spp=SPP, batch=2)
@@ -1022,8 +1056,8 @@ def entry_phase(card):
     phase("entry", f"(f) 2 gloo ranks on the card through the CLI (800x800, "
           f"{SPP} spp, batch 2, --checkpoint-every 4): vs the one-rank "
           f"Renderer frame mean |d| {mh_mean:.2e} (< 3e-5), pixels beyond "
-          f"1e-4 {mh_frac:.5f} (<= 0.01); a run to 4 spp then a resumed run "
-          f"to {SPP} bit-identical to the uninterrupted run {f_bit}; runs "
+          f"1e-4 {mh_frac:.5f} (<= 0.01); render_distributed(spp=4) of the "
+          f"{SPP}-spp job then the CLI resumed to {SPP} bit-identical to the uninterrupted run {f_bit}; runs "
           f"{secs_a:.1f}, {secs_b1:.1f}, {secs_b2:.1f} s -> "
           f"{'PASS' if oks['f'] else 'FAIL'}")
     del one
@@ -1073,6 +1107,181 @@ def ladder_phase(card):
     phase("ladder", f"{time.perf_counter() - t_phase:.1f} s ({card}) -> "
           f"{'PASS' if ok else 'FAIL'}")
     return ok, rows
+
+
+def golden_phase(card):
+    """Phase 10d: the JAX package's golden images through both engines on
+    the card, and each card wavefront image against the CPU twins' image.
+    Returns (ok, rows)."""
+    from path_tracer_tpu_torch.ops import kernels
+    from path_tracer_tpu_torch.scripts import golden
+    t_phase = time.perf_counter()
+    rows, ok = [], True
+    for name in golden.CASES:
+        imgs = {}
+        for engine, need in (("wavefront", WAVE_KERNELS),
+                             ("megakernel", ("megakernel",))):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            imgs[engine] = golden.render(name, engine)
+            torch.cuda.synchronize()
+            launched = {n: kernels.LAUNCHES[n] for n in need}
+            g_ok, reading = golden.check(name, imgs[engine])
+            g_ok = g_ok and all(v > 0 for v in launched.values())
+            reading.update(engine=engine, launches=launched, ok=g_ok)
+            rows.append(reading)
+            extra = ("" if reading["rule"] == "jax" else
+                     f", clean mean {reading['clean_mean']:.2e}, share over "
+                     f"1e-4 <= {reading['outlier_limit']:.4f}, signed from "
+                     f"the outliers {reading['signed_from_outliers']:.3e} "
+                     f"(se {reading['signed_se']:.1e})")
+            phase("golden", f"{name} {engine}: trimmed mean "
+                  f"{reading['trimmed_mean']:.3e} (< 3e-5 under JAX's rule), "
+                  f"pixels beyond 1e-4 {reading['outlier_frac']:.5f}, signed "
+                  f"mean {reading['signed_mean']:.3e}; rule "
+                  f"{reading['rule']}{extra}; launches {launched} -> "
+                  f"{'PASS' if g_ok else 'FAIL'}")
+            ok = ok and g_ok
+        if name == "vol2_final_mid":
+            phase("golden", f"{name}: the CPU twins' image skipped (its twin "
+                  "run takes minutes on the host)")
+            continue
+        twin = golden.render(name, "wavefront", device="cpu")
+        t_ok, outl, clean = graded_agreement(imgs["wavefront"], twin)
+        rows.append(dict(case=name, engine="wavefront vs twins", ok=t_ok,
+                         outliers=outl, clean_mean=clean))
+        phase("golden", f"{name}: card wavefront vs the CPU twins: outliers "
+              f"{outl:.5f}, clean mean {clean:.2e} -> "
+              f"{'PASS' if t_ok else 'FAIL'}")
+        ok = ok and t_ok
+    phase("golden", f"{time.perf_counter() - t_phase:.1f} s ({card}) -> "
+          f"{'PASS' if ok else 'FAIL'}")
+    return ok, rows
+
+
+def ab_phase(card):
+    """Phase 10e: scripts/bench_ab.py, JAX's CLI defaults, on two scenes.
+    Returns (ok, results)."""
+    from path_tracer_tpu_torch.ops import kernels
+    from path_tracer_tpu_torch.scripts import bench_ab
+    t_phase = time.perf_counter()
+    out, ok = {}, True
+    for scene in ("wavefront_comparison", "vol2_final_scene"):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = bench_ab.run(scene, 400, 8, 10)
+        launched = {n: kernels.LAUNCHES[n]
+                    for n in WAVE_KERNELS + ("megakernel",)}
+        a_ok = res["images_agree"] and all(v > 0 for v in launched.values())
+        out[scene] = dict(res, launches=launched)
+        print(json.dumps({"scene": scene, **res}), flush=True)
+        phase("ab", f"{scene} 400 wide, 8 spp, depth 10: megakernel "
+              f"{res['megakernel']['total_s']} s, wavefront "
+              f"{res['wavefront']['total_s']} s, speed-up "
+              f"{res['speedup_wavefront']}; outliers beyond 1e-3 "
+              f"{res['image_outlier_frac']} (<= 0.01), clean mean "
+              f"{res['image_clean_mean_diff']:.2e} (< 1e-5), beyond 1e-2 "
+              f"{res['image_outlier_frac_1e2']}, beyond 1e-1 "
+              f"{res['image_outlier_frac_1e1']}; launches {launched} -> "
+              f"{'PASS' if a_ok else 'FAIL'}")
+        ok = ok and a_ok
+    phase("ab", f"{time.perf_counter() - t_phase:.1f} s ({card}) -> "
+          f"{'PASS' if ok else 'FAIL'}")
+    return ok, out
+
+
+# tests/test_train_demo.py:34-37; JAX's recorded finals (docs/assets/
+# train_demo.jsonl step 349, train_texture.jsonl step 259).
+DEMO = dict(steps=350, width=48, height=48, spp=6, target_spp=384,
+            max_depth=6, lr=0.1, seed=0, queue_size=2048, steps_per_wave=8,
+            log_every=50, decay_alpha=0.02, polish_steps=60, polish_spp=18)
+JAX_DEMO = {"err_albedo": 0.0099, "err_emission": 0.0014, "psnr": 30.1}
+
+
+def demo_phase(card):
+    """Phase 10f: the inverse-rendering demos on the card.  Returns (ok,
+    record)."""
+    from path_tracer_tpu_torch.ops import kernels
+    from path_tracer_tpu_torch.scripts import train_demo
+    t_phase = time.perf_counter()
+    rec, oks = {}, {}
+
+    # Every step's paths_done == paths_total is asserted inside the demo.
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        d = train_demo.run_demo(verbose=False, **DEMO)
+    except AssertionError as e:
+        phase("demo", f"run_demo: {e} -> FAIL")
+        return False, {"run_demo": str(e)}
+    launched = {n: kernels.LAUNCHES[n] for n in WAVE_KERNELS + ("adjoint",)}
+    loss0 = d["history"][0]["loss"]
+    loss10 = sum(h["loss"] for h in d["history"][-10:]) / 10
+    ms_step = 1e3 * d["wall_s"] / DEMO["steps"]
+    oks["demo"] = (bool((d["rel_err"] < 0.05).all()) and loss10 < 0.5 * loss0
+                   and all(v > 0 for v in launched.values()))
+    with open(os.path.join(RUN_DIR, "train_demo.jsonl"), "w") as f:
+        for h in d["history"]:
+            f.write(json.dumps(h) + "\n")
+    train_demo.write_curve_png(d["history"],
+                               os.path.join(RUN_DIR, "train_demo.png"))
+    rec["demo"] = dict(rel_err=d["rel_err"].tolist(), wall_s=d["wall_s"],
+                       ms_step=ms_step, loss_first=loss0, loss_last10=loss10,
+                       recovered=d["recovered"].tolist(), launches=launched,
+                       adjoint_per_step=launched["adjoint"] / DEMO["steps"])
+    phase("demo", f"run_demo {DEMO['steps']} steps 48x48 spp 6 (+60 at 18): "
+          f"albedo err {100 * d['rel_err'][0]:.2f}%, emission err "
+          f"{100 * d['rel_err'][1]:.2f}% (< 5%; JAX's recorded "
+          f"{100 * JAX_DEMO['err_albedo']:.2f}% / "
+          f"{100 * JAX_DEMO['err_emission']:.2f}%), loss {loss0:.3e} -> "
+          f"{loss10:.3e} (last 10, < half), wall {d['wall_s']:.2f} s, "
+          f"{ms_step:.2f} ms a step, launches {launched} ({card}) -> "
+          f"{'PASS' if oks['demo'] else 'FAIL'}")
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = train_demo.run_texture_demo(verbose=False)
+    launched_t = {n: kernels.LAUNCHES[n] for n in WAVE_KERNELS + ("adjoint",)}
+    err = t["err"]
+    oks["texture"] = (err["mean_abs"] < 0.03 and err["psnr"] > 22.0
+                      and all(v > 0 for v in launched_t.values()))
+    with open(os.path.join(RUN_DIR, "train_texture.jsonl"), "w") as f:
+        for h in t["history"]:
+            f.write(json.dumps(h) + "\n")
+    train_demo.write_texture_pair_png(
+        t["true"], t["recovered"], os.path.join(RUN_DIR, "train_texture.png"))
+    rec["texture"] = dict(err=err, wall_s=t["wall_s"],
+                          ms_step=1e3 * t["wall_s"] / 260,
+                          launches=launched_t)
+    phase("demo", f"run_texture_demo 260 steps 48x48 spp 8: texel mean "
+          f"|err| {err['mean_abs']:.4f} (< 0.03), max {err['max_abs']:.4f}, "
+          f"PSNR {err['psnr']:.2f} dB (> 22; JAX's recorded "
+          f"{JAX_DEMO['psnr']} dB), wall {t['wall_s']:.2f} s, "
+          f"{rec['texture']['ms_step']:.2f} ms a step, launches {launched_t} "
+          f"({card}) -> {'PASS' if oks['texture'] else 'FAIL'}")
+
+    # The first 3 steps on the card and on the CPU twins.
+    small = dict(steps=3, width=24, height=24, spp=2, target_spp=8,
+                 max_depth=6, verbose=False)
+    card_run = train_demo.run_demo(**small)
+    cpu_run = train_demo.run_demo(device="cpu", **small)
+    lc = np.array([h["loss"] for h in card_run["history"]])
+    lp = np.array([h["loss"] for h in cpu_run["history"]])
+    loss_ok = bool(np.allclose(lc, lp, rtol=1e-3, atol=2e-5))
+    par_ok = bool(np.allclose(card_run["recovered"], cpu_run["recovered"],
+                              rtol=1e-3, atol=2e-5))
+    oks["steps"] = loss_ok and par_ok
+    rec["steps"] = dict(card_loss=lc.tolist(), cpu_loss=lp.tolist(),
+                        param_max_diff=float(np.abs(
+                            card_run["recovered"] - cpu_run["recovered"]).max()))
+    phase("demo", f"run_demo 3 steps 24x24 spp 2, card vs CPU twins: losses "
+          f"{lc.tolist()} vs {lp.tolist()}, parameters max |d| "
+          f"{rec['steps']['param_max_diff']:.2e} (atol 2e-5, rtol 1e-3) -> "
+          f"{'PASS' if oks['steps'] else 'FAIL'}")
+    ok = all(oks.values())
+    phase("demo", f"{time.perf_counter() - t_phase:.1f} s ({card}); parts "
+          f"{oks} -> {'PASS' if ok else 'FAIL'}")
+    return ok, rec
 
 
 def main() -> int:
@@ -3608,6 +3817,10 @@ def main() -> int:
           f"before the entry and ladder phases")
     entry_ok, entry_rec = entry_phase(card)
     ladder_ok, ladder_rows = ladder_phase(card)
+    # --- 10d. the golden images; 10e. the engine A/B; 10f. the demos ---
+    golden_ok, golden_rows = golden_phase(card)
+    ab_ok, ab_rec = ab_phase(card)
+    demo_ok, demo_rec = demo_phase(card)
 
     # --- 11. the kernel table ---
     launches = dict(rec["main"]["launches"])
@@ -3694,6 +3907,7 @@ def main() -> int:
                    "train": train_rec, "parallel": par_summary,
                    "bvh8": rec8, "stack": rec_stack, "ptxas": ptxas,
                    "entry": entry_rec, "ladder": ladder_rows,
+                   "golden": golden_rows, "ab": ab_rec, "demo": demo_rec,
                    "kernels": table},
                   f, indent=1, default=str)
     failed = [t["name"] for t in table if not t["pass"]]
@@ -3702,11 +3916,13 @@ def main() -> int:
     tiled_ok = rec["tiled"]["ok"]
     loop_ok = rec["loop"]["ok"]
     if failed or not (agree and train_ok and tiled_ok and par_ok and loop_ok
-                      and bvh8_ok and stack_ok and entry_ok and ladder_ok):
+                      and bvh8_ok and stack_ok and entry_ok and ladder_ok
+                      and golden_ok and ab_ok and demo_ok):
         print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok} "
               f"tiled={tiled_ok} parallel={par_ok} loop={loop_ok} "
               f"bvh8={bvh8_ok} stack={stack_ok} entry={entry_ok} "
-              f"ladder={ladder_ok}", file=sys.stderr)
+              f"ladder={ladder_ok} golden={golden_ok} ab={ab_ok} "
+              f"demo={demo_ok}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

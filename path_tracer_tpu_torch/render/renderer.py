@@ -337,15 +337,16 @@ class Renderer:
 def fingerprint(scene, cam, cfg, *extra) -> str:
     """sha256 over the compiled scene's tensors and the camera arrays (each
     field in declaration order: its name, shape and bytes, from a CPU copy),
-    ``repr(cfg)`` without its sample count and ``repr(extra)``: the same on
-    every rank of a job.  ``cfg.samples_per_pixel`` is left out because it
-    is only the target, so a checkpoint resumes to more samples."""
+    ``repr(cfg)`` and ``repr(extra)``: the same on every rank of a job.
+    ``cfg`` includes the camera's sample count, as in JAX, so a checkpoint
+    of a 4-spp camera is refused by an 8-spp one; ``Renderer.render(spp=)``
+    does not change ``cfg`` and resumes to more samples."""
     h = hashlib.sha256()
     for obj in (scene, cam):
         for f in dataclasses.fields(obj):
             a = getattr(obj, f.name).detach().cpu().contiguous().numpy()
             h.update(f.name.encode() + repr(a.shape).encode() + a.tobytes())
-    h.update(repr(dataclasses.replace(cfg, samples_per_pixel=0)).encode())
+    h.update(repr(cfg).encode())
     if extra:
         h.update(repr(extra).encode())
     return h.hexdigest()

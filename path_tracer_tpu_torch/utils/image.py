@@ -49,6 +49,22 @@ def write_ppm(path: str, accum: np.ndarray, samples: int) -> None:
             f.write("\n")
 
 
+def graded_agreement(a, b, outlier_bound: float = 0.01):
+    """The engines' graded agreement rule (``tools/bench_ab.py:74-89``) →
+    ``(agree, outlier_frac, clean_mean)``.
+
+    Two images of one sample set agree when at most ``outlier_bound`` of
+    the pixels differ by more than 1e-3 (a path that went another way moves
+    its pixel by a whole path's radiance) and the other pixels' mean
+    per-pixel max |diff| is below 1e-5 (float accumulation order)."""
+    per_pix = np.abs(np.asarray(a) - np.asarray(b)).max(axis=-1)
+    outliers = float((per_pix > 1e-3).mean())
+    clean = per_pix[per_pix <= 1e-3]
+    clean_mean = float(clean.mean()) if clean.size else 0.0
+    return (outliers <= outlier_bound and clean_mean < 1e-5, outliers,
+            clean_mean)
+
+
 _SEARCH_DEPTH = 6
 
 

@@ -112,6 +112,57 @@ def test_checkpoint_refuses_another_render(tmp_path):
         _port(w=16).load_checkpoint(ckpt)
 
 
+
+def test_checkpoint_refuses_another_spp_as_jax(tmp_path):
+    """The fingerprint holds the camera's sample count, as JAX's does: a
+    checkpoint of a 4-spp camera is refused by an 8-spp camera in both
+    packages, and render(spp=8) of the 4-spp renderer resumes it."""
+    for pkg, kw in ((ptt, {"device": "cpu"}), (pt, {})):
+        ckpt = str(tmp_path / f"{pkg.__name__}.npz")
+        pkg.Renderer(_world(pkg), _tiny_cam(pkg, w=16, spp=4), seed=2,
+                     **kw).render(spp=2, batch=2, checkpoint_path=ckpt)
+        with pytest.raises(ValueError, match="fingerprint"):
+            pkg.Renderer(_world(pkg), _tiny_cam(pkg, w=16, spp=8), seed=2,
+                         **kw).load_checkpoint(ckpt)
+        r = pkg.Renderer(_world(pkg), _tiny_cam(pkg, w=16, spp=4), seed=2,
+                         **kw)
+        r.render(spp=8, batch=2, checkpoint_path=ckpt)
+        assert r.samples_done == 8, pkg.__name__
+        with np.load(ckpt) as z:
+            assert int(z["samples_done"]) == 8
+
+
+def test_render_distributed_refuses_another_spp_as_jax(tmp_path):
+    """The same for render_distributed: one gloo rank of the port, JAX's
+    function in this process."""
+    from torch_ranks import run_ranks
+    from path_tracer_tpu.parallel.render_dist import (
+        render_distributed as jax_render_distributed)
+
+    job = {"name": "spp", "scene": "wavefront_comparison", "width": 16,
+           "spp": 2, "split": 1, "seed": 3, "ckpt": str(tmp_path / "t.npz")}
+    out = run_ranks(1, [job])[0][0]
+    assert "fingerprint" in out["refused"]
+    assert np.isfinite(out["resumed"]).all()
+    with np.load(job["ckpt"]) as z:
+        assert int(z["samples_done"]) == 4
+
+    ckpt = str(tmp_path / "j.npz")
+
+    def run(cam_spp, spp):
+        world, cam = pt.scenes.SCENES[job["scene"]]()
+        cam.img_width, cam.samples_per_pixel = job["width"], cam_spp
+        return jax_render_distributed(world, cam, spp=spp, seed=3, batch=1,
+                                      checkpoint_path=ckpt,
+                                      checkpoint_every=1)
+
+    run(2, 1)
+    with pytest.raises(ValueError, match="fingerprint"):
+        run(4, 4)
+    assert np.isfinite(run(2, 4)).all()
+    with np.load(ckpt) as z:
+        assert int(z["samples_done"]) == 4
+
 def test_metrics_jsonl(tmp_path):
     path = str(tmp_path / "metrics.jsonl")
     _port(w=16).render(spp=2, batch=1, metrics_path=path)

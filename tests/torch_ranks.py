@@ -103,12 +103,38 @@ def _resume_job(job) -> dict:
     return out
 
 
+def _spp_job(job) -> dict:
+    """``render_distributed`` of a catalog scene: ``split`` samples of a
+    camera of ``spp`` samples into a checkpoint; a camera of twice ``spp``
+    on that checkpoint, which must be refused; then the first camera
+    resumed to twice ``spp`` through the ``spp`` argument."""
+    from path_tracer_tpu_torch import parallel as par
+    from path_tracer_tpu_torch import scenes
+
+    def run(cam_spp, spp):
+        world, cam = scenes.SCENES[job["scene"]]()
+        cam.img_width, cam.samples_per_pixel = job["width"], cam_spp
+        return par.render_distributed(
+            world, cam, spp=spp, seed=job["seed"], batch=1,
+            checkpoint_path=job["ckpt"], checkpoint_every=1, device="cpu")
+
+    run(job["spp"], job["split"])
+    try:
+        run(2 * job["spp"], 2 * job["spp"])
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    return {"refused": refused, "resumed": run(job["spp"], 2 * job["spp"])}
+
+
 def _run_job(job, world: int) -> dict:
     import torch
     from path_tracer_tpu_torch import parallel as par
 
     if job["name"] == "resume":
         return _resume_job(job)
+    if job["name"] == "spp":
+        return _spp_job(job)
     scene, flags, bvh, cam, cfg, key = _inputs(job)
     name, spp = job["name"], job.get("spp", 1)
     if name in ("tp", "pp"):
