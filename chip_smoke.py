@@ -161,6 +161,13 @@ Phases (each prints its own line; any failure exits non-zero):
                 first 3 steps of a 24x24 run_demo on the card against the
                 CPU twins (losses and parameters within atol 2e-5 / rtol
                 1e-3); the demo's PNGs and JSONL in chiprun_out/.
+10g. scaling  — scripts/bench_scaling.py at tools/bench_scaling.py's
+                defaults (wavefront_comparison 256x144, 2 spp, depth 8,
+                the wavefront engine) over 1, 2 and 4 gloo ranks sharing
+                the card, each size a job of its own: JAX's line per size,
+                each frame within 1e-5 of the one-rank frame and finite,
+                paths = 256 x 144 x 2 at every size, K1-K4 launched on
+                every rank, the phase's seconds.
 11. the JSON kernel table (every kernel, then every instantiation timed in
     phases 9b-9c: ``<kernel>_k8``, ``<kernel>_k4_global``, with its ptxas
     registers, stack frame and spills, and ``device_ms``, its device time
@@ -1282,6 +1289,52 @@ def demo_phase(card):
     phase("demo", f"{time.perf_counter() - t_phase:.1f} s ({card}); parts "
           f"{oks} -> {'PASS' if ok else 'FAIL'}")
     return ok, rec
+
+
+# scripts/bench_scaling.py at tools/bench_scaling.py's defaults (width 256,
+# 2 spp, depth 8, the wavefront engine) over 1, 2 and 4 ranks.
+SCALING = dict(max_devices=4, width=256, engine="wavefront")
+
+
+def scaling_phase(card):
+    """Phase 10g: scripts/bench_scaling.py on the card, its sizes' ranks
+    gloo ranks sharing it.  Gates every size's frame against the one-rank
+    frame (1e-5), finite, every pixel's paths once, K1-K4 on every rank.
+    Returns (ok, record); a rank that fails raises."""
+    from path_tracer_tpu_torch.scripts import bench_scaling
+    t_phase = time.perf_counter()
+    log_dir = os.path.join(RUN_DIR, "ranks", "scaling")
+    os.makedirs(log_dir, exist_ok=True)
+    lines = []
+
+    def out(text):
+        lines.append(text)
+        phase("scaling", text)
+
+    rows = bench_scaling.run(**SCALING, device="cuda", log_dir=log_dir,
+                             out=out)
+    w, h = bench_scaling.config(SCALING["width"])
+    ref = rows[0]["image"]
+    ok = [r["n"] for r in rows] == [1, 2, 4]
+    rec = []
+    for r in rows:
+        err = float(np.abs(r["image"] - ref).max())
+        launched = all(o[n] > 0 for o in r["launches"] for n in WAVE_KERNELS)
+        r_ok = (err <= 1e-5 and bool(np.isfinite(r["image"]).all())
+                and r["paths"] == w * h * bench_scaling.SPP and launched)
+        ok = ok and r_ok
+        rec.append({k: v for k, v in r.items() if k != "image"}
+                   | {"max_abs_err": err, "ok": r_ok})
+        phase("scaling", f"{r['n']} ranks: rank walls "
+              + ", ".join(f"{x:.4f}" for x in r["rank_walls"])
+              + f" s, waves {r['waves']}, paths {r['paths']} "
+              f"({w}x{h}x{bench_scaling.SPP}), frame max abs diff vs one "
+              f"rank {err:.2e} (<= 1e-5), K1-K4 on every rank {launched} -> "
+              f"{'PASS' if r_ok else 'FAIL'}")
+    secs = time.perf_counter() - t_phase
+    phase("scaling", f"{secs:.1f} s (7 rank processes, gloo ranks sharing "
+          f"one card: {card}) -> {'PASS' if ok else 'FAIL'}")
+    return ok, {"rows": rec, "lines": lines, "seconds": secs}
 
 
 def main() -> int:
@@ -3821,6 +3874,8 @@ def main() -> int:
     golden_ok, golden_rows = golden_phase(card)
     ab_ok, ab_rec = ab_phase(card)
     demo_ok, demo_rec = demo_phase(card)
+    # --- 10g. the scaling harness ---
+    scaling_ok, scaling_rec = scaling_phase(card)
 
     # --- 11. the kernel table ---
     launches = dict(rec["main"]["launches"])
@@ -3908,7 +3963,7 @@ def main() -> int:
                    "bvh8": rec8, "stack": rec_stack, "ptxas": ptxas,
                    "entry": entry_rec, "ladder": ladder_rows,
                    "golden": golden_rows, "ab": ab_rec, "demo": demo_rec,
-                   "kernels": table},
+                   "scaling": scaling_rec, "kernels": table},
                   f, indent=1, default=str)
     failed = [t["name"] for t in table if not t["pass"]]
     phase("total", f"chip_smoke {time.perf_counter() - t_main:.1f} s")
@@ -3917,12 +3972,12 @@ def main() -> int:
     loop_ok = rec["loop"]["ok"]
     if failed or not (agree and train_ok and tiled_ok and par_ok and loop_ok
                       and bvh8_ok and stack_ok and entry_ok and ladder_ok
-                      and golden_ok and ab_ok and demo_ok):
+                      and golden_ok and ab_ok and demo_ok and scaling_ok):
         print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok} "
               f"tiled={tiled_ok} parallel={par_ok} loop={loop_ok} "
               f"bvh8={bvh8_ok} stack={stack_ok} entry={entry_ok} "
               f"ladder={ladder_ok} golden={golden_ok} ab={ab_ok} "
-              f"demo={demo_ok}", file=sys.stderr)
+              f"demo={demo_ok} scaling={scaling_ok}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,7 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     ``[0, B)`` is clamped into it, as ``jax.lax.gather``'s clip mode (and
     ``jnp.take(..., mode="clip")``) does; ``table[idx, :]`` in JAX clamps
     too, after wrapping an index in ``[-B, 0)`` as Python does."""
-    return table[idx.long().clamp(0, table.shape[0] - 1)]
+    return table.index_select(0, idx.clamp(0, table.shape[0] - 1))
 
 
 def _lib():

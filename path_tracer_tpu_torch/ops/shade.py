@@ -71,13 +71,13 @@ def _atlas_rows(scene: SceneArrays, ii, y, x):
     """Texel fetch as a row gather from the flat (N*H*W, 3) atlas view."""
     H, W = scene.img_data.shape[1], scene.img_data.shape[2]
     flat = scene.img_data.reshape(-1, 3)
-    return flat[((ii * H + y) * W + x).long()]
+    return flat.index_select(0, (ii * H + y) * W + x)
 
 
 def sample_image(scene: SceneArrays, img_idx, u, v):
     """Nearest-texel image lookup: clamp UV, flip V → (N, 3)."""
     ii = torch.clamp(img_idx, 0, scene.img_data.shape[0] - 1)
-    hw = scene.img_hw[ii.long()]
+    hw = scene.img_hw.index_select(0, ii)
     h, w = hw[:, 0], hw[:, 1]
     x = torch.minimum(torch.clamp(
         (torch.clamp(u, 0.0, 1.0) * w).to(torch.int32), min=0), w - 1)

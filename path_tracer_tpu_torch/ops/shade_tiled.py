@@ -85,11 +85,11 @@ def _prim_rows(tabs: ShadeTables, ptype, pidx):
                       torch.where(ptype == 1, tabs.n_sph, tabs.n_sph + tabs.n_qd))
     uid = torch.clamp(pidx + off, 0, tabs.prim.shape[0] - 1)
     uid = torch.where(ptype >= 0, uid, 0)
-    return tabs.prim[uid.long()].unbind(-1)
+    return tabs.prim.index_select(0, uid).unbind(-1)
 
 
 def _rows(table, idx):
-    return table[idx.long()].unbind(-1)
+    return table.index_select(0, idx).unbind(-1)
 
 
 class HitT(NamedTuple):
@@ -468,6 +468,12 @@ def emitted_t(scene, flags, mrow, u, v, px, py, pz):
             torch.where(is_em, eb, zero))
 
 
+# The second level of :func:`bounce_rng`: which of (ks, km, kr) each of its
+# eleven blocks hashes, and the block's counter.
+_BOUNCE_KEY = (0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 2)
+_BOUNCE_CTR = (0, 1, 2, 3, 4, 5, 6, 7, 0, 1, 0)
+
+
 def wave_rng(base_key, smp, pix, iters, has_sss: bool = False):
     """Per-lane bounce uniforms: fold base → sample → pixel → iters → stream."""
     key_it = rng.fold_in(rng.fold_in(rng.fold_in(base_key, smp), pix), iters)
@@ -477,15 +483,27 @@ def wave_rng(base_key, smp, pix, iters, has_sss: bool = False):
 def bounce_rng(key_it, has_sss: bool = False):
     """The draws of one bounce from its key ``fold_in(key_p, iters)``:
     ``u8`` (scatter), ``umed``, ``uiso`` (medium), ``urr`` (roulette) and,
-    for SSS scenes, the walk key ``fold_in(k_scatter, 1)``."""
-    ks = rng.fold_in(key_it, 0)
-    km = rng.fold_in(key_it, 1)
-    kr = rng.fold_in(key_it, 2)
-    out = {"u8": rng.uniform(ks, (8,)), "umed": rng.uniform(km),
-           "uiso": rng.uniform(rng.fold_in(km, 1), (2,)),
-           "urr": rng.uniform(kr)}
+    for SSS scenes, the walk key ``fold_in(k_scatter, 1)``.
+
+    The eleven draws of the second level run as one threefry pass: ``ks``
+    on counters 0-7 (``u8``; counter 1's two words are ``fold_in(ks, 1)``),
+    ``km`` on 0 (``umed``) and 1 (``fold_in(km, 1)``), ``kr`` on 0
+    (``urr``).  ``uniform(k)`` and ``fold_in(k, d)`` hash the same block
+    ``(0, counter)``, so the bits are those of the separate calls."""
+    dev = key_it.device
+    # ks, km, kr = fold_in(key_it, 0 / 1 / 2), as (…, 3) words.
+    y0, y1 = rng.threefry2x32(key_it[..., :1], key_it[..., 1:], 0,
+                              torch.arange(3, device=dev))
+    col = torch.tensor(_BOUNCE_KEY, device=dev)
+    z0, z1 = rng.threefry2x32(y0.index_select(-1, col),
+                              y1.index_select(-1, col), 0,
+                              torch.tensor(_BOUNCE_CTR, device=dev))
+    u = rng.bits_to_unit_float(z0 ^ z1)
+    kiso = torch.stack([z0[..., 9], z1[..., 9]], -1)
+    out = {"u8": u[..., :8], "umed": u[..., 8],
+           "uiso": rng.uniform(kiso, (2,)), "urr": u[..., 10]}
     if has_sss:
-        out["sss_key"] = rng.fold_in(ks, 1)
+        out["sss_key"] = torch.stack([z0[..., 1], z1[..., 1]], -1)
     return out
 
 

@@ -117,7 +117,7 @@ def _step(bvh: PackedBVH, s: TravState, rox, roy, roz, ivx, ivy, ivz,
     cur, stack, sp = s.cur, s.stack, s.sp
     best_t, best_pt, best_pi = s.best_t, s.best_pt, s.best_pi
     active = cur != _DONE
-    rows = bvh.nodes[torch.where(active, cur, 0).long()]
+    rows = bvh.nodes.index_select(0, torch.where(active, cur, 0))
     cand_t, cand_p = [], []
     for i in range(K):
         ptr = rows[:, ptr_off + i].to(torch.int32)
@@ -127,14 +127,18 @@ def _step(bvh: PackedBVH, s: TravState, rox, roy, roz, ivx, ivy, ivz,
                                   rox, roy, roz, ivx, ivy, ivz, t_min, best_t)
         hi = hi & active & (ptr < BVH_EMPTY_SLOT)
         is_leaf = ptr < 0
-        pr = [rows[:, payload + PRIM_ROW * i + j] for j in range(14)]
-        lhit, lt = isect.hit_prim_row_s(pr, rox, roy, roz, rdx, rdy, rdz, rr,
-                                        time, t_min, best_t,
-                                        mask=bvh.prim_mask)
-        closer = (hi & is_leaf) & lhit & (lt < best_t)
-        best_t = torch.where(closer, lt, best_t)
-        best_pt = torch.where(closer, pr[0].to(torch.int32), best_pt)
-        best_pi = torch.where(closer, pr[1].to(torch.int32), best_pi)
+        leaf = hi & is_leaf
+        # A slot that is a hit leaf in no lane changes no best hit: skip its
+        # primitive test (exact; the slots after it see the same best_t).
+        if bool(leaf.any()):
+            pr = [rows[:, payload + PRIM_ROW * i + j] for j in range(14)]
+            lhit, lt = isect.hit_prim_row_s(pr, rox, roy, roz, rdx, rdy, rdz,
+                                            rr, time, t_min, best_t,
+                                            mask=bvh.prim_mask)
+            closer = leaf & lhit & (lt < best_t)
+            best_t = torch.where(closer, lt, best_t)
+            best_pt = torch.where(closer, pr[0].to(torch.int32), best_pt)
+            best_pi = torch.where(closer, pr[1].to(torch.int32), best_pi)
         cand_t.append(torch.where(hi & ~is_leaf, ti, INF))
         cand_p.append(ptr)
 

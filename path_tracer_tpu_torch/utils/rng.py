@@ -30,21 +30,25 @@ M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x, d: int):
-    return ((x << d) | (x >> (32 - d))) & M32
-
-
 def threefry2x32(k0, k1, x0, x1):
-    """Threefry-2x32 (20 rounds) on broadcastable int64 uint32-valued tensors."""
+    """Threefry-2x32 (20 rounds) on broadcastable int64 uint32-valued tensors.
+
+    Six tensor ops a round, in place on the two words after they are
+    broadcast to one shape: between key injections ``x0`` keeps the carries
+    of its sums above bit 31 (below 2**35 after four rounds), and the one
+    mask of ``x1 = (rotl(x1) ^ x0) & M32`` drops them together with the
+    rotation's high bits, so every value read is the uint32 one."""
     ks = (k0, k1, (k0 ^ k1 ^ 0x1BD11BDA) & M32)
     x0 = (x0 + ks[0]) & M32
     x1 = (x1 + ks[1]) & M32
+    x0, x1 = (x.contiguous() for x in torch.broadcast_tensors(x0, x1))
     for i in range(5):
         for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+            x0.add_(x1)
+            t = x1 << r
+            x1 = t.bitwise_or_(t >> 32).bitwise_xor_(x0).bitwise_and_(M32)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(M32)
+        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(M32)
     return x0, x1
 
 

@@ -99,6 +99,33 @@ def test_sss_walk_key_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_bounce_rng_matches_jax_on_a_key_batch():
+    """``bounce_rng`` draws its bounce in three threefry passes; every draw
+    and the SSS walk key equal JAX's separate fold_in and uniform calls
+    bit for bit on a (3, 5) batch of keys."""
+    jk = jax.vmap(jax.vmap(lambda a, b: jax.random.fold_in(
+        jax.random.fold_in(jax.random.key(9), a), b)))(
+        jnp.arange(15).reshape(3, 5), jnp.arange(15).reshape(3, 5) * 7919)
+
+    def one(key_it):
+        ks = jax.random.fold_in(key_it, 0)
+        km = jax.random.fold_in(key_it, 1)
+        kr = jax.random.fold_in(key_it, 2)
+        return {"u8": jax.random.uniform(ks, (8,)),
+                "umed": jax.random.uniform(km),
+                "uiso": jax.random.uniform(jax.random.fold_in(km, 1), (2,)),
+                "urr": jax.random.uniform(kr),
+                "sss_key": jax.random.key_data(jax.random.fold_in(ks, 1))}
+
+    want = jax.vmap(jax.vmap(one))(jk)
+    tk = torch.from_numpy(np.asarray(jax.random.key_data(jk)).astype(np.int64))
+    got = tst.bounce_rng(tk, has_sss=True)
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(want[name]), err_msg=name)
+
+
 def test_analytic_samplers_match_jax():
     from path_tracer_tpu.utils import rng as jrng
     u = np.random.default_rng(2).random((256, 2)).astype(np.float32)

@@ -164,3 +164,130 @@ def test_bvh8_closest_hits_match_jax():
     np.testing.assert_array_equal(bpi.numpy(), np.asarray(jpi))
     np.testing.assert_allclose(bt.numpy(), np.asarray(jt), rtol=1e-5,
                                atol=1e-5)
+
+
+def _step_every_slot(bvh, s, ro, rd, time, t_min, iota):
+    """One walk step in the formulation without shortcuts: the node rows
+    gathered by advanced indexing and every slot's primitive test run on
+    every lane, hit leaf or not (``closer`` keeps only hit leaves)."""
+    from path_tracer_tpu_torch.ops import intersect as isect
+    from path_tracer_tpu_torch.ops.types import BVH_EMPTY_SLOT, PRIM_ROW
+
+    K = bvh.branching
+    ptr_off, payload, _ = bvh_layout(K)
+    rox, roy, roz = ro.unbind(-1)
+    rdx, rdy, rdz = rd.unbind(-1)
+    ivx, ivy, ivz = 1.0 / rdx, 1.0 / rdy, 1.0 / rdz
+    rr = rdx * rdx + rdy * rdy + rdz * rdz
+    cur, stack, sp = s.cur, s.stack, s.sp
+    best_t, best_pt, best_pi = s.best_t, s.best_pt, s.best_pi
+    active = cur != ttr._DONE
+    rows = bvh.nodes[torch.where(active, cur, 0).long()]
+    cand_t, cand_p = [], []
+    for i in range(K):
+        ptr = rows[:, ptr_off + i].to(torch.int32)
+        hi, ti = isect.hit_aabb_s(*(rows[:, 6 * i + j] for j in range(6)),
+                                  rox, roy, roz, ivx, ivy, ivz, t_min, best_t)
+        hi = hi & active & (ptr < BVH_EMPTY_SLOT)
+        is_leaf = ptr < 0
+        pr = [rows[:, payload + PRIM_ROW * i + j] for j in range(14)]
+        lhit, lt = isect.hit_prim_row_s(pr, rox, roy, roz, rdx, rdy, rdz, rr,
+                                        time, t_min, best_t,
+                                        mask=bvh.prim_mask)
+        closer = (hi & is_leaf) & lhit & (lt < best_t)
+        best_t = torch.where(closer, lt, best_t)
+        best_pt = torch.where(closer, pr[0].to(torch.int32), best_pt)
+        best_pi = torch.where(closer, pr[1].to(torch.int32), best_pi)
+        cand_t.append(torch.where(hi & ~is_leaf, ti, ttr.INF))
+        cand_p.append(ptr)
+    for a, b in ttr._SORT_NET[K]:
+        swap = cand_t[a] > cand_t[b]
+        cand_t[a], cand_t[b] = (torch.where(swap, cand_t[b], cand_t[a]),
+                                torch.where(swap, cand_t[a], cand_t[b]))
+        cand_p[a], cand_p[b] = (torch.where(swap, cand_p[b], cand_p[a]),
+                                torch.where(swap, cand_p[a], cand_p[b]))
+    valid = [t < ttr.INF for t in cand_t]
+    sd = stack.shape[1]
+    for k in range(K - 1, 0, -1):
+        push = (iota == sp[:, None]) & valid[k][:, None]
+        stack = torch.where(push, cand_p[k][:, None], stack)
+        sp = torch.clamp(sp + valid[k].to(torch.int32), max=sd)
+    can_pop = sp > 0
+    popped = torch.where(can_pop, stack.gather(
+        1, torch.clamp(sp - 1, min=0).long()[:, None])[:, 0], 0)
+    nxt = torch.where(valid[0], cand_p[0],
+                      torch.where(can_pop, popped, ttr._DONE))
+    cur = torch.where(active, nxt, ttr._DONE).to(torch.int32)
+    sp = (sp - (active & (~valid[0]) & can_pop).to(torch.int32)).to(
+        torch.int32)
+    return ttr.TravState(cur, stack, sp, best_t, best_pt, best_pi)
+
+
+def _two_spheres():
+    """tests/test_torch_renderer.py's scene: a BVH of one node row."""
+    w = pt.HittableList()
+    w.add(pt.Sphere.stationary((0, 0, -1), 0.5,
+                               pt.Lambertian((0.7, 0.3, 0.3))))
+    w.add(pt.Sphere.stationary((0, -100.5, -1), 100,
+                               pt.Lambertian((0.8, 0.8, 0.0))))
+    return w
+
+
+@pytest.mark.parametrize("name", ["two_spheres", "vol2_final_scene"])
+def test_walk_bit_equal_to_every_slot_walk_and_jax(name):
+    """The twin's walk (node rows by ``index_select``, a slot's primitive
+    test skipped where it is a hit leaf in no lane) step for step against
+    the formulation without shortcuts: every ``TravState`` field bit-equal
+    after 1, 2, 3, 5 and 8 steps and at the end; the per-ray hit record
+    ``(hit, prim_type, prim_idx, t)`` of ``traverse_bvh`` bit-equal to the
+    finished walk.  Against JAX's ``traversal_steps_batched`` and
+    ``traverse_bvh``: the node pointer, stack, stack pointer and best
+    primitive exact at every step count, ``best_t`` and ``t`` within this
+    module's tolerance (XLA contracts multiply-adds; the header)."""
+    if name == "two_spheres":
+        world, lo, hi = _two_spheres(), -2.0, 2.0
+    else:
+        world, lo, hi = (pt.scenes.vol2_final_scene(sphere_cluster=20)[0],
+                         -100.0, 600.0)
+    scene = pt.compile_scene(world)
+    bvh = pt.build_from_scene(scene)
+    tbvh = interop.from_numpy_bvh(bvh, "cpu")
+    assert (bvh.nodes.shape[0] == 1) == (name == "two_spheres")
+    ro, rd, time = _rays(11, lo, hi)
+    tmin = np.full(R, T_MIN, np.float32)
+    o, d, t, tm = (torch.from_numpy(x) for x in (ro, rd, time, tmin))
+    j_in = [jnp.asarray(x) for x in (ro, rd, time, tmin)]
+    boxes = bvh_layout(4)[0]
+    extent = np.float32(np.abs(np.asarray(bvh.nodes)[:, :boxes]).max())
+    s = ref = ttr.traversal_init_batched(tbvh, o, d, t, tm, T_MAX, 48)
+    js = jtr.traversal_init_batched(bvh, *j_in, T_MAX, 48)
+    iota = torch.arange(s.stack.shape[1], dtype=torch.int32)[None]
+    done = 0
+    for k in (1, 1, 1, 2, 3, 4096):
+        s = ttr.traversal_steps_batched(tbvh, s, o, d, t, tm, k)
+        js = jtr.traversal_steps_batched(bvh, js, *j_in, k)
+        for _ in range(k):
+            if not bool((ref.cur != ttr._DONE).any()):
+                break
+            ref = _step_every_slot(tbvh, ref, o, d, t, tm, iota)
+        done += k
+        for f in ttr.TravState._fields:
+            assert torch.equal(getattr(s, f), getattr(ref, f)), (done, f)
+        for f in ("cur", "stack", "sp", "best_pt", "best_pi"):
+            np.testing.assert_array_equal(getattr(s, f).numpy(),
+                                          np.asarray(getattr(js, f)),
+                                          err_msg=f"{f} after {done}")
+        np.testing.assert_allclose(s.best_t.numpy(), np.asarray(js.best_t),
+                                   rtol=1e-6, atol=np.spacing(extent))
+    assert bool(ttr.traversal_done(s).all())
+    hit, ptype, pidx, t_hit = ttr.traverse_bvh(tbvh, o, d, t, T_MIN, T_MAX,
+                                               48)
+    assert torch.equal(hit, ref.best_pt >= 0) and bool(hit.any())
+    assert torch.equal(ptype, ref.best_pt) and torch.equal(pidx, ref.best_pi)
+    assert torch.equal(t_hit, ref.best_t)
+    jh = jax.vmap(lambda a, b, c: jtr.traverse_bvh(bvh, a, b, c, T_MIN, T_MAX,
+                                                   48))(*j_in[:3])
+    for got, want in zip((hit, ptype, pidx), jh[:3]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(t_hit.numpy(), np.asarray(jh[3]), rtol=1e-6,
+                               atol=np.spacing(extent))
