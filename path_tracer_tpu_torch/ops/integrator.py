@@ -29,6 +29,7 @@ import torch
 
 from ..utils import rng
 from ..utils import vec
+from ..utils.spans import span
 from ..utils.vec import rsqrt32
 from . import adjoint, kernels
 from .camera import get_ray
@@ -289,8 +290,10 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     ``walk_steps``, ``trav_steps`` and ``stack_overflows``.
     ``pix_offset``/``n_pix`` render the block of frame pixels ``pix_offset
     ..`` ``+ n_pix``; ``accum`` and the image are then ``(n_pix, 3)``."""
-    eng = MegaEngine(scene, flags, bvh, cam, cfg, base_key, pix_offset, n_pix)
-    ms = eng.init_state(accum)
+    with span("megakernel.setup"):
+        eng = MegaEngine(scene, flags, bvh, cam, cfg, base_key, pix_offset,
+                         n_pix)
+        ms = eng.init_state(accum)
     op = megakernel_plain if plain else megakernel
     for s in range(int(start_sample), int(start_sample) + int(n_samples)):
         op(eng, ms, s)

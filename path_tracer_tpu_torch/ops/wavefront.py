@@ -46,6 +46,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.spans import span
 from . import adjoint, kernels
 from .shade_tiled import make_tables, shade, shade_plain, spawn_paths
 from .traverse import (_DONE, _unroll, trace_step, trace_step_plain,
@@ -389,31 +390,38 @@ def run_waves_graph(eng: WaveEngine, ws: WaveState) -> int:
     once); ``wave_loop`` counts 0, as the loop has no kernel of its own.
     A failed build, capture
     or launch raises; so does a frame that has not drained within
-    ``MAX_WAVES``.
+    ``MAX_WAVES``.  The host's part is timed by the spans
+    ``wavefront.graph_build`` (arguments, capture, instantiation),
+    ``wavefront.wait`` (launch and the read, which waits for the loop to
+    drain) and ``wavefront.graph_free`` (:mod:`..utils.spans`).
     """
     dev = ws.ctr.device
     lib = _wave_loop_lib()
-    args = kernels.make_args(eng, ws)
     loop, stream = ctypes.c_void_p(), ctypes.c_void_p()
     h_while = ctypes.c_ulonglong()
     try:
-        _check(lib.ptt_wave_loop_begin(ctypes.byref(loop),
-                                       ctypes.byref(h_while),
-                                       ctypes.byref(stream)),
-               "building the graph")
-        args.h_while, args.loop_graph = h_while.value, 1
-        args.max_waves = MAX_WAVES
-        with kernels.captured_launches() as per_wave:
-            for name in WAVE_NAMES:
-                kernels.launch_args(name, args, dev, stream=stream.value)
-        _check(lib.ptt_wave_loop_end(loop), "capturing the wave")
+        with span("wavefront.graph_build"):
+            args = kernels.make_args(eng, ws)
+            _check(lib.ptt_wave_loop_begin(ctypes.byref(loop),
+                                           ctypes.byref(h_while),
+                                           ctypes.byref(stream)),
+                   "building the graph")
+            args.h_while, args.loop_graph = h_while.value, 1
+            args.max_waves = MAX_WAVES
+            with kernels.captured_launches() as per_wave:
+                for name in WAVE_NAMES:
+                    kernels.launch_args(name, args, dev, stream=stream.value)
+            _check(lib.ptt_wave_loop_end(loop), "capturing the wave")
         waves0 = ws.ctr[C_WAVES].clone()
-        _check(lib.ptt_wave_loop_launch(
-            loop, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
-            "launching the graph")
-        host = torch.cat([ws.ctr, waves0[None]]).cpu()   # the one host read
+        with span("wavefront.wait"):
+            _check(lib.ptt_wave_loop_launch(
+                loop,
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
+                "launching the graph")
+            host = torch.cat([ws.ctr, waves0[None]]).cpu()  # the one host read
     finally:
-        lib.ptt_wave_loop_free(loop)
+        with span("wavefront.graph_free"):
+            lib.ptt_wave_loop_free(loop)
     kernels.count(per_wave, int(host[C_WAVES] - host[-1]) + 1)
     if eng.live(host):
         raise RuntimeError(f"wavefront did not drain within {MAX_WAVES} waves")
@@ -456,11 +464,12 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     (:func:`tile_spawn_order`, one entry per block pixel) permutes the
     order in which work items take pixels; the sample set stays the same.
     """
-    eng = WaveEngine(scene, flags, bvh, cam, cfg, start_sample, n_samples,
-                     base_key, queue_size, steps_per_wave, ctrl_den,
-                     sample_stride, pix_offset, n_pix,
-                     spawn_order=spawn_order)
-    ws = eng.init_state(accum)
+    with span("wavefront.setup"):
+        eng = WaveEngine(scene, flags, bvh, cam, cfg, start_sample,
+                         n_samples, base_key, queue_size, steps_per_wave,
+                         ctrl_den, sample_stride, pix_offset, n_pix,
+                         spawn_order=spawn_order)
+        ws = eng.init_state(accum)
     if ws.ctr.is_cuda and not plain:
         reads = run_waves_graph(eng, ws)
     else:

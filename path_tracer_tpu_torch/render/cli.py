@@ -8,7 +8,9 @@ Usage::
 
 Renders on the CUDA card unless ``--cpu`` asks for the plain-torch twins on
 the CPU; with no card and no ``--cpu`` it exits 2.  Prints the scene line,
-each batch, and a closing JSON line ``{"out": ..., **stats.summary(cfg)}``.
+each batch, and a closing JSON line ``{"out": ..., **stats.summary(cfg),
+"spans": ...}``, the host-time spans of :mod:`..utils.spans` in
+milliseconds (``--profile``'s ``trace.json`` holds them too).
 ``--coordinator/--num-processes/--process-id`` run one rank of a
 ``torch.distributed`` job (every rank the same command with its own
 ``--process-id``): the ranks render data-parallel through
@@ -159,6 +161,7 @@ def main(argv=None) -> int:
         return _main_distributed(args, world, cam, device)
 
     from ..ops.types import RenderConfig
+    from ..utils import spans
     from .renderer import Renderer
 
     # With --engine megakernel the Renderer warns about a wavefront flag
@@ -184,6 +187,7 @@ def main(argv=None) -> int:
                  metrics_path=args.metrics, verbose=True,
                  autotune=args.autotune)
 
+    spans.reset()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + (
@@ -196,8 +200,18 @@ def main(argv=None) -> int:
         run()
 
     r.write_image(args.out)
-    print(json.dumps({"out": args.out, **r.stats.summary(r.cfg)}))
+    print(json.dumps({"out": args.out, **r.stats.summary(r.cfg),
+                      "spans": spans_ms(spans.snapshot())}))
     return 0
+
+
+def spans_ms(snap: dict) -> dict:
+    """:func:`..utils.spans.snapshot` in milliseconds: ``{name: {"count",
+    "total_ms", "self_ms"}}``."""
+    return {name: {"count": a["count"],
+                   "total_ms": round(1e3 * a["total_s"], 3),
+                   "self_ms": round(1e3 * a["self_s"], 3)}
+            for name, a in snap.items()}
 
 
 if __name__ == "__main__":

@@ -35,6 +35,7 @@ from ..ops.shade import SceneFlags
 from ..ops.types import RenderConfig
 from ..utils import rng
 from ..utils.image import write_png, write_ppm
+from ..utils.spans import span
 
 
 @dataclass
@@ -54,7 +55,6 @@ class RenderStats:
     slots: int = 0
     host_reads: int = 0
     walk_steps: int = 0        # SSS-volumetric walk trips (work, not segments)
-    pixel_paths: np.ndarray | None = None   # per-pixel paths (wavefront only)
 
     @property
     def ms_per_sample(self) -> float:
@@ -206,7 +206,11 @@ class Renderer:
         saved there every ``checkpoint_every`` samples, at the end and on
         ``KeyboardInterrupt`` (then re-raised).  ``autotune`` runs
         :meth:`autotune` first unless it ran or ``cfg`` pins the queue and
-        the steps; on the megakernel it warns."""
+        the steps; on the megakernel it warns.  Host time is timed by the
+        spans of :mod:`..utils.spans`: ``renderer.render`` (the loop, the
+        saves and the frame's return), and inside it ``renderer.batch``
+        (``renderer.wait``, ``renderer.stats_read``) and
+        ``renderer.frame_return``."""
         spp = spp if spp is not None else self.cfg.samples_per_pixel
         if checkpoint_path and os.path.exists(checkpoint_path):
             self.load_checkpoint(checkpoint_path)
@@ -215,32 +219,38 @@ class Renderer:
                                              and self.cfg.steps_per_wave))):
             self.autotune(verbose=verbose)
         t_start = _time.perf_counter()
-        try:
-            self._render_loop(spp, batch, checkpoint_path, checkpoint_every,
-                              metrics_path, verbose)
-        except KeyboardInterrupt:
+        with span("renderer.render"):
+            try:
+                self._render_loop(spp, batch, checkpoint_path,
+                                  checkpoint_every, metrics_path, verbose)
+            except KeyboardInterrupt:
+                if checkpoint_path:
+                    self.save_checkpoint(checkpoint_path)
+                raise
+            self.stats.samples = self.samples_done
+            self.stats.wall_s = _time.perf_counter() - t_start
             if checkpoint_path:
                 self.save_checkpoint(checkpoint_path)
-            raise
-        self.stats.samples = self.samples_done
-        self.stats.wall_s = _time.perf_counter() - t_start
-        if checkpoint_path:
-            self.save_checkpoint(checkpoint_path)
-        return self.image()
+            with span("renderer.frame_return"):
+                return self.image()
 
     def _render_loop(self, spp, batch, checkpoint_path, checkpoint_every,
                      metrics_path, verbose):
         while self.samples_done < spp:
             n = min(batch, spp - self.samples_done)
-            t0 = _time.perf_counter()
-            accum, bstats = _render_batch(
-                self.scene, self.flags, self.bvh, self.cam_arrays, self.cfg,
-                self.accum, self.samples_done, n, self.key, self.engine,
-                tuned=self._tuned)
-            self._add_stats(bstats)
-            # One commit: an interrupt leaves no uncounted samples in accum.
-            self.accum, self.samples_done = accum, self.samples_done + n
-            dt = _time.perf_counter() - t0
+            with span("renderer.batch") as sp:
+                accum, bstats = _render_batch(
+                    self.scene, self.flags, self.bvh, self.cam_arrays,
+                    self.cfg, self.accum, self.samples_done, n, self.key,
+                    self.engine, tuned=self._tuned)
+                with span("renderer.wait"):
+                    _sync(self.device)
+                with span("renderer.stats_read"):
+                    self._add_stats(bstats)
+                # One commit: an interrupt leaves no uncounted samples in
+                # accum.
+                self.accum, self.samples_done = accum, self.samples_done + n
+            dt = sp.seconds
             self.stats.sample_times.append(dt / n)
             if verbose:
                 print(f"  sample {self.samples_done}/{spp}  "
@@ -268,9 +278,6 @@ class Renderer:
             raise RuntimeError("traversal stack overflowed (pushes dropped)")
         hist = b["depth_hist"].cpu().numpy().astype(np.int64)
         s.depth_hist = hist if s.depth_hist is None else s.depth_hist + hist
-        if b["pixel_paths"] is not None:
-            pp = b["pixel_paths"].cpu().numpy().astype(np.int64)
-            s.pixel_paths = pp if s.pixel_paths is None else s.pixel_paths + pp
 
     def image(self) -> np.ndarray:
         """Mean radiance so far (H, W, 3) float32."""
@@ -431,11 +438,10 @@ def _render_batch(scene, flags, bvh, cam, cfg, accum, start_sample,
         accum, st = integrator.render_batch(scene, flags, bvh, cam, cfg,
                                             accum, start_sample, n_samples,
                                             key, with_stats=True)
-        # ``paths`` is the kernel's count of finished paths; the megakernel
-        # keeps no per-pixel count, so ``pixel_paths`` stays None.  Wave and
+        # ``paths`` is the kernel's count of finished paths.  Wave and
         # occupancy fields stay 0, as in JAX.
         return accum, dict(st, waves=0, ctrls=0, occ_sum=0, slots=0,
-                           host_reads=0, pixel_paths=None)
+                           host_reads=0)
     big = bvh.nodes.shape[0] >= 256
     t_q, t_s, t_d, t_st = tuned if tuned else (None,) * 4
     queue = cfg.queue_size or t_q or (32768 if big else 8192)

@@ -2,9 +2,10 @@
 
 * ``--list-scenes`` prints JAX's list.
 * One ``--cpu`` render of cornell_box (24x24, 2 spp, the wavefront): the
-  closing JSON line has JAX's keys, and the same ``samples`` and
-  ``rays_traced`` (the Cornell scenes' counters match exactly); the ``.ppm``
-  is within 1 of JAX's in every channel (8-bit values).
+  closing JSON line has JAX's keys and the port's ``spans``, and the same
+  ``samples`` and ``rays_traced`` (the Cornell scenes' counters match
+  exactly); the ``.ppm`` is within 1 of JAX's in every channel (8-bit
+  values).
 * ``--local-devices 2`` exits 2 naming ``--backend``; without ``--cpu`` and
   without a card the CLI exits 2; ``--engine megakernel`` with a wavefront
   flag (``--queue-size``, ``--autotune``) warns.
@@ -69,8 +70,14 @@ def test_cpu_render_matches_jax_cli(tmp_path, capsys):
     want = _last_json(capsys.readouterr().out)
     assert tcli.main(args + ["--out", str(tmp_path / "port.ppm")]) == 0
     got = _last_json(capsys.readouterr().out)
-    assert set(got) == set(want)
+    assert set(got) == set(want) | {"spans"}
     assert got["samples"] == want["samples"] == 2
+    # The port's own host-time spans of this render: two batches, one frame.
+    sp = got["spans"]
+    assert sp["renderer.batch"]["count"] == 2
+    assert sp["renderer.frame_return"]["count"] == 1
+    assert sp["wavefront.setup"]["count"] == 2
+    assert all(0 <= a["self_ms"] <= a["total_ms"] for a in sp.values())
     assert got["rays_traced"] == want["rays_traced"]
     assert got["depth_hist"] == want["depth_hist"]
     a, b = _read_ppm(tmp_path / "port.ppm"), _read_ppm(tmp_path / "jax.ppm")

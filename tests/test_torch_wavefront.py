@@ -134,7 +134,12 @@ def test_renderer_facade_and_png(tmp_path):
     img = r.render(spp=2, batch=1)
     assert img.shape == (24, 24, 3) and np.isfinite(img).all()
     assert r.stats.paths == 24 * 24 * 2 and r.stats.rays > r.stats.paths
-    assert (r.stats.pixel_paths == 2).all()
+    # The per-pixel path count is the engine's, read where it is wanted.
+    _, st = twf.render_batch(r.scene, r.flags, r.bvh, r.cam_arrays, r.cfg,
+                             torch.zeros_like(r.accum), 0, 2, r.key,
+                             queue_size=8192, steps_per_wave=12,
+                             with_stats=True)
+    assert (st["pixel_paths"] == 2).all()
     # Cornell box: the left wall is green, the right wall red.
     assert img[:, :4, 1].mean() > img[:, :4, 0].mean()
     assert img[:, -4:, 0].mean() > img[:, -4:, 1].mean()
