@@ -168,6 +168,16 @@ Phases (each prints its own line; any failure exits non-zero):
                 each frame within 1e-5 of the one-rank frame and finite,
                 paths = 256 x 144 x 2 at every size, K1-K4 launched on
                 every rank, the phase's seconds.
+10h. kept loop — the wavefront's loop graph kept across batches: a
+                vol2_final and a mesh_perlin_sss frame batch by batch through
+                render_batch (one capture for the frame, none for a second)
+                against the same frame with a capture per batch (counters
+                equal batch by batch, the frames within the benchmark's
+                frame_l1_gap limit), the reset kernel alone on the drained
+                state against init_state, and a scene leaf changed between
+                two render_batch_diff steps (a capture a step, the changed
+                scene's image).  `python3 chip_smoke.py --kept-loop` runs
+                the device, the build and this phase alone.
 11. the JSON kernel table (every kernel, then every instantiation timed in
     phases 9b-9c: ``<kernel>_k8``, ``<kernel>_k4_global``, with its ptxas
     registers, stack frame and spills, and ``device_ms``, its device time
@@ -202,8 +212,8 @@ them just after; the table's ``launches`` come from those runs.  Every
 frame profiled under torch.profiler must show, for each kernel, as many
 runs as its wrapper counted (``profile_run``): the counts of launches that
 a CUDA graph replays are measured, not only derived from the waves run.  The build
-phase also holds K3, K5, K7, K1, K4, K2, K6, K9, K8 and the tiled spawn at
-their recorded ptxas resources (``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3
+phase also holds K3, K5, K7, K1, K4, K2, K6, K9, K8, the tiled spawn and
+the wave loop's reset at their recorded ptxas resources (``PTXAS_EXPECT``: K6's recorder must compile to nothing in K3
 and K5), fails on a spill in any walking kernel's instantiation, and
 prints K1's global loads by width from its SASS (``cuobjdump -sass``).
 """
@@ -293,7 +303,7 @@ PTXAS_EXPECT = {"shade": (110, 104), "megakernel_k4": (117, 368),
                 "closest_hit_k8_global": (72, 0),
                 "trace_step_k4": (130, 0), "trace_step_k8": (162, 0),
                 "tiled_trip": (106, 104), "tiled_spawn": (32, 0),
-                "retire": (24, 0), "spawn": (42, 32),
+                "retire": (24, 0), "spawn": (42, 32), "wave_reset": (28, 0),
                 "adjoint_k4": (121, 3696), "adjoint_k8": (121, 3696),
                 "adjoint_k4_global": (126, 104), "adjoint_k8_global": (126, 104),
                 "adjoint_full_k4": (164, 4832), "adjoint_full_k8": (164, 4832),
@@ -1333,6 +1343,190 @@ def scaling_phase(card):
     phase("scaling", f"{secs:.1f} s (7 rank processes, gloo ranks sharing "
           f"one card: {card}) -> {'PASS' if ok else 'FAIL'}")
     return ok, {"rows": rec, "lines": lines, "seconds": secs}
+
+
+FRAME_L1_GAP = 5e-3    # benchmark/limits/<cell>.json's frame_l1_gap
+KEPT_BATCH = 8         # samples a batch, as the benchmark's traffic
+
+
+def l1_gap(a, b) -> float:
+    """sum |a - b| / sum |b|: the benchmark's frame_l1_gap."""
+    return float((a - b).abs().sum() / b.abs().sum())
+
+
+def kept_loop_phase(card):
+    """Phase 10h: the wavefront's loop graph kept across batches
+    (``wavefront.wave_loop``).  For a vol2_final frame (800x600, 32 spp,
+    depth 10) and a mesh_perlin_sss frame (400x224, 32 spp, depth 12),
+    rendered batch by batch (8 samples a batch) through ``render_batch``
+    with the kept loop, against the same frame with a loop graph captured
+    for each batch (``WaveEngine``, ``init_state``, ``run_waves_graph``):
+    paths, spawned, stack overflows, rays, waves and depth histogram equal
+    batch by batch, the frames within the benchmark's frame_l1_gap limit,
+    one capture for the frame and none for a second frame; the reset
+    kernel launched on its own on the drained state gives init_state's
+    state, accum untouched.  On vol2_final at 1 spp: a scene leaf changed
+    in place between two ``render_batch_diff`` steps recaptures, and the
+    second step's image is the changed scene's.  Returns (ok, record)."""
+    import path_tracer_tpu_torch as ptt
+    from path_tracer_tpu_torch.ops import kernels
+    from path_tracer_tpu_torch.ops import wavefront as wf
+    from path_tracer_tpu_torch.utils import rng
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    ok, rec = True, {}
+    cases = (("vol2_final", vol2(dev, 800, 600, 32, 10)),
+             ("mesh_perlin_sss", compiled(*ptt.scenes.mesh_perlin_sss(), 400,
+                                          224, 32, 12, dev)))
+    for name, (scene, flags, bvh, cam_a, cfg) in cases:
+        key = rng.key(7, device=dev)
+        big = bvh.nodes.shape[0] >= 256
+        kw = dict(queue_size=32768 if big else 8192,
+                  steps_per_wave=32 if big else 12, ctrl_den=8)
+        shape = (cfg.height, cfg.width, 3)
+        starts = range(0, cfg.samples_per_pixel, KEPT_BATCH)
+
+        def frame(per_batch):
+            acc, sts, walls = torch.zeros(shape, device=dev), [], []
+            for s0 in starts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if per_batch:
+                    eng = wf.WaveEngine(scene, flags, bvh, cam_a, cfg, s0,
+                                        KEPT_BATCH, key, **kw)
+                    ws = eng.init_state(acc)
+                    wf.run_waves_graph(eng, ws)
+                    acc, st = ws.accum.reshape(shape), wf._stats(ws, eng)
+                else:
+                    acc, st = wf.render_batch(scene, flags, bvh, cam_a, cfg,
+                                              acc, s0, KEPT_BATCH, key,
+                                              with_stats=True, **kw)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+                sts.append({k: int(st[k]) for k in (
+                    "paths", "spawned", "stack_overflows", "rays",
+                    "waves")} | {"depth_hist": st["depth_hist"].tolist()})
+            return acc, sts, walls
+
+        wf.clear_wave_loops()
+        c0 = wf.CAPTURES
+        k_img, k_sts, k_walls = frame(False)
+        captures = wf.CAPTURES - c0
+        kept = wf._KEPT
+        # the reset on its own, on the drained state
+        drained = kept.ws.clone()
+        kernels.launch_args("wave_reset", kept.args, dev)
+        fresh = kept.eng.init_state(drained.accum)
+        reset_ok = all(torch.equal(getattr(kept.ws, f), getattr(fresh, f))
+                       for f in fresh.__dataclass_fields__)
+        reset_acted = not torch.equal(drained.ctr, kept.ws.ctr)
+
+        def reset():
+            kernels.launch_args("wave_reset", kept.args, dev)
+        reset_ms = dict(event_ms=cuda_ms(reset), device_ms=device_ms(reset),
+                        init_state_event_ms=cuda_ms(
+                            lambda: kept.eng.init_state(drained.accum)))
+        c1 = wf.CAPTURES
+        k2_img, k2_sts, k2_walls = frame(False)
+        captures2 = wf.CAPTURES - c1
+        p_img, p_sts, p_walls = frame(True)
+        gap, gap2 = l1_gap(k_img, p_img), l1_gap(k2_img, p_img)
+        same = k_sts == p_sts and k2_sts == p_sts
+        paths = sum(s["paths"] for s in k_sts)
+        case_ok = (same and gap <= FRAME_L1_GAP and gap2 <= FRAME_L1_GAP
+                   and captures == 1 and captures2 == 0 and reset_ok
+                   and reset_acted and all(s["stack_overflows"] == 0
+                                           for s in k_sts)
+                   and paths == cfg.width * cfg.height
+                   * cfg.samples_per_pixel)
+        ok = ok and case_ok
+        rec[name] = dict(
+            batches=len(starts), captures=captures,
+            captures_second_frame=captures2, counters_equal=same,
+            frame_l1_gap=gap, frame_l1_gap_second=gap2,
+            bit_identical=bool(torch.equal(k_img, p_img)),
+            reset_equals_init_state=reset_ok, reset_ms=reset_ms,
+            stats=k_sts,
+            batch_ms={"kept": k_walls, "kept_second": k2_walls,
+                      "capture_per_batch": p_walls}, ok=case_ok)
+        phase("kept loop", f"{name} {cfg.width}x{cfg.height} "
+              f"{cfg.samples_per_pixel} spp in batches of {KEPT_BATCH}: "
+              f"kept loop vs a capture per batch: paths, spawned, stack "
+              f"overflows, rays, waves, depth histogram equal batch by "
+              f"batch {same}; frame_l1_gap {gap:.3e} and {gap2:.3e} (second "
+              f"frame) <= {FRAME_L1_GAP}, bit-identical "
+              f"{rec[name]['bit_identical']}; captures {captures} (frame), "
+              f"{captures2} (second frame); reset kernel on the drained "
+              f"state = init_state {reset_ok} (event ms "
+              f"{reset_ms['event_ms']:.4f}, device ms "
+              f"{reset_ms['device_ms']:.4f}; init_state event ms "
+              f"{reset_ms['init_state_event_ms']:.4f}); batch ms (synced) kept "
+              + ", ".join(f"{x:.2f}" for x in k2_walls) + "; a capture per "
+              "batch " + ", ".join(f"{x:.2f}" for x in p_walls)
+              + f" -> {'PASS' if case_ok else 'FAIL'}")
+        if name != "vol2_final":
+            continue
+        # render_batch_diff: a leaf changed in place between two steps
+        leaf = scene.tex_c1.clone().requires_grad_()
+        sc_d = dataclasses.replace(scene, tex_c1=leaf)
+        zero = torch.zeros(shape, device=dev)
+        c0 = wf.CAPTURES
+        imgs = []
+        for _ in range(2):
+            img, _st = wf.render_batch_diff(sc_d, flags, bvh, cam_a, cfg,
+                                            zero, 0, 1, key,
+                                            n_waves=wf.MAX_WAVES, **kw)
+            imgs.append(img.detach())
+            with torch.no_grad():
+                leaf.mul_(0.5)                 # the optimiser's step
+        recaptures = wf.CAPTURES - c0
+        changed = dataclasses.replace(scene, tex_c1=leaf.detach() * 2.0)
+        want = wf.render_batch(changed, flags, bvh, cam_a, cfg, zero, 0, 1,
+                               key, **kw)
+        gap_new, gap_old = l1_gap(imgs[1], want), l1_gap(imgs[0], want)
+        diff_ok = (recaptures == 2 and gap_new <= FRAME_L1_GAP
+                   and gap_old > 10 * FRAME_L1_GAP)
+        ok = ok and diff_ok
+        rec["diff_steps"] = dict(captures=recaptures, frame_l1_gap=gap_new,
+                                 frame_l1_gap_first_step=gap_old, ok=diff_ok)
+        phase("kept loop", f"vol2_final 1 spp, tex_c1 halved in place "
+              f"between two render_batch_diff steps: captures {recaptures} "
+              f"(one a step), the second step's image vs the changed "
+              f"scene's: frame_l1_gap {gap_new:.3e}, the first step's "
+              f"{gap_old:.3e} -> {'PASS' if diff_ok else 'FAIL'}")
+    wf.clear_wave_loops()
+    secs = time.perf_counter() - t_phase
+    phase("kept loop", f"{secs:.1f} s ({card}) -> {'PASS' if ok else 'FAIL'}")
+    rec["seconds"] = secs
+    return ok, rec
+
+
+def kept_loop_main() -> int:
+    """``python3 chip_smoke.py --kept-loop``: the device, the build and
+    phase 10h alone; the record in RUN_DIR's chip_smoke_kept_loop.json."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    card = card.splitlines()[0]
+    phase("device", card)
+    from path_tracer_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    kernels.build()
+    phase("build", f"{time.perf_counter() - t0:.1f} s wall")
+    for n in ("spawn", "wave_reset"):
+        src = kernels.SOURCE_OF[n]
+        if src in kernels.BUILD_LOG:
+            phase("build", f"{n}: (registers, stack frame, spill stores, "
+                  f"spill loads) "
+                  f"{ptxas_resources(kernels.BUILD_LOG[src], n)}")
+    os.makedirs(RUN_DIR, exist_ok=True)
+    ok, rec = kept_loop_phase(card)
+    with open(os.path.join(RUN_DIR, "chip_smoke_kept_loop.json"), "w") as f:
+        json.dump({"card": card, "kept_loop": rec}, f, indent=1, default=str)
+    return 0 if ok else 1
 
 
 def main() -> int:
@@ -2576,6 +2770,7 @@ def main() -> int:
     # queues all four every wave.
     launch_ok = (all(g_launch[n] == waves + 1 for n in WAVE_KERNELS)
                  and g_launch["wave_loop"] == 0
+                 and g_launch["wave_reset"] == 1
                  and all(h_launch[n] == host_waves for n in WAVE_KERNELS)
                  and h_launch["wave_loop"] == 0 and host_waves >= waves)
     # Profiled, each frame's kernel runs equal its launch counts
@@ -3872,8 +4067,9 @@ def main() -> int:
     golden_ok, golden_rows = golden_phase(card)
     ab_ok, ab_rec = ab_phase(card)
     demo_ok, demo_rec = demo_phase(card)
-    # --- 10g. the scaling harness ---
+    # --- 10g. the scaling harness; 10h. the kept wave loop ---
     scaling_ok, scaling_rec = scaling_phase(card)
+    kept_ok, kept_rec = kept_loop_phase(card)
 
     # --- 11. the kernel table ---
     launches = dict(rec["main"]["launches"])
@@ -3961,7 +4157,8 @@ def main() -> int:
                    "bvh8": rec8, "stack": rec_stack, "ptxas": ptxas,
                    "entry": entry_rec, "ladder": ladder_rows,
                    "golden": golden_rows, "ab": ab_rec, "demo": demo_rec,
-                   "scaling": scaling_rec, "kernels": table},
+                   "scaling": scaling_rec, "kept_loop": kept_rec,
+                   "kernels": table},
                   f, indent=1, default=str)
     failed = [t["name"] for t in table if not t["pass"]]
     phase("total", f"chip_smoke {time.perf_counter() - t_main:.1f} s")
@@ -3970,12 +4167,14 @@ def main() -> int:
     loop_ok = rec["loop"]["ok"]
     if failed or not (agree and train_ok and tiled_ok and par_ok and loop_ok
                       and bvh8_ok and stack_ok and entry_ok and ladder_ok
-                      and golden_ok and ab_ok and demo_ok and scaling_ok):
+                      and golden_ok and ab_ok and demo_ok and scaling_ok
+                      and kept_ok):
         print(f"chip_smoke: FAILED {failed} agree={agree} train={train_ok} "
               f"tiled={tiled_ok} parallel={par_ok} loop={loop_ok} "
               f"bvh8={bvh8_ok} stack={stack_ok} entry={entry_ok} "
               f"ladder={ladder_ok} golden={golden_ok} ab={ab_ok} "
-              f"demo={demo_ok} scaling={scaling_ok}", file=sys.stderr)
+              f"demo={demo_ok} scaling={scaling_ok} kept_loop={kept_ok}",
+              file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3986,4 +4185,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--kept-loop"]:
+        sys.exit(kept_loop_main())
     sys.exit(main())

@@ -84,6 +84,7 @@ struct NodeLayout {
 #define C_N_WALK_B 18
 #define C_TICKET 19
 #define C_FETCH 20
+#define PTT_N_COUNTERS 21  // the counter vector's length (N_COUNTERS)
 
 // Everything a wave kernel reads or writes.  Mirrored field for field by
 // ops/kernels.py:WaveArgs (ctypes); ptt_wave_args_layout() below exports
@@ -138,8 +139,9 @@ struct WaveArgs {
   const float* exit_t; const bool* exit_med; float* rec;
   // first frame pixel of a pixel block (K2, K4, K5, K6; npix is its size)
   int pix_offset;
-  // the tiled engine's sample index in device memory (null: start_sample),
-  // so that one captured trip graph replays every sample
+  // start_sample in device memory (null: start_sample): the tiled kernels'
+  // sample and K2's first sample, so that one captured trip graph replays
+  // every sample and one wave loop graph every batch
   const int* sample_dev;
   // per-lane buffers of the walking kernels' arrays beyond the local sizes
   // above (null when the launch fits them): the walk's stack is `stack`

@@ -3,9 +3,9 @@
 // The CUDA sources keep each kernel's per-slot work in a __device__
 // function (walk_chunk, shade_lane, retire_lane, spawn_lane, mega_pixel,
 // adj_begin / adj_trip / adj_*_sweep, closest_hit_lane, ring_hop_lane,
-// tiled_lane; the walks' steps trav_step and trav_step16) and only the
-// grid plumbing (and K5's and K6's work fetching, K8's live lists) in the
-// __global__ wrapper.
+// tiled_lane, the wave loop's wave_reset_item; the walks' steps trav_step
+// and trav_step16) and only the grid plumbing (and K5's and K6's work
+// fetching, K8's live lists) in the __global__ wrapper.
 // Compiled by a host C++ compiler with PTT_HOST_EMULATION defined, the same
 // per-slot code runs here in a loop over slots, so the CPU test suite holds
 // the kernel sources — not only their plain-torch twins — against the JAX
@@ -41,6 +41,7 @@ static T atomicAdd(T* p, T v) {
 #include "adjoint.cu"
 #include "closest_hit.cu"
 #include "tiled_trip.cu"
+#include "wave_loop.cu"
 
 // Whether a walking kernel takes a's node width, and its stack placement.
 static bool walk_args_ok(const WaveArgs* a, bool global) {
@@ -109,6 +110,13 @@ extern "C" int emu_retire(WaveArgs* a) {
 extern "C" int emu_spawn(WaveArgs* a) {
   if (a->ctr[C_DO_CTRL] == 0) return 0;
   for (int i = 0; i < a->R; ++i) spawn_lane(*a, i);
+  return 0;
+}
+
+// The wave loop graph's reset: every item, then the stack.
+extern "C" int emu_wave_reset(WaveArgs* a) {
+  for (long long i = 0; i < wave_reset_items(*a); ++i) wave_reset_item(*a, i);
+  wave_reset_stack(*a, 0, 1);
   return 0;
 }
 

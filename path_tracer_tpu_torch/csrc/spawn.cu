@@ -7,7 +7,9 @@
 // case included; traverse.cuh).  A work item id maps to (window g, pixel) =
 // (id / npix, pix_offset + order[id % npix]) with samples
 // [start + g*stride, start + min((g+1)*stride, n)); with stride 1 it is one
-// (sample, pixel).  order is WaveArgs.spawn_order, the identity where it is
+// (sample, pixel).  start is *sample_dev where it is set (the kept wave
+// loop graph replays every batch of its configuration, csrc/wave_loop.cu),
+// else start_sample.  order is WaveArgs.spawn_order, the identity where it is
 // null (wavefront.py:237-243: JAX permutes the block pixel before it adds
 // the offset).  A slot keeps its frame pixel, which the camera and the
 // RNG take; K4 maps it into the block of npix pixels that starts at
@@ -35,14 +37,15 @@ __device__ __forceinline__ void spawn_lane(const WaveArgs& a, int i) {
   if (!can && !resample) return;
   int smp, pix, last;
   if (can) {
+    const int start = a.sample_dev ? *a.sample_dev : a.start_sample;
     if (a.multi) {
       const long long g = id / a.npix;
-      smp = a.start_sample + (int)(g * a.stride);
+      smp = start + (int)(g * a.stride);
       const long long end = (g + 1) * a.stride < a.n_samples
                                 ? (g + 1) * a.stride : a.n_samples;
-      last = a.start_sample + (int)end - 1;
+      last = start + (int)end - 1;
     } else {
-      smp = a.start_sample + (int)(id / a.npix);
+      smp = start + (int)(id / a.npix);
       last = smp;
     }
     int p = (int)(id % a.npix);

@@ -12,8 +12,9 @@ with its own launcher: ``adjoint.cu`` K6's colour and full instantiations
 (``closest_hit``, ``ring_hop``), ``tiled_trip.cu`` K8, its variant that
 shades an injected hit record and the tiled engine's spawn (``tiled_trip``,
 ``tiled_trip_rec``, ``tiled_spawn``).  Those launchers take the argument
-block ``WaveArgs``; ``wave_loop.cu`` (the device wave loop,
-:func:`.wavefront.run_waves_graph`) and ``gather.cu`` (the row gather,
+block ``WaveArgs``, as does ``wave_loop.cu``'s reset of the wave state
+(``wave_reset``); the rest of ``wave_loop.cu`` (the device wave loop,
+:class:`.wavefront.WaveLoop`) and ``gather.cu`` (the row gather,
 :mod:`.gather`) have C interfaces of their own.  The libraries are opened
 with ``ctypes``; device pointers come from ``tensor.data_ptr()`` and the
 stream from PyTorch's current stream.  Nothing here runs at import time,
@@ -54,7 +55,8 @@ WAVE_SOURCES = ("trace_step", "spawn", "shade", "retire", "megakernel",
                 "adjoint", "closest_hit", "tiled_trip")
 SOURCES = WAVE_SOURCES + ("wave_loop", "gather")
 SECOND = {"adjoint_full": "adjoint", "ring_hop": "closest_hit",
-          "tiled_trip_rec": "tiled_trip", "tiled_spawn": "tiled_trip"}
+          "tiled_trip_rec": "tiled_trip", "tiled_spawn": "tiled_trip",
+          "wave_reset": "wave_loop"}
 NAMES = WAVE_SOURCES + tuple(SECOND)      # launchers taking WaveArgs
 OWN_API = {"wave_loop": "wave_loop", "gather_rows": "gather"}
 SOURCE_OF = {n: n for n in WAVE_SOURCES} | SECOND | OWN_API

@@ -16,10 +16,11 @@ wave machine of ``_make_engine`` (:135-467).  One wave is four kernels:
 
 K3, K4 and K2 return at once when ``do_ctrl`` is 0.  On the card the wave
 loop (B8', JAX's ``lax.while_loop(live, wave)``) runs on the device: one
-CUDA graph per frame whose conditional WHILE node repeats a wave until K1
+CUDA graph per configuration, replayed per batch, which resets the wave
+state and then runs a conditional WHILE node that repeats a wave until K1
 finds no work left and clears the node's condition (``csrc/wave_loop.cu``,
-:func:`run_waves_graph`); the host launches it once and reads the counters
-once.  :func:`run_waves` is the
+:class:`WaveLoop`, kept by :func:`wave_loop`); the host launches it once a
+batch and reads the counters once.  :func:`run_waves` is the
 same loop driven from the host, a wave's launches at a time, reading the
 counters every ``CHECK_EVERY`` waves (the comparison path, and the loop of
 the plain-torch twins).  On CPU tensors every kernel wrapper runs its
@@ -42,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import warnings
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -110,20 +112,13 @@ class WaveEngine:
         self.scene, self.flags, self.bvh, self.cam, self.cfg = (
             scene, flags, bvh, cam, cfg)
         self.device = scene.sph_c0.device
-        # Steps per chunk of the adaptive wave exit (JAX's _unroll()).
-        self.chunk = int(chunk) if chunk else _unroll(self.device)
+        (self.chunk, self.npix, self.total, self.R, self.stride,
+         self.items_total) = self.pool(cfg, self.device, n_samples,
+                                       queue_size, sample_stride, n_pix,
+                                       chunk)
+        self.multi = self.stride > 1
         self.key = base_key.to(self.device)
         self.pix_offset = int(pix_offset)
-        self.npix = int(n_pix) if n_pix is not None else cfg.width * cfg.height
-        self.total = n_samples * self.npix
-        self.R = min(queue_size, self.total)
-        if sample_stride is not None:
-            self.stride = max(1, min(n_samples, sample_stride))
-        else:
-            self.stride = min(n_samples, 4) if self.npix >= 8 * self.R else 1
-        self.multi = self.stride > 1
-        n_windows = -(-n_samples // self.stride)
-        self.items_total = self.npix * n_windows if self.multi else self.total
         self.start_sample = int(start_sample)
         self.n_samples = int(n_samples)
         self.steps = int(steps_per_wave)
@@ -143,6 +138,24 @@ class WaveEngine:
                 raise ValueError(f"spawn_order holds block pixels, in "
                                  f"[0, {self.npix})")
             self.spawn_order = order.contiguous()
+
+    @staticmethod
+    def pool(cfg: RenderConfig, device, n_samples: int, queue_size: int,
+             sample_stride: int | None = None, n_pix: int | None = None,
+             chunk: int | None = None) -> tuple:
+        """The pool's sizes, from host values alone: ``(chunk, npix, total,
+        R, stride, items_total)``.  ``chunk`` is the steps per chunk of the
+        adaptive wave exit (JAX's ``_unroll()``)."""
+        chunk = int(chunk) if chunk else _unroll(device)
+        npix = int(n_pix) if n_pix is not None else cfg.width * cfg.height
+        total = n_samples * npix
+        R = min(queue_size, total)
+        if sample_stride is not None:
+            stride = max(1, min(n_samples, sample_stride))
+        else:
+            stride = min(n_samples, 4) if npix >= 8 * R else 1
+        items_total = npix * -(-n_samples // stride) if stride > 1 else total
+        return chunk, npix, total, R, stride, items_total
 
     def init_state(self, accum) -> WaveState:
         R, dev, cfg = self.R, self.device, self.cfg
@@ -360,8 +373,8 @@ def _wave_loop_lib():
     if not hasattr(lib, "_typed"):
         P = ctypes.c_void_p
         lib.ptt_wave_loop_begin.argtypes = [
-            ctypes.POINTER(P), ctypes.POINTER(ctypes.c_ulonglong),
-            ctypes.POINTER(P)]
+            ctypes.POINTER(P), ctypes.POINTER(kernels.WaveArgs),
+            ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(P)]
         lib.ptt_wave_loop_end.argtypes = [P]
         lib.ptt_wave_loop_launch.argtypes = [P, P]
         lib.ptt_wave_loop_free.argtypes = [P]
@@ -377,54 +390,222 @@ def _check(err: int, what: str) -> None:
                            f"error {err}")
 
 
-def run_waves_graph(eng: WaveEngine, ws: WaveState) -> int:
-    """Run waves on the device until no work is left; returns the host
-    reads (1).
+class WaveLoop:
+    """The device wave loop of one configuration (B8',
+    ``csrc/wave_loop.cu``): one CUDA graph, ``wave_reset`` and then a
+    conditional WHILE node whose body is one wave (K1, K3, K4, K2),
+    captured once over a wave state ``ws`` it keeps and replayed for every
+    batch.
 
-    Captures one wave (K1, K3, K4, K2) from the state's persistent tensors
-    into the body of a CUDA graph's WHILE node (``csrc/wave_loop.cu``);
-    K1 ends the loop when it finds no work left (``live``) or the frame at
-    ``MAX_WAVES``.  Launches the graph once and copies the counters to the
-    host once.  Launches count from that read: each kernel ``waves + 1``
-    (the last wave's K1 finds no work and K3, K4 and K2 after it return at
-    once); ``wave_loop`` counts 0, as the loop has no kernel of its own.
-    A failed build, capture
-    or launch raises; so does a frame that has not drained within
-    ``MAX_WAVES``.  The host's part is timed by the spans
+    The capture fixes the whole argument block but the batch's first
+    sample, which K2 reads from :attr:`sample` (``WaveArgs.sample_dev``):
+    the engine's tables, the scene, BVH, key and camera, the sizes and the
+    state's pointers.  Each launch resets the state to
+    :meth:`WaveEngine.init_state`'s values (slots, counters, depth
+    histogram, per-pixel path counts; ``wave_reset``) and runs waves until
+    K1 finds no work left (``live``) or the frame reaches ``MAX_WAVES``;
+    :meth:`load` puts a batch's frame and first sample in before it.
+    ``key`` is :func:`loop_key`'s for a kept loop (:func:`wave_loop`);
+    ``traced`` whether ``torch.profiler`` had recorded in this process
+    before the capture (:func:`wave_loop` recaptures a loop that was not
+    when a profiler records).  The capture is timed by the span
     ``wavefront.graph_build`` (arguments, capture, instantiation),
-    ``wavefront.wait`` (launch and the read, which waits for the loop to
-    drain) and ``wavefront.graph_free`` (:mod:`..utils.spans`).
+    :meth:`free` by ``wavefront.graph_free``.  A failed build or capture
+    raises.
     """
-    dev = ws.ctr.device
-    lib = _wave_loop_lib()
-    loop, stream = ctypes.c_void_p(), ctypes.c_void_p()
-    h_while = ctypes.c_ulonglong()
-    try:
-        with span("wavefront.graph_build"):
-            args = kernels.make_args(eng, ws)
-            _check(lib.ptt_wave_loop_begin(ctypes.byref(loop),
-                                           ctypes.byref(h_while),
-                                           ctypes.byref(stream)),
-                   "building the graph")
-            args.h_while, args.loop_graph = h_while.value, 1
-            args.max_waves = MAX_WAVES
-            with kernels.captured_launches() as per_wave:
-                for name in WAVE_NAMES:
-                    kernels.launch_args(name, args, dev, stream=stream.value)
-            _check(lib.ptt_wave_loop_end(loop), "capturing the wave")
-        waves0 = ws.ctr[C_WAVES].clone()
+
+    def __init__(self, eng: WaveEngine, ws: WaveState, key=None):
+        global CAPTURES
+        self.eng, self.ws, self.key = eng, ws, key
+        self.traced = _PROFILED
+        dev = ws.ctr.device
+        lib = _wave_loop_lib()
+        self._loop = ctypes.c_void_p()
+        self._free = weakref.finalize(self, lib.ptt_wave_loop_free,
+                                      self._loop)
+        self.sample = torch.full((1,), eng.start_sample, dtype=torch.int32,
+                                 device=dev)
+        h_while, stream = ctypes.c_ulonglong(), ctypes.c_void_p()
+        try:
+            with span("wavefront.graph_build"):
+                args = kernels.make_args(eng, ws)
+                args.sample_dev, args._keep_sample = (
+                    kernels._ptr(self.sample), self.sample)
+                args.max_waves = MAX_WAVES
+                _check(lib.ptt_wave_loop_begin(ctypes.byref(self._loop),
+                                               ctypes.byref(args),
+                                               ctypes.byref(h_while),
+                                               ctypes.byref(stream)),
+                       "building the graph")
+                args.h_while, args.loop_graph = h_while.value, 1
+                with kernels.captured_launches() as per_wave:
+                    for name in WAVE_NAMES:
+                        kernels.launch_args(name, args, dev,
+                                            stream=stream.value)
+                _check(lib.ptt_wave_loop_end(self._loop),
+                       "capturing the wave")
+        except BaseException:
+            self.free()
+            raise
+        self.args, self.per_wave = args, dict(per_wave)
+        CAPTURES += 1
+
+    def load(self, accum, start_sample) -> None:
+        """Copy a batch's frame ``accum`` into the state and write its first
+        sample where K2 reads it."""
+        self.eng.start_sample = int(start_sample)
+        self.sample.fill_(self.eng.start_sample)
+        self.ws.accum.copy_(accum.reshape(self.eng.npix, 3))
+
+    def run(self) -> None:
+        """Launch the graph on the current stream and copy the counters to
+        the host once (span ``wavefront.wait``: the launch and the read,
+        which waits for the loop to drain).  Counts the launches from that
+        copy: ``wave_reset`` once, each wave kernel ``waves + 1`` (the last
+        wave's K1 finds no work and K3, K4 and K2 after it return at once),
+        ``wave_loop`` none, as the loop has no kernel of its own.  Raises
+        for a frame that has not drained within ``MAX_WAVES``."""
+        dev = self.ws.ctr.device
         with span("wavefront.wait"):
-            _check(lib.ptt_wave_loop_launch(
-                loop,
+            _check(_wave_loop_lib().ptt_wave_loop_launch(
+                self._loop,
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
                 "launching the graph")
-            host = torch.cat([ws.ctr, waves0[None]]).cpu()  # the one host read
+            host = self.ws.ctr.cpu()             # the one host read
+        kernels.count({"wave_reset": 1})
+        kernels.count(self.per_wave, int(host[C_WAVES]) + 1)
+        if self.eng.live(host):
+            raise RuntimeError(f"wavefront did not drain within {MAX_WAVES} "
+                               f"waves")
+
+    def free(self) -> None:
+        """Destroy the graph and its stream (once; span
+        ``wavefront.graph_free``)."""
+        if self._free.alive:
+            with span("wavefront.graph_free"):
+                self._free()
+
+
+class _Same:
+    """An entry of :func:`loop_key` for an object the capture reads through
+    a pointer: equal to the same object only, and for a tensor at the same
+    ``_version``, which every in-place write advances; comparing reads no
+    device memory.  It holds the object, so its ``id`` is not reused while
+    a key lives."""
+
+    __slots__ = ("obj", "version")
+
+    def __init__(self, obj):
+        self.obj = obj
+        self.version = obj._version if isinstance(obj, torch.Tensor) else None
+
+    def __eq__(self, other):
+        return (isinstance(other, _Same) and other.obj is self.obj
+                and other.version == self.version)
+
+    def __hash__(self):
+        return id(self.obj)
+
+
+def _tensor_fields(obj) -> tuple:
+    return tuple(_Same(v) for v in vars(obj).values()
+                 if isinstance(v, torch.Tensor))
+
+
+def loop_key(scene, flags, bvh, cam, cfg: RenderConfig, n_samples: int,
+             base_key, queue_size: int, steps_per_wave: int, ctrl_den: int,
+             sample_stride: int | None = None, pix_offset: int = 0,
+             n_pix: int | None = None, spawn_order=None) -> tuple:
+    """Everything a :class:`WaveLoop` capture fixes, for the arguments of
+    :func:`render_batch` (its first sample aside), from host values alone:
+    no device read.  The device, the flags and the configuration; the
+    argument block's by-value fields that the call sets (slots, steps,
+    chunk, exit and control denominators, stride, pixel block, samples,
+    work items); the BVH object, and every tensor of the BVH, scene, camera,
+    base key and spawn order by identity and ``_version`` (a table
+    modified in place, or a new scene object, is another key).  A spawn
+    order that is not a tensor matches no key."""
+    from .traverse import ADAPTIVE_EXIT_DEN, wave_chunk
+    dev = scene.sph_c0.device
+    chunk, npix, _, R, stride, items_total = WaveEngine.pool(
+        cfg, dev, n_samples, queue_size, sample_stride, n_pix)
+    steps = int(steps_per_wave)
+    if spawn_order is not None:
+        spawn_order = _Same(spawn_order if isinstance(spawn_order,
+                                                      torch.Tensor)
+                            else object())
+    return (str(dev), flags, cfg, int(n_samples), R, steps,
+            wave_chunk(steps, chunk) if steps > 0 else 1, ADAPTIVE_EXIT_DEN,
+            int(ctrl_den), stride, npix, int(pix_offset), items_total,
+            spawn_order, _Same(bvh), *_tensor_fields(bvh),
+            *_tensor_fields(scene), *_tensor_fields(cam), _Same(base_key))
+
+
+CAPTURES = 0         # WaveLoop captures made in this process
+_KEPT: WaveLoop | None = None
+_PROFILED = False    # wave_loop has run under torch.profiler in this process
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def wave_loop(scene, flags, bvh, cam, cfg: RenderConfig, accum, start_sample,
+              n_samples: int, base_key, queue_size: int, steps_per_wave: int,
+              ctrl_den: int, sample_stride: int | None = None,
+              pix_offset: int = 0, n_pix: int | None = None,
+              spawn_order=None) -> WaveLoop:
+    """The :class:`WaveLoop` of :func:`render_batch`'s arguments, loaded
+    with the batch's frame ``accum`` and first sample: the one kept from an
+    earlier batch where :func:`loop_key` matches, else a capture over a new
+    engine and state (``init_state(accum)``), which replaces it, the old
+    graph freed first.  The span ``wavefront.setup`` times the lookup and
+    the copy-in, or the engine and state.
+
+    A graph instantiated before the profiler's device tracer (CUPTI) first
+    ran in the process shows it each kernel of the WHILE body once a
+    launch, not once a wave (measured on the H100, PERF.md): so the first
+    batch that runs under ``torch.profiler`` recaptures a loop captured
+    before any did, and the trace sees every kernel run."""
+    global _KEPT, _PROFILED
+    with span("wavefront.setup"):
+        _PROFILED = _PROFILED or _profiling()
+        key = loop_key(scene, flags, bvh, cam, cfg, n_samples, base_key,
+                       queue_size, steps_per_wave, ctrl_den, sample_stride,
+                       pix_offset, n_pix, spawn_order)
+        if (_KEPT is not None and _KEPT.key == key
+                and (_KEPT.traced or not _PROFILED)):
+            _KEPT.load(accum, start_sample)
+            return _KEPT
+        clear_wave_loops()
+        eng = WaveEngine(scene, flags, bvh, cam, cfg, start_sample,
+                         n_samples, base_key, queue_size, steps_per_wave,
+                         ctrl_den, sample_stride, pix_offset, n_pix,
+                         spawn_order=spawn_order)
+        ws = eng.init_state(accum)
+    _KEPT = WaveLoop(eng, ws, key)
+    return _KEPT
+
+
+def clear_wave_loops() -> None:
+    """Free the kept :class:`WaveLoop`."""
+    global _KEPT
+    kept, _KEPT = _KEPT, None
+    if kept is not None:
+        kept.free()
+
+
+def run_waves_graph(eng: WaveEngine, ws: WaveState) -> int:
+    """Run waves on the device until no work is left, through a loop graph
+    (:class:`WaveLoop`) captured for this call alone and freed after it;
+    returns the host reads (1).  The graph first resets ``ws``'s slots,
+    counters, depth histogram and per-pixel path counts to
+    :meth:`WaveEngine.init_state`'s values (``accum`` is kept), so ``ws``
+    is a fresh pool.  This is the capture-per-batch form of the loop, a
+    comparison path: :func:`render_batch` keeps one graph per
+    configuration and replays it per batch (:func:`wave_loop`)."""
+    loop = WaveLoop(eng, ws)
+    try:
+        loop.run()
     finally:
-        with span("wavefront.graph_free"):
-            lib.ptt_wave_loop_free(loop)
-    kernels.count(per_wave, int(host[C_WAVES] - host[-1]) + 1)
-    if eng.live(host):
-        raise RuntimeError(f"wavefront did not drain within {MAX_WAVES} waves")
+        loop.free()
     return 1
 
 
@@ -458,21 +639,34 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     result are the block's ``(n_pix, 3)``.  ``plain=True`` runs the plain-torch
     twins on whatever device the tensors are on (the comparison path, a
     host loop); the default runs the CUDA kernels in the device wave loop
-    (:func:`run_waves_graph`) for CUDA tensors.  With ``with_stats`` the
+    for CUDA tensors: the kept :class:`WaveLoop` of this configuration
+    (:func:`wave_loop`), replayed, whose result and stats are copied out of
+    the state it keeps.  With ``with_stats`` the
     stats dict adds ``pixel_paths`` (finished paths per pixel),
     ``stack_overflows`` (must be 0) and ``host_reads``.  ``spawn_order``
     (:func:`tile_spawn_order`, one entry per block pixel) permutes the
     order in which work items take pixels; the sample set stays the same.
     """
-    with span("wavefront.setup"):
-        eng = WaveEngine(scene, flags, bvh, cam, cfg, start_sample,
+    if scene.sph_c0.device.type == "cuda" and not plain:
+        loop = wave_loop(scene, flags, bvh, cam, cfg, accum, start_sample,
                          n_samples, base_key, queue_size, steps_per_wave,
                          ctrl_den, sample_stride, pix_offset, n_pix,
-                         spawn_order=spawn_order)
-        ws = eng.init_state(accum)
-    if ws.ctr.is_cuda and not plain:
-        reads = run_waves_graph(eng, ws)
+                         spawn_order)
+        loop.run()
+        eng, reads = loop.eng, 1
+        out = {"accum": loop.ws.accum.clone()}
+        if with_stats:
+            out.update(ctr=loop.ws.ctr.clone(),
+                       depth_hist=loop.ws.depth_hist.clone(),
+                       pix_paths=loop.ws.pix_paths.clone())
+        ws = dataclasses.replace(loop.ws, **out)
     else:
+        with span("wavefront.setup"):
+            eng = WaveEngine(scene, flags, bvh, cam, cfg, start_sample,
+                             n_samples, base_key, queue_size, steps_per_wave,
+                             ctrl_den, sample_stride, pix_offset, n_pix,
+                             spawn_order=spawn_order)
+            ws = eng.init_state(accum)
         reads = run_waves(eng, ws, plain=plain)
     image = (ws.accum if n_pix is not None
              else ws.accum.reshape(cfg.height, cfg.width, 3))

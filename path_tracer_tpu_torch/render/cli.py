@@ -10,7 +10,8 @@ Renders on the CUDA card unless ``--cpu`` asks for the plain-torch twins on
 the CPU; with no card and no ``--cpu`` it exits 2.  Prints the scene line,
 each batch, and a closing JSON line ``{"out": ..., **stats.summary(cfg),
 "spans": ...}``, the host-time spans of :mod:`..utils.spans` in
-milliseconds (``--profile``'s ``trace.json`` holds them too).
+milliseconds (``--profile``'s ``trace.json`` holds them too) and the wave
+loop graph's captures per batch.
 ``--coordinator/--num-processes/--process-id`` run one rank of a
 ``torch.distributed`` job (every rank the same command with its own
 ``--process-id``): the ranks render data-parallel through
@@ -160,6 +161,7 @@ def main(argv=None) -> int:
     if args.coordinator:
         return _main_distributed(args, world, cam, device)
 
+    from ..ops import wavefront
     from ..ops.types import RenderConfig
     from ..utils import spans
     from .renderer import Renderer
@@ -188,6 +190,7 @@ def main(argv=None) -> int:
                  autotune=args.autotune)
 
     spans.reset()
+    captures0 = wavefront.CAPTURES
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU] + (
@@ -201,17 +204,24 @@ def main(argv=None) -> int:
 
     r.write_image(args.out)
     print(json.dumps({"out": args.out, **r.stats.summary(r.cfg),
-                      "spans": spans_ms(spans.snapshot())}))
+                      "spans": spans_ms(spans.snapshot(),
+                                        wavefront.CAPTURES - captures0)}))
     return 0
 
 
-def spans_ms(snap: dict) -> dict:
+def spans_ms(snap: dict, captures: int = 0) -> dict:
     """:func:`..utils.spans.snapshot` in milliseconds: ``{name: {"count",
-    "total_ms", "self_ms"}}``."""
-    return {name: {"count": a["count"],
-                   "total_ms": round(1e3 * a["total_s"], 3),
-                   "self_ms": round(1e3 * a["self_s"], 3)}
-            for name, a in snap.items()}
+    "total_ms", "self_ms"}}``, and ``wavefront.captures``: ``{"count",
+    "per_batch"}``, the device wave loop's graph captures
+    (``wavefront.CAPTURES``) over the ``renderer.batch`` spans."""
+    out = {name: {"count": a["count"],
+                  "total_ms": round(1e3 * a["total_s"], 3),
+                  "self_ms": round(1e3 * a["self_s"], 3)}
+           for name, a in snap.items()}
+    batches = snap.get("renderer.batch", {}).get("count", 0)
+    out["wavefront.captures"] = {
+        "count": captures, "per_batch": captures / batches if batches else 0.0}
+    return out
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 * ``--list-scenes`` prints JAX's list.
 * One ``--cpu`` render of cornell_box (24x24, 2 spp, the wavefront): the
-  closing JSON line has JAX's keys and the port's ``spans``, and the same
+  closing JSON line has JAX's keys and the port's ``spans`` (with no wave
+  loop graph captured on the CPU), and the same
   ``samples`` and ``rays_traced`` (the Cornell scenes' counters match
   exactly); the ``.ppm`` is within 1 of JAX's in every channel (8-bit
   values).
@@ -74,6 +75,8 @@ def test_cpu_render_matches_jax_cli(tmp_path, capsys):
     assert got["samples"] == want["samples"] == 2
     # The port's own host-time spans of this render: two batches, one frame.
     sp = got["spans"]
+    # the CPU twins run no device wave loop: no graph captured
+    assert sp.pop("wavefront.captures") == {"count": 0, "per_batch": 0.0}
     assert sp["renderer.batch"]["count"] == 2
     assert sp["renderer.frame_return"]["count"] == 1
     assert sp["wavefront.setup"]["count"] == 2

@@ -31,6 +31,16 @@
   ``spawn_paths`` on a ragged lane count, a sample read from memory,
   ``frame_dev`` set to this frame's and to another frame's key and camera,
   and with the live list 0.
+* The kept wave loop graph (``wavefront.WaveLoop``) replays every batch of
+  its configuration: K2 built by g++ reads the batch's first sample from
+  memory (``sample_dev``) bit for bit as from the argument block, on
+  single-sample and multi-sample work items; the graph's reset built by
+  g++ (``wave_reset``) puts a mid-flight pool back to ``init_state``'s
+  values, ``accum`` untouched; ``wavefront.loop_key`` ignores the first
+  sample and changes with everything else a capture fixes (every other
+  by-value field of the argument block, the device, a new or modified
+  scene tensor), without a device read; ``wavefront.wave_loop`` keeps one
+  loop, reloads it on a hit and frees it on a miss.
 
 32x18, 2 spp, on vol2_final_scene(sphere_cluster=20) and cornell_box.
 """
@@ -54,8 +64,8 @@ from path_tracer_tpu_torch.ops import kernels
 from path_tracer_tpu_torch.ops import traverse as ttr
 from path_tracer_tpu_torch.ops import wavefront as twf
 from path_tracer_tpu_torch.ops.shade import SceneFlags as TFlags
-from path_tracer_tpu_torch.ops.types import (C_CTRLS, C_DO_CTRL, C_WALK_STEPS,
-                                             C_WAVES)
+from path_tracer_tpu_torch.ops.types import (C_CTRLS, C_DO_CTRL, C_SPAWNED,
+                                             C_WALK_STEPS, C_WAVES)
 from path_tracer_tpu_torch.ops.types import RenderConfig as TCfg
 
 from test_torch_wavefront import SCHED_GAP
@@ -456,3 +466,191 @@ def test_trip_graph_config_ignores_key_and_camera(name):
     deeper = dataclasses.replace(cfg, max_depth=cfg.max_depth + 1)
     assert it.TripGraph.config(
         it.TiledEngine(scene, flags, bvh, cam, deeper, key), n) != base
+
+
+@pytest.mark.parametrize("stride", [1, 2], ids=["single_sample",
+                                                "multi_sample"])
+def test_emulated_spawn_reads_first_sample_from_memory(stride):
+    """K2 built by g++ on the waves of a pool whose batch starts at sample
+    5: with ``sample_dev`` pointing at 5 (and ``start_sample`` 0 in the
+    block) it leaves every slot, sample, window end and counter as with
+    ``start_sample`` 5 by value, bit for bit."""
+    _needs_cxx()
+    k2 = kernels._emu_fn(kernels.host_emulation_lib(), "spawn")
+    scene, flags, bvh, cam, cfg, key = _port("cornell_box")
+    start, n = 5, 4
+    eng = twf.WaveEngine(scene, flags, bvh, cam, cfg, start, n, key,
+                         queue_size=256, steps_per_wave=8, ctrl_den=8,
+                         sample_stride=stride)
+    assert eng.multi == (stride > 1)
+    ws = eng.init_state(torch.zeros((H, W, 3)))
+    first = torch.tensor([start], dtype=torch.int32)
+    acted = 0
+    while eng.live(ws.ctr):                # the twins' waves, K2 emulated
+        for op in twf.PLAIN[:3]:
+            op(eng, ws)
+        by_value, from_memory = ws.clone(), ws.clone()
+        k2(kernels.fill_args(eng, by_value))
+        b = kernels.fill_args(eng, from_memory)
+        b.start_sample, b.sample_dev = 0, kernels._ptr(first)
+        k2(b)
+        assert _same_state(by_value, from_memory)
+        acted += not _same_state(by_value, ws)
+        ws = by_value
+    assert int(ws.ctr[C_SPAWNED]) >= eng.items_total
+    assert acted > eng.items_total // eng.R
+    lo, hi = int(ws.sample.min()), int(ws.sample.max())
+    assert start <= lo <= hi < start + n
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_emulated_wave_reset_restores_init_state(name):
+    """The loop graph's reset built by g++ on a pool after a few waves of
+    the twins (slots busy, counters, depth histogram and per-pixel path
+    counts non-zero): every field equals ``init_state``'s, and ``accum``
+    keeps the frame."""
+    _needs_cxx()
+    reset = kernels._emu_fn(kernels.host_emulation_lib(), "wave_reset")
+    eng, ws = _wave_engine(_port(name))
+    for _ in range(12):
+        for op in twf.PLAIN:
+            op(eng, ws)
+    assert bool(ws.occupied.any()) and int(ws.pix_paths.sum()) > 0
+    assert int(ws.depth_hist.sum()) > 0 and int(ws.ctr[C_WAVES]) > 0
+    frame = ws.accum.clone()
+    reset(kernels.fill_args(eng, ws))
+    assert torch.equal(ws.accum, frame)
+    assert _same_state(ws, eng.init_state(frame))
+
+
+LOOP_KW = dict(queue_size=256, steps_per_wave=8, ctrl_den=8)
+# A change to render_batch's arguments, or to the scene, and whether the
+# kept loop graph still serves it.
+KEY_CASES = {
+    "repeat": ({}, True), "start_sample": ({"start_sample": 8}, True),
+    "queue": ({"queue_size": 128}, False),
+    "steps": ({"steps_per_wave": 12}, False),
+    "ctrl_den": ({"ctrl_den": 4}, False),
+    "stride": ({"sample_stride": 2}, False),
+    "n_samples": ({"n_samples": 3}, False),
+    "pix_block": ({"pix_offset": 64, "n_pix": 128}, False),
+    "device": ("meta", False), "scene_in_place": ("in_place", False),
+    "new_leaf": ("detached", False)}
+
+
+def _key_args(port, start_sample=0, n_samples=SPP, **kw):
+    scene, flags, bvh, cam, cfg, key = port
+    return (scene, flags, bvh, cam, cfg, start_sample, n_samples, key,
+            dict(LOOP_KW, **kw))
+
+
+def _loop_key(port, **kw):
+    scene, flags, bvh, cam, cfg, _, n, key, rest = _key_args(port, **kw)
+    return twf.loop_key(scene, flags, bvh, cam, cfg, n, key, **rest)
+
+
+def _block_fields(port, **kw):
+    """Every by-value field of the argument block the capture would take."""
+    *head, rest = _key_args(port, **kw)
+    eng = twf.WaveEngine(*head, **rest)
+    return dict(kernels.value_fields(kernels.fill_args(eng), skip=()))
+
+
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_wave_loop_key_fixes_what_a_capture_reads(case, monkeypatch):
+    """``wavefront.loop_key``, the kept loop graph's key, against a base
+    call: equal where the capture serves the call (the same arguments, or
+    another first sample, the one by-value field of the argument block
+    that may differ); different for any other by-value field of the block
+    (queue, steps, control denominator, stride, samples, pixel block),
+    another device, a scene tensor modified in place or replaced by a new
+    one.  Computed without reading tensor data: every read raises here."""
+    port = _port("vol2_final_scene")
+    change, serves = KEY_CASES[case]
+    base_fields = _block_fields(port)
+    other = port
+    if change == "meta":
+        scene, flags, bvh, cam, cfg, key = port
+        other = (scene.to("meta"), flags, bvh.to("meta"), cam.to("meta"),
+                 cfg, key.to("meta"))
+    elif change == "in_place":
+        port[0].tex_c1[0, 0] += 0.25
+    elif change == "detached":
+        other = (dataclasses.replace(port[0], tex_c1=port[0].tex_c1.detach()),
+                 *port[1:])
+    kw = change if isinstance(change, dict) else {}
+    if isinstance(change, dict):
+        fields = _block_fields(other, **kw)
+        moved = {f for f in fields if fields[f] != base_fields[f]}
+        if serves:
+            assert moved <= {"start_sample"}
+        else:
+            assert moved - {"start_sample"}
+    base = _loop_key(_port("vol2_final_scene")) if change == "in_place" \
+        else _loop_key(port)
+
+    def no_read(*a, **k):
+        raise AssertionError("loop_key read tensor data")
+    for name in ("item", "tolist", "cpu", "numpy", "__int__", "__float__",
+                 "__bool__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, no_read)
+    got = _loop_key(other, **kw)
+    monkeypatch.undo()
+    assert (got == base) == serves
+
+
+def test_wave_loop_keeps_one_loop(monkeypatch):
+    """``wavefront.wave_loop`` with the capture replaced by a stand-in (no
+    card here): the first call builds a loop over a new engine and state;
+    a repeat with another first sample and frame reloads that loop, with
+    no device read; a scene tensor modified in place frees it and builds
+    another; the first batch under ``torch.profiler`` rebuilds a loop built
+    before any, and the next reloads it; ``clear_wave_loops`` frees the
+    kept one."""
+    made = []
+
+    class Loop:
+        def __init__(self, eng, ws, key=None):
+            self.eng, self.ws, self.key = eng, ws, key
+            self.traced = twf._PROFILED
+            self.loads, self.freed = [], False
+            made.append(self)
+
+        def load(self, accum, start_sample):
+            self.loads.append((accum, start_sample))
+
+        def free(self):
+            self.freed = True
+
+    monkeypatch.setattr(twf, "WaveLoop", Loop)
+    monkeypatch.setattr(twf, "_KEPT", None)
+    monkeypatch.setattr(twf, "_PROFILED", False)
+    scene, flags, bvh, cam, cfg, key = _port("cornell_box")
+
+    def call(start, accum):
+        return twf.wave_loop(scene, flags, bvh, cam, cfg, accum, start, SPP,
+                             key, **LOOP_KW)
+
+    frame = torch.zeros((H, W, 3))
+    first = call(0, frame)
+    assert made == [first] and first.loads == []
+    assert first.eng.start_sample == 0 and torch.equal(first.ws.accum,
+                                                       frame.reshape(-1, 3))
+    nxt = torch.ones((H, W, 3))
+    with monkeypatch.context() as m:
+        for name in ("item", "tolist", "cpu", "numpy", "__int__"):
+            m.setattr(torch.Tensor, name, lambda *a, **k: 1 / 0)
+        assert call(SPP, nxt) is first
+    assert first.loads == [(nxt, SPP)] and len(made) == 1
+    scene.tex_c1[0, 0] += 0.25
+    second = call(2 * SPP, nxt)
+    assert made == [first, second] and first.freed and not second.freed
+    assert second.eng.start_sample == 2 * SPP
+    monkeypatch.setattr(twf, "_profiling", lambda: True)
+    third = call(0, frame)
+    assert made == [first, second, third] and second.freed and third.traced
+    assert call(SPP, nxt) is third and third.loads == [(nxt, SPP)]
+    monkeypatch.setattr(twf, "_profiling", lambda: False)
+    assert call(0, frame) is third
+    twf.clear_wave_loops()
+    assert third.freed and twf._KEPT is None
