@@ -205,22 +205,25 @@ def main(argv=None) -> int:
     r.write_image(args.out)
     print(json.dumps({"out": args.out, **r.stats.summary(r.cfg),
                       "spans": spans_ms(spans.snapshot(),
-                                        wavefront.CAPTURES - captures0)}))
+                                        wavefront.CAPTURES - captures0,
+                                        spans.counters())}))
     return 0
 
 
-def spans_ms(snap: dict, captures: int = 0) -> dict:
+def spans_ms(snap: dict, captures: int = 0,
+             counts: dict | None = None) -> dict:
     """:func:`..utils.spans.snapshot` in milliseconds: ``{name: {"count",
-    "total_ms", "self_ms"}}``, and ``wavefront.captures``: ``{"count",
+    "total_ms", "self_ms"}}``; ``wavefront.captures``: ``{"count",
     "per_batch"}``, the device wave loop's graph captures
-    (``wavefront.CAPTURES``) over the ``renderer.batch`` spans."""
+    (``wavefront.CAPTURES``) over the ``renderer.batch`` spans; and each of
+    ``counts`` (:func:`..utils.spans.counters`) the same way."""
     out = {name: {"count": a["count"],
                   "total_ms": round(1e3 * a["total_s"], 3),
                   "self_ms": round(1e3 * a["self_s"], 3)}
            for name, a in snap.items()}
     batches = snap.get("renderer.batch", {}).get("count", 0)
-    out["wavefront.captures"] = {
-        "count": captures, "per_batch": captures / batches if batches else 0.0}
+    for name, n in {"wavefront.captures": captures, **(counts or {})}.items():
+        out[name] = {"count": n, "per_batch": n / batches if batches else 0.0}
     return out
 
 

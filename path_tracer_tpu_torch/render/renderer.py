@@ -35,7 +35,7 @@ from ..ops.shade import SceneFlags
 from ..ops.types import RenderConfig
 from ..utils import rng
 from ..utils.image import write_png, write_ppm
-from ..utils.spans import span
+from ..utils.spans import count, span
 
 
 @dataclass
@@ -264,12 +264,17 @@ class Renderer:
                 self.save_checkpoint(checkpoint_path)
 
     def _add_stats(self, b: dict) -> None:
+        """Add a batch's counters to ``self.stats``; on the wavefront also
+        to the counters of :mod:`..utils.spans`: ``wavefront.waves``,
+        ``wavefront.live_lanes`` (occupied slots at each wave's start,
+        summed) and ``wavefront.slot_waves`` (slots x waves)."""
         s = self.stats
+        occ, waves = int(b["occ_sum"]), int(b["waves"])
         s.paths += int(b["paths"])
         s.rays += int(b["rays"])
         s.depth_sum += int(b["depth_sum"])
-        s.occ_sum += int(b["occ_sum"])
-        s.waves += int(b["waves"])
+        s.occ_sum += occ
+        s.waves += waves
         s.ctrls += int(b["ctrls"])
         s.slots = int(b["slots"])
         s.host_reads += int(b["host_reads"])
@@ -278,6 +283,10 @@ class Renderer:
             raise RuntimeError("traversal stack overflowed (pushes dropped)")
         hist = b["depth_hist"].cpu().numpy().astype(np.int64)
         s.depth_hist = hist if s.depth_hist is None else s.depth_hist + hist
+        if self.engine == "wavefront":
+            count("wavefront.waves", waves)
+            count("wavefront.live_lanes", occ)
+            count("wavefront.slot_waves", s.slots * waves)
 
     def image(self) -> np.ndarray:
         """Mean radiance so far (H, W, 3) float32."""

@@ -22,6 +22,11 @@ gaps the spans are there to name.
 :func:`snapshot` returns the aggregates as a plain dict; :func:`reset`
 clears them.  The port renders from one thread; spans opened from several
 threads at once would share one stack.
+
+Beside the spans, ``count(name, n)`` adds ``n`` to a named counter (work
+the host already holds, such as the wave loop's counters read back once a
+batch); :func:`counters` returns ``{name: total}``, and :func:`reset`
+clears them with the spans.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ _profiling = torch._C._autograd._profiler_enabled
 _record = torch._C._profiler._RecordFunctionFast
 
 SPANS: dict = {}      # name -> [count, total_s, self_s, parent]
+COUNTERS: dict = {}   # name -> total
 _STACK: list = []     # the open spans, innermost last
 
 
@@ -82,6 +88,18 @@ def snapshot() -> dict:
             for name, (c, t, s, p) in SPANS.items()}
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name``."""
+    COUNTERS[name] = COUNTERS.get(name, 0) + n
+
+
+def counters() -> dict:
+    """The counters so far: ``{name: total}``, a copy."""
+    return dict(COUNTERS)
+
+
 def reset() -> None:
-    """Clear the aggregates (spans still open keep timing)."""
+    """Clear the aggregates and the counters (spans still open keep
+    timing)."""
     SPANS.clear()
+    COUNTERS.clear()

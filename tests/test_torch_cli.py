@@ -77,6 +77,10 @@ def test_cpu_render_matches_jax_cli(tmp_path, capsys):
     sp = got["spans"]
     # the CPU twins run no device wave loop: no graph captured
     assert sp.pop("wavefront.captures") == {"count": 0, "per_batch": 0.0}
+    # the wave pool's counters (utils/spans.py counters()), summed
+    for name in ("wavefront.waves", "wavefront.live_lanes",
+                 "wavefront.slot_waves"):
+        assert sp.pop(name)["count"] > 0, name
     assert sp["renderer.batch"]["count"] == 2
     assert sp["renderer.frame_return"]["count"] == 1
     assert sp["wavefront.setup"]["count"] == 2

@@ -10,6 +10,11 @@
 * On a 24x24 Cornell box, for both engines: one ``renderer.batch`` a
   batch, one ``renderer.render`` and one ``renderer.frame_return`` a
   ``render()`` call.
+* Counters beside the spans: ``count`` adds, ``counters()`` is a copy,
+  ``reset()`` clears them and ``snapshot()`` leaves them out; a wavefront
+  render counts its pool (waves, live lanes, slot-waves) as its batches'
+  ``RenderStats`` fields, the megakernel counts nothing, and the CLI's
+  ``"spans"`` carries the counters.
 """
 import contextlib
 
@@ -178,3 +183,73 @@ def test_one_batch_span_a_batch_one_frame_return_a_render(engine):
     # No loop graph on the CPU: the wavefront runs its host loop there.
     assert not {"wavefront.graph_build", "wavefront.wait",
                 "wavefront.graph_free"} & set(snap)
+
+
+# --- counters beside the spans ------------------------------------------
+
+POOL = ("wavefront.waves", "wavefront.live_lanes", "wavefront.slot_waves")
+
+
+def test_counters_add_up_and_reset_clears_them():
+    spans.count("a", 3)
+    spans.count("a", 4)
+    spans.count("b", 0)
+    with spans.span("s"):
+        pass
+    got = spans.counters()
+    assert got == {"a": 7, "b": 0}
+    got["a"] = 99                               # a copy, not the registry
+    assert spans.counters()["a"] == 7
+    assert set(spans.snapshot()) == {"s"}       # snapshot() holds spans only
+    spans.reset()
+    assert spans.counters() == {} and spans.snapshot() == {}
+
+
+def test_a_wavefront_render_counts_its_pool(monkeypatch):
+    """The counters are the batches' own ``occ_sum``, ``waves`` and
+    ``slots`` x ``waves``, as ``RenderStats`` sums them."""
+    world, cam = _cornell(16)
+    r = ptt.Renderer(world, cam, engine="wavefront", device="cpu")
+    real, batches = trend._render_batch, []
+
+    def keep(*a, **kw):
+        accum, st = real(*a, **kw)
+        batches.append({k: int(st[k]) for k in ("occ_sum", "waves", "slots")})
+        return accum, st
+
+    monkeypatch.setattr(trend, "_render_batch", keep)
+    r.render(spp=3, batch=2)
+    assert len(batches) == 2
+    got = spans.counters()
+    assert got == {
+        "wavefront.waves": r.stats.waves,
+        "wavefront.live_lanes": r.stats.occ_sum,
+        "wavefront.slot_waves": sum(b["slots"] * b["waves"] for b in batches)}
+    assert r.stats.waves == sum(b["waves"] for b in batches) > 0
+    assert 0 < got["wavefront.live_lanes"] <= got["wavefront.slot_waves"]
+
+
+def test_the_megakernel_counts_no_pool():
+    world, cam = _cornell(16)
+    ptt.Renderer(world, cam, engine="megakernel", device="cpu").render(
+        spp=2, batch=1)
+    assert spans.counters() == {}
+    assert spans.snapshot()["renderer.batch"]["count"] == 2
+
+
+def test_the_clis_spans_hold_the_pool_counters(tmp_path, capsys):
+    import json
+
+    from path_tracer_tpu_torch.render import cli as tcli
+    assert tcli.main(["--cpu", "--scene", "cornell_box", "--width", "16",
+                      "--spp", "2", "--batch", "1", "--max-depth", "6",
+                      "--out", str(tmp_path / "cb.ppm")]) == 0
+    line = [x for x in capsys.readouterr().out.splitlines()
+            if x.startswith("{")][-1]
+    sp = json.loads(line)["spans"]
+    want = spans.counters()
+    assert set(want) == set(POOL)
+    for name in POOL:
+        assert sp[name] == {"count": want[name],
+                            "per_batch": want[name] / 2}, name
+        assert want[name] > 0
