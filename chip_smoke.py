@@ -11,7 +11,8 @@ Phases (each prints its own line; any failure exits non-zero):
                 resources.  The last phase line before the JSON lines
                 gives chip_smoke's total seconds.
 3. kernels    — at the full configuration's shapes (vol2_final_scene,
-                800x450, depth 10, 32768 slots, 32 steps per wave) hold each
+                800x450, depth 10, 32 steps per wave, the pool phase 4's
+                Renderer runs: K1's resident lanes on the card) hold each
                 wavefront kernel against its plain-torch twin on the same
                 wave state (K1 with JAX's adaptive wave exit at chunk 4:
                 lanes and counters exact, one cooperative launch per
@@ -1371,6 +1372,7 @@ def kept_loop_phase(card):
     import path_tracer_tpu_torch as ptt
     from path_tracer_tpu_torch.ops import kernels
     from path_tracer_tpu_torch.ops import wavefront as wf
+    from path_tracer_tpu_torch.render.renderer import wave_preset
     from path_tracer_tpu_torch.utils import rng
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -1380,9 +1382,11 @@ def kept_loop_phase(card):
                                           224, 32, 12, dev)))
     for name, (scene, flags, bvh, cam_a, cfg) in cases:
         key = rng.key(7, device=dev)
-        big = bvh.nodes.shape[0] >= 256
-        kw = dict(queue_size=32768 if big else 8192,
-                  steps_per_wave=32 if big else 12, ctrl_den=8)
+        # the pool and steps the Renderer runs for a batch of KEPT_BATCH
+        q, s, _ = wave_preset(cfg, bvh.nodes.shape[0],
+                              KEPT_BATCH * cfg.width * cfg.height,
+                              kernels.resident_lanes(dev, bvh.branching))
+        kw = dict(queue_size=q, steps_per_wave=s, ctrl_den=8)
         shape = (cfg.height, cfg.width, 3)
         starts = range(0, cfg.samples_per_pixel, KEPT_BATCH)
 
@@ -1567,7 +1571,7 @@ def main() -> int:
                                                  MAT_METAL, MAT_SSS_SIMPLE,
                                                  MAT_SSS_VOLUMETRIC, PH_EXIT,
                                                  TEX_NOISE, RenderConfig)
-    from path_tracer_tpu_torch.render.renderer import Renderer
+    from path_tracer_tpu_torch.render.renderer import Renderer, wave_preset
     from path_tracer_tpu_torch.scripts.graph_timer import N_GRAPH, graph_ms
     from path_tracer_tpu_torch.utils import rng
 
@@ -1631,8 +1635,12 @@ def main() -> int:
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=SPP,
                        max_depth=DEPTH)
     key = rng.key(0, device=dev)
+    # the pool and steps phase 4's Renderer runs for its one-batch frame
+    # (on the H100: K1's resident lanes, stride 1)
+    POOL, STEPS, _ = wave_preset(cfg, bvh.nodes.shape[0], SPP * W * H,
+                                 kernels.resident_lanes(dev, bvh.branching))
     eng = wf.WaveEngine(scene, flags, bvh, cam_a, cfg, 0, SPP, key,
-                        queue_size=32768, steps_per_wave=32, ctrl_den=8)
+                        queue_size=POOL, steps_per_wave=STEPS, ctrl_den=8)
     phase("kernels", f"R={eng.R} stride={eng.stride} sd={eng.sd} "
           f"nodes={tuple(bvh.nodes.shape)} max_stack={bvh.max_stack}")
     ws = eng.init_state(torch.zeros((H, W, 3), device=dev))
@@ -1935,10 +1943,11 @@ def main() -> int:
     ca_q = cam_q.initialize(device=dev)
     cf_q = RenderConfig(width=QW, height=QH, samples_per_pixel=QSPP,
                         max_depth=QDEPTH)
-    big = bv_q.nodes.shape[0] >= 256
+    # the pool and steps of phase 6's one-batch frame through the Renderer
+    q_q, s_q, _ = wave_preset(cf_q, bv_q.nodes.shape[0], QSPP * QW * QH,
+                              kernels.resident_lanes(dev, bv_q.branching))
     qeng = wf.WaveEngine(sc_q, fl_q, bv_q, ca_q, cf_q, 0, QSPP, key,
-                         queue_size=32768 if big else 8192,
-                         steps_per_wave=32 if big else 12, ctrl_den=8)
+                         queue_size=q_q, steps_per_wave=s_q, ctrl_den=8)
     qws = qeng.init_state(torch.zeros((QH, QW, 3), device=dev))
     for _ in range(24):                       # a mid-flight pool
         for op in wf.KERNELS:
@@ -2717,7 +2726,7 @@ def main() -> int:
 
     def fresh_pool():
         e = wf.WaveEngine(scene, flags, bvh, cam_a, cfg, 0, SPP, key,
-                          queue_size=32768, steps_per_wave=32, ctrl_den=8)
+                          queue_size=POOL, steps_per_wave=STEPS, ctrl_den=8)
         return e, e.init_state(zero)
 
     def wave_frame(loop):

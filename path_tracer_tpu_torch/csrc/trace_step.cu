@@ -288,8 +288,10 @@ __device__ __forceinline__ bool wave_runs(const WaveArgs& a, bool writer) {
 }
 
 #ifndef PTT_HOST_EMULATION
-// One wave (see the top of the file).  Two blocks an SM hold the main
-// pool's grid (32,768 slots, 256 blocks); the bound lets ptxas go past 128
+// One wave (see the top of the file).  The card reports how many blocks an
+// SM holds (resident_blocks; three on the H100 at either node width, with
+// 130 and 162 registers), and the renderer sizes the pool to that grid
+// (ptt_trace_step_resident_lanes); the bound of two lets ptxas go past 128
 // registers, where the loop's device call otherwise makes it spill.
 template <int K>
 __global__ void __launch_bounds__(PTT_K1_BLOCK, 2)
@@ -341,13 +343,12 @@ __global__ void __launch_bounds__(PTT_K1_BLOCK, 2)
   }
 }
 
-// A cooperative launch: as many blocks as the slots need, at most
-// as many of the node width's instantiation as fit resident on the card
-// (asked once per instantiation; the wrapper counts one launch).
+// The blocks of the node width's instantiation that fit resident on the
+// card (asked once per instantiation), or a negative CUDA error.
 template <int K>
-static int launch_trace_step(const WaveArgs* a, void* stream) {
-  static int resident_blocks = 0;
-  if (resident_blocks == 0) {
+static int resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -355,15 +356,35 @@ static int launch_trace_step(const WaveArgs* a, void* stream) {
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, trace_step_kernel<K>, PTT_K1_BLOCK, 0);
-    if (err != cudaSuccess) return (int)err;
-    resident_blocks = per_sm * sms;
+    if (err != cudaSuccess) return -(int)err;
+    blocks = per_sm * sms;
   }
+  return blocks;
+}
+
+// A cooperative launch: as many blocks as the slots need, at most
+// as many of the node width's instantiation as fit resident on the card
+// (the wrapper counts one launch).
+template <int K>
+static int launch_trace_step(const WaveArgs* a, void* stream) {
+  const int resident = resident_blocks<K>();
+  if (resident < 0) return -resident;
   const int need = (a->R + PTT_K1_BLOCK - 1) / PTT_K1_BLOCK;
-  const int grid = need < resident_blocks ? need : resident_blocks;
+  const int grid = need < resident ? need : resident;
   void* args[] = {(void*)a};
   return (int)cudaLaunchCooperativeKernel((void*)trace_step_kernel<K>,
                                           dim3(grid), dim3(PTT_K1_BLOCK),
                                           args, 0, (cudaStream_t)stream);
+}
+
+// The slots K1 keeps resident at node width `branching`: resident blocks x
+// PTT_K1_BLOCK, the pool that fills K1's resident grid; a negative
+// CUDA error, or -cudaErrorInvalidValue for another width.
+extern "C" int ptt_trace_step_resident_lanes(int branching) {
+  const int blocks = branching == 4   ? resident_blocks<4>()
+                     : branching == 8 ? resident_blocks<8>()
+                                      : -(int)cudaErrorInvalidValue;
+  return blocks < 0 ? blocks : blocks * PTT_K1_BLOCK;
 }
 
 extern "C" int ptt_launch_trace_step(const WaveArgs* a, void* stream) {

@@ -530,6 +530,21 @@ def launch_args(name: str, args: WaveArgs, device, stream=None) -> None:
     count({name: 1, **({inst: 1} if inst else {})})
 
 
+def resident_lanes(device, branching: int) -> int | None:
+    """The slots K1 keeps resident on the card at node width ``branching``
+    (``ptt_trace_step_resident_lanes``: the blocks of its instantiation the
+    card holds at once, times 128 threads; asked of the card once per
+    width), or None on a ``device`` that is not a card (the CPU twins, the
+    g++ build)."""
+    if torch.device(device).type != "cuda":
+        return None
+    n = library("trace_step").ptt_trace_step_resident_lanes(int(branching))
+    if n <= 0:
+        raise RuntimeError(f"K1's resident lanes at K = {branching}: CUDA "
+                           f"error {-n}")
+    return n
+
+
 def instance(name: str, a: WaveArgs) -> str | None:
     """The instantiation of walking kernel ``name`` that its launcher picks
     for ``a`` (``<name>_k<K>``, ``_global`` where its per-thread arrays live

@@ -4,9 +4,11 @@ Port of ``path_tracer_tpu/render/renderer.py``: scene compile → BVH build →
 device upload in the constructor, then ``render()`` accumulates sample
 batches through the megakernel (:func:`~..ops.integrator.render_batch`, the
 default engine, as in JAX) or the wavefront
-(:func:`~..ops.wavefront.render_batch`, with the JAX ``_render_batch``
-presets: queue 32768 / 32 steps per wave for big scenes, 8192 / 12
-otherwise, or the values :meth:`Renderer.autotune` measured).
+(:func:`~..ops.wavefront.render_batch`, with the pool of
+:func:`wave_preset`: on a card as many slots as K1 keeps resident there,
+on the CPU JAX's ``_render_batch`` presets, queue 32768 / 32 steps per
+wave for big scenes, 8192 / 12 otherwise; or the values
+:meth:`Renderer.autotune` measured).
 
 The progressive state ``(accum, samples_done, key)`` is written to a
 checkpoint (JAX's npz fields) every ``checkpoint_every`` samples, at the end
@@ -29,7 +31,7 @@ import torch
 
 from ..models.camera import Camera
 from ..models.compile import compile_scene
-from ..ops import integrator, wavefront
+from ..ops import integrator, kernels, wavefront
 from ..ops.bvh_build import build_from_scene
 from ..ops.shade import SceneFlags
 from ..ops.types import RenderConfig
@@ -158,8 +160,8 @@ class Renderer:
                           stacklevel=2)
             return None
         cfg = self.cfg
-        big = self.bvh.nodes.shape[0] >= 256
-        preset = tuning_preset(cfg, big)
+        resident = kernels.resident_lanes(self.device, self.bvh.branching)
+        preset = tuning_preset(cfg, self.bvh.nodes.shape[0], resident)
 
         def run_batch(q, s, d, stride, n, with_stats=False):
             scratch = torch.zeros_like(self.accum)
@@ -170,7 +172,7 @@ class Renderer:
 
         _, st = run_batch(*preset, 1, with_stats=True)
         probe = {k: int(st[k]) for k in PROBE_COUNTERS}
-        predicted, reading = predict_tuning(cfg, big, probe)
+        predicted, reading = predict_tuning(cfg, preset, probe)
         if verbose:
             print(f"  autotune probe: occ={reading['occ']:.2f} steps/seg="
                   f"{reading['steps_seg']:.1f} waves={reading['waves']} "
@@ -399,17 +401,40 @@ def pin_tuning(cfg: RenderConfig, q, s, d, stride) -> tuple:
             cfg.sample_stride or stride)
 
 
-def tuning_preset(cfg: RenderConfig, big: bool) -> tuple:
-    """Autotune's preset candidate (JAX ``renderer.py:169-170``): 32768
-    slots, 32 steps, ctrl_den 16 for a BVH of 256 rows or more, else 8192,
-    12, 8; the engine's default stride; pinned as :func:`pin_tuning`."""
-    return pin_tuning(cfg, *((32768, 32, 16, None) if big
-                             else (8192, 12, 8, None)))
+def wave_preset(cfg: RenderConfig, rows: int, items: int | None,
+                resident: int | None) -> tuple:
+    """The wavefront's ``(queue, steps, ctrl_den)`` where neither ``cfg``
+    nor autotune pins them, for a BVH of ``rows`` node rows.
+
+    Steps a wave and ``ctrl_den`` follow the scene's depth: 32 and 16 for a
+    BVH of 256 rows or more, else 12 and 8 (JAX ``renderer.py:169-170``).
+    The pool follows the card: ``resident``, the slots K1 keeps resident
+    there (:func:`..ops.kernels.resident_lanes`), at most the batch's
+    ``items`` (samples x pixels; None: not capped) and :func:`_pool_cap`,
+    so that K1's grid fills the card in each wave.  That is a floor, not
+    the fastest pool: on an H100, pools pinned at twice the resident lanes
+    (K1 then strides over its slots) ran faster still in every wavefront
+    scene measured.  Without a card (``resident`` None) it is JAX's
+    preset, 32768 or 8192 slots by the same rows."""
+    big = rows >= 256
+    queue, steps, den = (32768, 32, 16) if big else (8192, 12, 8)
+    if resident:
+        queue = min(resident, _pool_cap(cfg), items or resident)
+    return queue, steps, den
 
 
-def predict_tuning(cfg: RenderConfig, big: bool, probe: dict):
+def tuning_preset(cfg: RenderConfig, rows: int,
+                  resident: int | None) -> tuple:
+    """Autotune's preset candidate: :func:`wave_preset`'s pool, steps and
+    ``ctrl_den`` (the pool the untuned batches run) with the engine's
+    default stride, pinned as :func:`pin_tuning`."""
+    return pin_tuning(cfg, *wave_preset(cfg, rows, None, resident), None)
+
+
+def predict_tuning(cfg: RenderConfig, preset: tuple, probe: dict):
     """JAX's prediction (``renderer.py:178-206``) from the counters of one
-    sample rendered at :func:`tuning_preset` → ``(predicted, reading)``.
+    sample rendered at ``preset`` (:func:`tuning_preset`) → ``(predicted,
+    reading)``.
 
     The pool halves where mean occupancy is under 0.75; the steps a wave
     are 1.5x the steps a segment, rounded to 4 and clipped to [8, 32];
@@ -418,7 +443,6 @@ def predict_tuning(cfg: RenderConfig, big: bool, probe: dict):
     runs on 40% of the waves or more, else 1, and other pools the engine's
     default.  ``reading`` holds the occupancy, steps a segment, waves and
     control waves it used."""
-    preset = tuning_preset(cfg, big)
     total = cfg.width * cfg.height
     waves = max(int(probe["waves"]), 1)
     ctrls = max(int(probe["ctrls"]), 1)
@@ -442,7 +466,10 @@ def _render_batch(scene, flags, bvh, cam, cfg, accum, start_sample,
                   n_samples, key, engine, tuned=None):
     """One batch through the engine → (accum, stats with the same keys);
     ``tuned`` is autotune's ``(queue, steps, ctrl_den, stride)``, under
-    the values ``cfg`` pins."""
+    the values ``cfg`` pins; :func:`wave_preset` gives the queue and the
+    steps neither pins, and ``ctrl_den`` and the stride are then the
+    engine's defaults, as in JAX.  A batch whose pool is the card's adds 1
+    to the counter ``wavefront.pool_from_card``."""
     if engine == "megakernel":
         accum, st = integrator.render_batch(scene, flags, bvh, cam, cfg,
                                             accum, start_sample, n_samples,
@@ -451,10 +478,16 @@ def _render_batch(scene, flags, bvh, cam, cfg, accum, start_sample,
         # occupancy fields stay 0, as in JAX.
         return accum, dict(st, waves=0, ctrls=0, occ_sum=0, slots=0,
                            host_reads=0)
-    big = bvh.nodes.shape[0] >= 256
+    resident = kernels.resident_lanes(accum.device, bvh.branching)
+    p_q, p_s, _ = wave_preset(cfg, bvh.nodes.shape[0],
+                              n_samples * cfg.width * cfg.height, resident)
     t_q, t_s, t_d, t_st = tuned if tuned else (None,) * 4
-    queue = cfg.queue_size or t_q or (32768 if big else 8192)
-    steps = cfg.steps_per_wave or t_s or (32 if big else 12)
+    queue = cfg.queue_size or t_q
+    if not queue:
+        queue = p_q
+        if resident:
+            count("wavefront.pool_from_card", 1)
+    steps = cfg.steps_per_wave or t_s or p_s
     den, stride = cfg.ctrl_den or t_d, cfg.sample_stride or t_st
     kw = {"ctrl_den": den} if den else {}
     if stride:

@@ -25,8 +25,9 @@ threads at once would share one stack.
 
 Beside the spans, ``count(name, n)`` adds ``n`` to a named counter (work
 the host already holds, such as the wave loop's counters read back once a
-batch); :func:`counters` returns ``{name: total}``, and :func:`reset`
-clears them with the spans.
+batch, or ``wavefront.pool_from_card``, the batches whose pool the
+renderer sized from the card's resident lanes); :func:`counters` returns
+``{name: total}``, and :func:`reset` clears them with the spans.
 """
 from __future__ import annotations
 

@@ -10,6 +10,11 @@
 * The cell's run (``run.run_cell`` with the frame resized) is ``correct``;
   each planted fault of ``benchmark/faults.py`` and the bfloat16 control
   of ``benchmark/control.py`` are not, against the cell's own limit.
+* On the card (marked ``gpu``), at the published 400x300, 64 spp: the
+  Renderer's wavefront runs the pool of K1's resident lanes
+  (``kernels.resident_lanes``) unless ``cfg`` pins one, and its frame is
+  ``correct`` against the cell's limit, at one seed with the card's pool
+  and with a pinned 8,192-slot pool.
 * The scene module's 12 quads (five walls, the light, the rotated box's
   six faces) and its glass sphere compile to the primitives of the port's
   ``scenes.cornell_glass_dof()``, the rotated box to 1e-9, and the
@@ -38,6 +43,9 @@ from harness import check, drivers, port_adapter, registry  # noqa: E402
 
 import path_tracer_tpu_torch as ptt  # noqa: E402
 from path_tracer_tpu_torch.models.compile import compile_scene  # noqa: E402
+from path_tracer_tpu_torch.ops import kernels  # noqa: E402
+from path_tracer_tpu_torch.ops.types import RenderConfig  # noqa: E402
+from path_tracer_tpu_torch.utils import spans  # noqa: E402
 
 CELL = "cornell_glass_dof.wavefront"
 SIZE = dict(width=40, height=30, samples_per_pixel=4)
@@ -108,6 +116,38 @@ def test_the_bfloat16_control_is_not_correct(bench):
     correct, numbers, _ = check.check_frame(output, bench.limits(CELL), "cpu")
     assert correct is False
     assert numbers["frame_l1_gap"]["value"] > numbers["frame_l1_gap"]["limit"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pinned", [None, 8192], ids=["card_pool", "pinned"])
+def test_card_pool_is_k1s_resident_lanes_and_correct(bench, pinned):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kernels.build()
+    config = bench.config("cornell_glass_dof")
+    desc = drivers.scene_description(bench, config)
+    world, cam = port_adapter.port_world(desc)
+    cam.samples_per_pixel = spp = config["samples_per_pixel"]
+    cam.max_depth = config["max_depth"]
+    w, h = config["width"], config["height"]
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                       max_depth=cam.max_depth, queue_size=pinned)
+    r = ptt.Renderer(world, cam, engine="wavefront", cfg=cfg, seed=SEED,
+                     device="cuda")
+    spans.reset()
+    r.render(spp=spp, batch=8)
+    resident = kernels.resident_lanes("cuda", 4)
+    lanes = kernels.library("trace_step").ptt_trace_step_resident_lanes(4)
+    assert resident == lanes > 8192
+    assert r.stats.slots == (pinned or min(resident, 8 * w * h))
+    assert spans.counters().get("wavefront.pool_from_card", 0) == (
+        0 if pinned else spp // 8)
+    output = dict(desc=desc, config=config, seed=SEED,
+                  frame=r.accum.reshape(-1, 3), samples=r.samples_done,
+                  width=w, height=h)
+    correct, numbers, _ = check.check_frame(output, bench.limits(CELL),
+                                            "cuda")
+    assert correct is True, numbers
 
 
 QUAD_FIELDS = ("qd_q", "qd_u", "qd_v", "qd_n", "qd_w", "qd_d", "qd_mat")

@@ -37,6 +37,7 @@ from path_tracer_tpu_torch.ops.shade import SceneFlags as TFlags
 from path_tracer_tpu_torch.ops.types import RenderConfig as TCfg
 from path_tracer_tpu_torch.render import renderer as trend
 from path_tracer_tpu_torch.render.orbit import OrbitCamera, restart
+from path_tracer_tpu_torch.utils import spans
 
 from test_torch_control import (_assert_same_state, _control_waves, _engine,
                                 _needs_cxx)
@@ -293,10 +294,92 @@ def test_prediction_rule_is_jax_rule(probe, monkeypatch, capsys):
         jr.autotune(verbose=True)
         want = re.search(r"(predict q=\S+ s=\S+ den=\S+ stride=\S+)",
                          capsys.readouterr().out).group(1)
-        big = jr.bvh.nodes.shape[0] >= 256
-        (q, s, d, st), _ = trend.predict_tuning(
-            TCfg(width=jr.cfg.width, height=jr.cfg.height), big, probe)
+        cfg = TCfg(width=jr.cfg.width, height=jr.cfg.height)
+        preset = trend.tuning_preset(cfg, jr.bvh.nodes.shape[0], None)
+        (q, s, d, st), _ = trend.predict_tuning(cfg, preset, probe)
         assert f"predict q={q} s={s} den={d} stride={st}" == want
+
+
+# The wavefront's pool where nothing pins it (wave_preset): (frame, BVH
+# rows, the batch's samples, K1's resident lanes or None off a card) ->
+# (queue, steps, ctrl_den).
+RESIDENT = 396 * 128             # 3 blocks an SM on 132 SMs
+POOL_CASES = {
+    "card_small_bvh": ((400, 300), 8, 8, RESIDENT, (RESIDENT, 12, 8)),
+    "card_big_bvh": ((800, 600), 3000, 8, RESIDENT, (RESIDENT, 32, 16)),
+    "card_other_count": ((400, 300), 8, 8, 1000, (1000, 12, 8)),
+    "card_capped_by_items": ((100, 100), 8, 1, RESIDENT, (10000, 12, 8)),
+    "card_capped_by_pool_cap": ((100, 100), 300, 8, RESIDENT,
+                                (16384, 32, 16)),
+    "cpu_small_bvh": ((400, 300), 255, 8, None, (8192, 12, 8)),
+    "cpu_big_bvh": ((400, 300), 256, 8, None, (32768, 32, 16)),
+    "cpu_tiny_frame": ((16, 8), 8, 2, None, (8192, 12, 8)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_wave_preset_pool_steps_and_ctrl_den(case):
+    """The card's resident lanes give the pool, capped by the batch's items
+    and _pool_cap; without a card, JAX's 8192 or 32768 by BVH rows; steps
+    and ctrl_den follow the rows alone."""
+    (w, h), rows, n, resident, want = POOL_CASES[case]
+    cfg = TCfg(width=w, height=h)
+    assert trend.wave_preset(cfg, rows, n * w * h, resident) == want
+
+
+def _chosen_pool(monkeypatch, resident, rows=8, cfg=None, tuned=None, n=8):
+    """(queue, steps, ctrl_den kwarg, pool_from_card count) that
+    _render_batch hands the wavefront for one batch of ``n`` samples when
+    K1 keeps ``resident`` lanes (None: no card)."""
+    seen = {}
+
+    def fake_batch(*a, queue_size, steps_per_wave, with_stats, **kw):
+        seen.update(queue=queue_size, steps=steps_per_wave,
+                    den=kw.get("ctrl_den"))
+        return a[5], {}
+
+    monkeypatch.setattr(trend.kernels, "resident_lanes",
+                        lambda device, branching: resident)
+    monkeypatch.setattr(trend.wavefront, "render_batch", fake_batch)
+    cfg = cfg or TCfg(width=400, height=300)
+    bvh = type("B", (), {"nodes": torch.zeros((rows, 1)), "branching": 4})
+    spans.reset()
+    trend._render_batch(None, None, bvh, None, cfg, torch.zeros(1), 0, n,
+                        None, "wavefront", tuned=tuned)
+    return (seen["queue"], seen["steps"], seen["den"],
+            spans.counters().get("wavefront.pool_from_card", 0))
+
+
+@pytest.mark.parametrize("case", [
+    ("card", RESIDENT, {}, None, (RESIDENT, 12, None, 1)),
+    ("card_pinned_queue", RESIDENT, dict(queue_size=8192), None,
+     (8192, 12, None, 0)),
+    ("card_pinned_steps", RESIDENT, dict(steps_per_wave=20), None,
+     (RESIDENT, 20, None, 1)),
+    ("card_tuned", RESIDENT, {}, (4096, 16, 16, 2), (4096, 16, 16, 0)),
+    ("card_pinned_over_tuned", RESIDENT, dict(queue_size=2048, ctrl_den=8),
+     (4096, 16, 16, 2), (2048, 16, 8, 0)),
+    ("cpu", None, {}, None, (8192, 12, None, 0)),
+    ("cpu_tuned", None, {}, (4096, 16, 16, 2), (4096, 16, 16, 0))],
+    ids=lambda c: c[0])
+def test_pinned_and_tuned_pools_win_over_the_card(case, monkeypatch):
+    """cfg's pinned values, then autotune's, then the card's resident lanes
+    (counted in wavefront.pool_from_card), then JAX's preset."""
+    _, resident, pins, tuned, want = case
+    cfg = TCfg(width=400, height=300, **pins)
+    assert _chosen_pool(monkeypatch, resident, cfg=cfg, tuned=tuned) == want
+
+
+@pytest.mark.parametrize("resident", [None, RESIDENT, 1000])
+@pytest.mark.parametrize("rows", [8, 3000])
+def test_tuning_preset_is_the_untuned_pool(resident, rows, monkeypatch):
+    """Autotune's preset candidate runs the pool and steps the untuned
+    batches run, on a card and off one."""
+    cfg = TCfg(width=400, height=300)
+    q, s, d, stride = trend.tuning_preset(cfg, rows, resident)
+    assert stride is None
+    assert d == (16 if rows >= 256 else 8)
+    assert _chosen_pool(monkeypatch, resident, rows=rows)[:2] == (q, s)
 
 
 def test_new_entry_points_default_to_cuda():
