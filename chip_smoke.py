@@ -34,12 +34,14 @@ Phases (each prints its own line; any failure exits non-zero):
                 per-kernel device time of another frame (torch.profiler)
                 with the device idle share.
 5. main-mega  — the same frame through Renderer(engine="megakernel").
-   loop       — (after phase 5) the same frame through the device wave loop
-                and the per-wave host loop: image, counters and depth
-                histogram bit-identical, each kernel launched once a wave
-                (the device loop once more: the empty wave whose K1 ends
-                it; the loop has no kernel of its own); walls,
-                host reads, launches and idle share of each, each profiled
+   loop       — (after phase 5) the same frame through the kept device
+                wave loop (render_batch) and the per-wave host loop of the
+                CUDA kernels (run_waves): image, counters, depth histogram
+                and per-pixel paths bit-identical, each kernel launched
+                once a wave (the device loop once more: the empty wave
+                whose K1 ends it; the loop has no kernel of its own); the
+                device loop's walls and host reads, launches and idle share
+                of each, each profiled
                 frame's kernel runs equal to its launch counts; the image
                 against K5's under the graded rule; the same frame with the
                 adaptive exit off (the exit's device-time cost).
@@ -1361,7 +1363,7 @@ def kept_loop_phase(card):
     depth 10) and a mesh_perlin_sss frame (400x224, 32 spp, depth 12),
     rendered batch by batch (8 samples a batch) through ``render_batch``
     with the kept loop, against the same frame with a loop graph captured
-    for each batch (``WaveEngine``, ``init_state``, ``run_waves_graph``):
+    for each batch (``clear_wave_loops`` before each ``render_batch``):
     paths, spawned, stack overflows, rays, waves and depth histogram equal
     batch by batch, the frames within the benchmark's frame_l1_gap limit,
     one capture for the frame and none for a second frame; the reset
@@ -1396,15 +1398,10 @@ def kept_loop_phase(card):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if per_batch:
-                    eng = wf.WaveEngine(scene, flags, bvh, cam_a, cfg, s0,
-                                        KEPT_BATCH, key, **kw)
-                    ws = eng.init_state(acc)
-                    wf.run_waves_graph(eng, ws)
-                    acc, st = ws.accum.reshape(shape), wf._stats(ws, eng)
-                else:
-                    acc, st = wf.render_batch(scene, flags, bvh, cam_a, cfg,
-                                              acc, s0, KEPT_BATCH, key,
-                                              with_stats=True, **kw)
+                    wf.clear_wave_loops()
+                acc, st = wf.render_batch(scene, flags, bvh, cam_a, cfg, acc,
+                                          s0, KEPT_BATCH, key,
+                                          with_stats=True, **kw)
                 torch.cuda.synchronize()
                 walls.append(1e3 * (time.perf_counter() - t0))
                 sts.append({k: int(st[k]) for k in (
@@ -1882,7 +1879,8 @@ def main() -> int:
         libdevice functions); then K5's time."""
         zero = torch.zeros((h, w, 3), device=dev)
         mk, mp = meng.init_state(zero), meng.init_state(zero)
-        integrator.megakernel(meng, mk, 0)
+        mk_args = integrator.mega_args(meng, mk)
+        integrator.megakernel(meng, mk, 0, mk_args)
         pms = cuda_ms(lambda: integrator.megakernel_plain(meng, mp, 0), reps=1)
         same = (mk.iters == mp.iters) & (mk.depth == mp.depth)
         frac = float(same.float().mean())
@@ -1899,7 +1897,8 @@ def main() -> int:
                        ("paths", C_DONE), ("rays", C_RAYS),
                        ("depth_sum", C_DEPTH_SUM), ("trav_steps", C_TRAV_STEPS),
                        ("walk_steps", C_WALK_STEPS))})
-        out["ms"] = cuda_ms(lambda: integrator.megakernel(meng, mk, 0))
+        out["ms"] = cuda_ms(lambda: integrator.megakernel(meng, mk, 0,
+                                                          mk_args))
         return out
 
     def mega_line(tag, m):
@@ -2469,13 +2468,14 @@ def main() -> int:
             out["colour_ms"] = cuda_ms(lambda: adjoint.adjoint(
                 aeng, ams, samples[0], delta, scratch))
         mst = aeng.init_state(torch.zeros((npx, 3), device=dev))
-        integrator.megakernel(aeng, mst, samples[0])
+        mst_args = integrator.mega_args(aeng, mst)
+        integrator.megakernel(aeng, mst, samples[0], mst_args)
         torch.cuda.synchronize()
         ctr = {n: int(mst.ctr[i]) for n, i in (
             ("rays", C_RAYS), ("trav_steps", C_TRAV_STEPS),
             ("walk_steps", C_WALK_STEPS))}
-        out["k5_ms"] = cuda_ms(lambda: integrator.megakernel(aeng, mst,
-                                                             samples[0]))
+        out["k5_ms"] = cuda_ms(lambda: integrator.megakernel(
+            aeng, mst, samples[0], mst_args))
         # Bytes: node and shade rows once (with the material, medium and
         # texture rows for the full sweep), delta read, the gradient buffers
         # read and written once.  Operations: K5's replay of the sample plus
@@ -2723,55 +2723,62 @@ def main() -> int:
 
     # --- 5b. the device wave loop against the per-wave host loop ---
     zero = torch.zeros((H, W, 3), device=dev)
+    pool = dict(queue_size=POOL, steps_per_wave=STEPS, ctrl_den=8)
 
-    def fresh_pool():
-        e = wf.WaveEngine(scene, flags, bvh, cam_a, cfg, 0, SPP, key,
-                          queue_size=POOL, steps_per_wave=STEPS, ctrl_den=8)
-        return e, e.init_state(zero)
+    def kept_frame():
+        """One vol2_final frame through the kept loop graph (``render_batch``)
+        → (image, stats)."""
+        return wf.render_batch(scene, flags, bvh, cam_a, cfg, zero, 0, SPP,
+                               key, with_stats=True, **pool)
 
-    def wave_frame(loop):
-        """One vol2_final frame through ``loop`` from a fresh pool, the
-        launch counts set to 0 just before → (state, engine, reads, wall,
-        launches)."""
-        e, w = fresh_pool()
+    def host_frame():
+        """A fresh pool → a callable running the same frame on it through
+        the host loop of the CUDA kernels (``run_waves``) → (image,
+        stats)."""
+        e = wf.WaveEngine(scene, flags, bvh, cam_a, cfg, 0, SPP, key, **pool)
+        w = e.init_state(zero)
+
+        def run():
+            wf.run_waves(e, w)
+            return w.accum.reshape(H, W, 3), wf._stats(w, e)
+        return run
+
+    def wave_frame(run):
+        """One frame through ``run``, the launch counts set to 0 just
+        before → (image, stats, wall, launches)."""
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        reads = loop(e, w)
+        img, st = run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        return w, e, reads, wall, dict(kernels.LAUNCHES)
+        return img, st, time.perf_counter() - t0, dict(kernels.LAUNCHES)
 
-    def profiled_frame(loop, tag):
-        """The same frame under torch.profiler, its kernel runs held against
-        its launch counts → (state, engine, launches, device ms by kernel,
-        wall)."""
-        def prepare():
-            e, w = fresh_pool()
-            return lambda: (w, e, loop(e, w))
-
-        (w, e, _), totals, launches, wall = profile_run(
+    def profiled_frame(prepare, tag):
+        """The frame of ``prepare()`` (untimed) under torch.profiler, its
+        kernel runs held against its launch counts → (image, stats,
+        launches, device ms by kernel, wall)."""
+        (img, st), totals, launches, wall = profile_run(
             prepare, WAVE_KERNELS, kernels, tag)
-        return w, e, launches, totals, wall
+        return img, st, launches, totals, wall
 
-    def loop_stats(w, e):
-        st = wf._stats(w, e)
-        out = {k: int(st[k]) for k in ("paths", "rays", "depth_sum", "waves",
-                                       "ctrls", "occ_sum", "trav_steps",
-                                       "exec_steps", "walk_steps", "spawned",
-                                       "stack_overflows")}
-        return out
+    def loop_stats(st):
+        return {k: int(st[k]) for k in ("paths", "rays", "depth_sum", "waves",
+                                        "ctrls", "occ_sum", "trav_steps",
+                                        "exec_steps", "walk_steps", "spawned",
+                                        "stack_overflows")}
 
-    runs = {"graph": [], "host": []}
-    for name in ("graph", "host", "host", "graph"):
-        runs[name].append(wave_frame(wf.run_waves_graph if name == "graph"
-                                     else wf.run_waves))
-    (gw, ge, g_reads, _, g_launch), (hw, he, h_reads, _, h_launch) = (
-        runs["graph"][0], runs["host"][0])
-    g_st, h_st = loop_stats(gw, ge), loop_stats(hw, he)
-    same_img = torch.equal(gw.accum, hw.accum)
-    same_ctr = (g_st == h_st and torch.equal(gw.depth_hist, hw.depth_hist)
-                and torch.equal(gw.pix_paths, hw.pix_paths))
+    g_img, g_sts, g_wall, g_launch = wave_frame(kept_frame)
+    # the kept loop's engine and drained state, for the empty wave below
+    ge, gw = wf._KEPT.eng, wf._KEPT.ws
+    h_img, h_sts, _, h_launch = wave_frame(host_frame())
+    g_walls = [g_wall, wave_frame(kept_frame)[2]]
+    g_st, h_st = loop_stats(g_sts), loop_stats(h_sts)
+    g_reads = int(g_sts["host_reads"])
+    same_img = torch.equal(g_img, h_img)
+    same_ctr = (g_st == h_st
+                and torch.equal(g_sts["depth_hist"].cpu(),
+                                h_sts["depth_hist"].cpu())
+                and torch.equal(g_sts["pixel_paths"], h_sts["pixel_paths"]))
     waves = g_st["waves"]
     host_waves = h_launch["shade"]          # waves the host loop queued
     # The device loop: each kernel waves + 1 (the last wave's K1 finds no
@@ -2784,34 +2791,33 @@ def main() -> int:
                  and h_launch["wave_loop"] == 0 and host_waves >= waves)
     # Profiled, each frame's kernel runs equal its launch counts
     # (profile_run), so the graph's counts are measured, not inferred.
-    prof_runs = {n: profiled_frame(wf.run_waves_graph if n == "graph"
-                                   else wf.run_waves, f"loop {n}")
-                 for n in ("graph", "host")}
+    prof_runs = {n: profiled_frame(f, f"loop {n}")
+                 for n, f in (("graph", lambda: kept_frame),
+                              ("host", host_frame))}
     prof_ok = (prof_runs["graph"][2] == {n: g_launch[n] for n in WAVE_KERNELS}
                and prof_runs["host"][2] == {n: h_launch[n]
                                             for n in WAVE_KERNELS})
     idle = {n: 1 - sum(r[3].values()) / (1e3 * r[4])
             for n, r in prof_runs.items()}
-    loop_img = (gw.accum.reshape(H, W, 3) / SPP).cpu().numpy()
+    loop_img = (g_img / SPP).cpu().numpy()
     l_ok, l_outl, l_clean = graded_agreement(loop_img, mega_img)
     # The adaptive exit's cost: the same frame in the device loop with the
-    # exit off (one chunk of 32 steps per wave, JAX's ADAPTIVE_WAVE=False).
+    # exit off (one chunk of 32 steps per wave, JAX's ADAPTIVE_WAVE=False;
+    # another loop key, so another capture).
     traverse.ADAPTIVE_WAVE = False
     try:
-        off = profiled_frame(wf.run_waves_graph, "loop exit off")
-        off_walls = [off[4]] + [wave_frame(wf.run_waves_graph)[3]
-                                for _ in range(2)]
+        off = profiled_frame(lambda: kept_frame, "loop exit off")
+        off_walls = [off[4]] + [wave_frame(kept_frame)[2] for _ in range(2)]
     finally:
         traverse.ADAPTIVE_WAVE = True
-    off_st = loop_stats(off[0], off[1])
-    off_img_same = bool(torch.equal(off[0].accum, gw.accum))
+    off_st = loop_stats(off[1])
+    off_img_same = bool(torch.equal(off[0], g_img))
     loop_ok = (same_img and same_ctr and launch_ok and prof_ok
                and g_reads == 1 and l_ok
                and off_st["paths"] == g_st["paths"]
                and off_st["rays"] == g_st["rays"])
-    walls = {n: [r[3] for r in rs] for n, rs in runs.items()}
     rec["loop"] = dict(
-        walls=walls, reads={"graph": g_reads, "host": h_reads},
+        walls=g_walls, reads=g_reads,
         launches={"graph": g_launch, "host": h_launch}, stats=g_st,
         host_waves=host_waves,
         device_ms={n: r[3] for n, r in prof_runs.items()},
@@ -2821,17 +2827,16 @@ def main() -> int:
                       profiled_wall_ms=1e3 * off[4],
                       image_equal=off_img_same),
         ok=loop_ok)
-    phase("loop", f"vol2_final {W}x{H} {SPP} spp: device loop vs host loop: "
-          f"image bit-identical {same_img}, counters/histogram/per-pixel "
-          f"paths identical {same_ctr} ({g_st}); device loop {waves} "
-          f"waves: launches {g_launch} (each kernel waves + 1, the loop's "
-          f"own 0), host loop {host_waves} waves queued, one launch per "
-          f"kernel per wave: {launch_ok}; profiled frames' kernel runs "
+    phase("loop", f"vol2_final {W}x{H} {SPP} spp: kept device loop vs host "
+          f"loop: image bit-identical {same_img}, counters/histogram/"
+          f"per-pixel paths identical {same_ctr} ({g_st}); device loop "
+          f"{waves} waves: launches {g_launch} (each kernel waves + 1, the "
+          f"loop's own 0), host loop {host_waves} waves queued, one launch "
+          f"per kernel per wave: {launch_ok}; profiled frames' kernel runs "
           f"equal to these launches: {prof_ok}")
-    phase("loop", "frame walls s: device loop " + ", ".join(
-        f"{x:.4f}" for x in walls["graph"]) + "; host loop " + ", ".join(
-        f"{x:.4f}" for x in walls["host"]) + f"; host reads per frame "
-        f"{g_reads} vs {h_reads}; under the profiler device ms "
+    phase("loop", "device loop frame walls s: " + ", ".join(
+        f"{x:.4f}" for x in g_walls) + f"; host reads {g_reads}; under the "
+        f"profiler device ms "
         + "; ".join(f"{n}: " + ", ".join(f"{k}={v:.2f}" for k, v in
                                          r[3].items())
                     + f" of {1e3 * r[4]:.2f} ms (idle {idle[n]:.3f})"
@@ -2845,7 +2850,7 @@ def main() -> int:
           f"outliers {l_outl:.5f}, clean mean {l_clean:.2e} -> "
           f"{'PASS' if loop_ok else 'FAIL'}")
     # The plain version of the loop predicate: a host read of the counters
-    # and the live test, as the host loop pays per read.
+    # and the live test, as the host loop pays per wave.
     t0 = time.perf_counter()
     for _ in range(25):
         ge.live(gw.ctr.cpu())
@@ -2860,13 +2865,14 @@ def main() -> int:
             kernels.launch(n_, ge, gw)
 
     results["wave_loop"] = dict(
-        ok=loop_ok, err=float((gw.accum - hw.accum).abs().max()),
+        ok=loop_ok, err=float((g_img - h_img).abs().max()),
         ms=cuda_ms(empty_wave), device_ms=device_ms(empty_wave),
         plain_ms=live_host_ms, library_ms=None, ops=4, bytes=28,
         no_kernel=True,
         measures="the empty wave that ends the loop: K1, K3, K4 and K2 "
                  "on the drained state")
-    del runs, prof_runs, off, gw, hw
+    del prof_runs, off, ge, gw, g_img, h_img, g_sts, h_sts
+    wf.clear_wave_loops()
     torch.cuda.empty_cache()
 
     # --- 6. mesh_perlin_sss through both engines ---
@@ -2962,7 +2968,7 @@ def main() -> int:
     captures_views = itl.CAPTURES - caps0
     kept_ok = (captures == 1 and captures_views == 1
                and torch.equal(img_a, img_b)
-               and all(int(st_a[k_]) == int(st_b[k_]) for k_ in st_a)
+               and torch.equal(st_a["ctr"], st_b["ctr"])
                and all(view_same.values()))
     phase("tiled", f"trip graph captures over two frames: {captures}; "
           f"second frame (the kept graph) bit-identical "
@@ -3101,19 +3107,8 @@ def main() -> int:
                           if torch.is_tensor(v) and v.ndim == 0}
                 launches_ = {n: kernels.LAUNCHES[n] for n in names}
                 inst_ = {n: kernels.INSTANCES[n] for n in insts}
-        def prepare_frame():
-            if engine != "wavefront":
-                return run
-            # As the loop phase profiles it: the pool made before the
-            # profiler starts, the device loop under it.
-            e_ = wf.WaveEngine(scene, flags, bvh_, cam_a, cfg, 0, SPP, key,
-                               queue_size=32768, steps_per_wave=32,
-                               ctrl_den=8)
-            w_ = e_.init_state(zero)
-            return lambda: wf.run_waves_graph(e_, w_)
-
         _, totals, prof_launches, prof_wall = profile_run(
-            prepare_frame, names, kernels,
+            lambda: run, names, kernels,
             f"bvh8 {engine} K={bvh_.branching}", insts)
         return dict(img=img0, stats=stats_, walls=walls, launches=launches_,
                     instances=inst_, device_ms=totals,
@@ -3127,7 +3122,7 @@ def main() -> int:
                                                                (8, bv8))}
         for k_, r_ in rec8[engine].items():
             st_ = r_["stats"]
-            rays = (st_["rays"] if "rays" in st_     # tiled: K5's sample set
+            rays = (st_["rays"] if engine != "tiled"  # tiled: K5's samples
                     else rec8["megakernel"][k_]["stats"]["rays"])
             wall_ = statistics.median(r_["walls"])
             r_.update(rays=rays, wall=wall_,
@@ -3219,11 +3214,11 @@ def main() -> int:
         g_ok, outl, clean = graded_agreement(ik.cpu().numpy() / 2,
                                              ip.cpu().numpy() / 2)
         same = [k_ for k_ in ("paths", "rays", "trav_steps", "walk_steps",
-                              "stack_overflows") if k_ in sk_ and k_ in sp_
-                and int(sk_[k_]) != int(sp_[k_])]
-        if engine == "tiled":      # the tiled walks differ from K5's
-            same = [k_ for k_ in same if k_ not in ("trav_steps",
-                                                    "walk_steps")]
+                              "stack_overflows")
+                if int(sk_[k_]) != int(sp_[k_])]
+        if engine == "tiled":      # it counts no paths or rays, and its
+            same = [k_ for k_ in same  # walks differ from K5's
+                    if k_ == "stack_overflows"]
         ok_ = g_ok and not same
         bvh8_ok = bvh8_ok and ok_
         rec8[f"{engine} 160x90"] = dict(ok=ok_, outliers=outl,
@@ -3759,8 +3754,10 @@ def main() -> int:
         meng_d = integrator.MegaEngine(scene, flags, bv_d, cam_a, cfg_d, key)
         ml, md = meng_l.init_state(zero), meng_d.init_state(zero)
         kernels.reset_launches()
-        integrator.megakernel(meng_l, ml, 0)
-        integrator.megakernel(meng_d, md, 0)
+        a_l, a_d = (integrator.mega_args(meng_l, ml),
+                    integrator.mega_args(meng_d, md))
+        integrator.megakernel(meng_l, ml, 0, a_l)
+        integrator.megakernel(meng_d, md, 0, a_d)
         torch.cuda.synchronize()
         inst = f"megakernel_k{k_}_global"
         n_ = kernels.INSTANCES[inst]
@@ -3768,9 +3765,9 @@ def main() -> int:
             torch.equal(getattr(ml, f), getattr(md, f))
             for f in ("color", "iters", "depth", "accum", "depth_hist",
                       "ctr")))
-        ms_d = cuda_ms(lambda: integrator.megakernel(meng_d, md, 0))
-        ms_l = cuda_ms(lambda: integrator.megakernel(meng_l, ml, 0))
-        dev_d = device_ms(lambda: integrator.megakernel(meng_d, md, 0))
+        ms_d = cuda_ms(lambda: integrator.megakernel(meng_d, md, 0, a_d))
+        ms_l = cuda_ms(lambda: integrator.megakernel(meng_l, ml, 0, a_l))
+        dev_d = device_ms(lambda: integrator.megakernel(meng_d, md, 0, a_d))
         base = results["megakernel"] if k_ == 4 else inst_rows["megakernel_k8"]
         inst_rows[inst] = dict(ok=eq, err=0.0, ms=ms_d, device_ms=dev_d,
                                plain_ms=base["plain_ms"], bytes=base["bytes"],

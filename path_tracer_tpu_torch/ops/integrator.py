@@ -36,8 +36,8 @@ from .camera import get_ray
 from .shade_tiled import (bounce_rng, bounce_shade_t, make_tables, med_table,
                           medium_sample_t)
 from .traverse import _traverse_impl
-from .types import (C_DEPTH_SUM, C_DONE, C_RAYS, C_STACK_OVF, C_TRAV_STEPS,
-                    C_WALK_STEPS, N_COUNTERS, PathState, RenderConfig)
+from .types import (C_DEPTH_SUM, C_DONE, C_RAYS, C_TRAV_STEPS, C_WALK_STEPS,
+                    N_COUNTERS, PathState, RenderConfig, counter_stats)
 
 def prim_front_face(scene, ptype, pidx, origin, direction, time, t):
     """Front-face test for known hits: sign of rd · outward normal."""
@@ -257,25 +257,27 @@ def megakernel_plain(eng: MegaEngine, ms: MegaState, sample_idx: int) -> None:
     ms.ctr[C_WALK_STEPS] += walk
 
 
-def megakernel(eng: MegaEngine, ms: MegaState, sample_idx: int) -> None:
-    """K5 wrapper: CUDA kernel for CUDA state, plain twin for CPU state."""
+def mega_args(eng: MegaEngine, ms: MegaState):
+    """K5's argument block for the state ``ms`` (CUDA tensors), which it
+    keeps alive: build it once for the launches over one state."""
+    return kernels.set_stack(kernels.make_args(eng, ms), eng.npix,
+                             ms.ctr.device)
+
+
+def megakernel(eng: MegaEngine, ms: MegaState, sample_idx: int,
+               args) -> None:
+    """K5 wrapper: CUDA kernel for CUDA state, with ``args`` its
+    :func:`mega_args` block; plain twin for CPU state."""
     if not ms.ctr.is_cuda:
         return megakernel_plain(eng, ms, sample_idx)
-    cache = getattr(ms, "_kernel_args", None)
-    if cache is None or cache[0] is not eng:
-        cache = (eng, kernels.set_stack(kernels.make_args(eng, ms), eng.npix,
-                                        ms.ctr.device))
-        ms._kernel_args = cache
-    cache[1].start_sample = int(sample_idx)
-    kernels.launch("megakernel", eng, ms, cache[1])
+    args.start_sample = int(sample_idx)
+    kernels.launch("megakernel", eng, ms, args)
 
 
 def _stats(ms: MegaState) -> dict:
-    ctr = ms.ctr
-    return {"rays": ctr[C_RAYS], "depth_sum": ctr[C_DEPTH_SUM],
-            "depth_hist": ms.depth_hist, "paths": ctr[C_DONE],
-            "walk_steps": ctr[C_WALK_STEPS], "trav_steps": ctr[C_TRAV_STEPS],
-            "stack_overflows": ctr[C_STACK_OVF]}
+    """The table's counters, ``depth_hist``, and ``slots`` and
+    ``host_reads`` 0: no pool, no host read (as JAX's)."""
+    return dict(counter_stats(ms.ctr, ms.depth_hist), slots=0, host_reads=0)
 
 
 def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
@@ -286,17 +288,23 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     (H, W, 3), one K5 launch per sample, in sample order (the JAX
     renderer's ``_mega_batch``).  ``plain=True`` runs the twin on whatever
     device the tensors are on.  Stats: ``rays``, ``depth_sum`` and
-    ``depth_hist`` (of clipped depth) as JAX's, plus ``paths``,
-    ``walk_steps``, ``trav_steps`` and ``stack_overflows``.
+    ``depth_hist`` (of clipped depth) as JAX's, plus the other counters of
+    :data:`.types.STATS` (``paths``, ``walk_steps``, ``trav_steps`` and
+    ``stack_overflows`` counted, the wave counters 0), their vector
+    ``ctr``, ``slots`` and ``host_reads`` (0).  K5's argument block is
+    built once a call.
     ``pix_offset``/``n_pix`` render the block of frame pixels ``pix_offset
     ..`` ``+ n_pix``; ``accum`` and the image are then ``(n_pix, 3)``."""
     with span("megakernel.setup"):
         eng = MegaEngine(scene, flags, bvh, cam, cfg, base_key, pix_offset,
                          n_pix)
         ms = eng.init_state(accum)
-    op = megakernel_plain if plain else megakernel
+    args = None if plain or not ms.ctr.is_cuda else mega_args(eng, ms)
     for s in range(int(start_sample), int(start_sample) + int(n_samples)):
-        op(eng, ms, s)
+        if args is None:
+            megakernel_plain(eng, ms, s)
+        else:
+            megakernel(eng, ms, s, args)
     image = (ms.accum if n_pix is not None
              else ms.accum.reshape(cfg.height, cfg.width, 3))
     return (image, _stats(ms)) if with_stats else image

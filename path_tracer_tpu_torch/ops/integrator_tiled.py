@@ -38,8 +38,8 @@ from . import adjoint, kernels
 from .shade_tiled import (HitT, ShadeTables, bounce_shade_t, make_tables,
                           prim_medium_t, spawn_paths, wave_rng)
 from .traverse import _traverse_impl
-from .types import (C_STACK_OVF, C_TRAV_STEPS, C_WALK_STEPS, N_COUNTERS,
-                    PathState, RenderConfig)
+from .types import (C_TRAV_STEPS, C_WALK_STEPS, N_COUNTERS, PathState,
+                    RenderConfig, counter_stats)
 
 # The (R, 12) hit record of the pipeline mode (PTT_REC, csrc/common.cuh).
 REC_FIELDS = ("t", "px", "py", "pz", "nx", "ny", "nz", "front", "u", "v",
@@ -516,8 +516,9 @@ def render_tiled(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
     card, its colour or full instantiation from the leaf set; autograd of
     the twins on the CPU).  ``pix_offset``/``n_pix`` render the block of
     frame pixels ``pix_offset ..`` ``+ n_pix`` → ``(n_pix, 3)`` (a
-    data-parallel shard).  With ``with_stats`` also returns
-    ``{"trav_steps", "walk_steps", "stack_overflows"}``.
+    data-parallel shard).  With ``with_stats`` also returns the counters
+    of :data:`.types.STATS` (``trav_steps``, ``walk_steps`` and
+    ``stack_overflows`` counted, the others 0) and their vector ``ctr``.
     """
     spp = spp if spp is not None else cfg.samples_per_pixel
     dev = scene.sph_c0.device
@@ -537,9 +538,7 @@ def render_tiled(scene, flags, bvh, cam, cfg: RenderConfig, base_key,
                                                 eng, ctr)
         else:
             acc = _graphed_samples(eng, spp, pix, chunk_size, ctr)
-        return acc, {"trav_steps": ctr[C_TRAV_STEPS],
-                     "walk_steps": ctr[C_WALK_STEPS],
-                     "stack_overflows": ctr[C_STACK_OVF]}
+        return acc, counter_stats(ctr)
 
     image, stats = adjoint.render_diff(scene, flags, bvh, cam, cfg, base_key,
                                        range(spp), forward, pix_offset, n_pix)

@@ -233,3 +233,22 @@ C_N_WALK_B = 18    # K1 chunk scratch, buffer 1 (as C_N_WALK)
 C_TICKET = 19      # K1, K5: blocks done with the launch (clears the scratch)
 C_FETCH = 20       # K5: pixels taken in this launch (zero between launches)
 N_COUNTERS = 21
+
+# The stats every engine's ``render_batch(with_stats=True)`` reads from its
+# counter vector; a counter an engine never writes reads 0.
+STATS = {"paths": C_DONE, "rays": C_RAYS, "depth_sum": C_DEPTH_SUM,
+         "waves": C_WAVES, "ctrls": C_CTRLS, "occ_sum": C_OCC_SUM,
+         "trav_steps": C_TRAV_STEPS, "exec_steps": C_EXEC_STEPS,
+         "walk_steps": C_WALK_STEPS, "stack_overflows": C_STACK_OVF}
+
+
+def counter_stats(ctr: Tensor, depth_hist: Tensor | None = None) -> dict:
+    """The stats dict of the counter vector ``ctr``: for each name of
+    :data:`STATS` its entry, a 0-d tensor on ``ctr``'s device (no read);
+    ``ctr`` itself, for a reader that copies it once; and ``depth_hist``
+    where given."""
+    out = {name: ctr[i] for name, i in STATS.items()}
+    out["ctr"] = ctr
+    if depth_hist is not None:
+        out["depth_hist"] = depth_hist
+    return out

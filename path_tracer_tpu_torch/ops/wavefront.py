@@ -20,11 +20,11 @@ CUDA graph per configuration, replayed per batch, which resets the wave
 state and then runs a conditional WHILE node that repeats a wave until K1
 finds no work left and clears the node's condition (``csrc/wave_loop.cu``,
 :class:`WaveLoop`, kept by :func:`wave_loop`); the host launches it once a
-batch and reads the counters once.  :func:`run_waves` is the
-same loop driven from the host, a wave's launches at a time, reading the
-counters every ``CHECK_EVERY`` waves (the comparison path, and the loop of
-the plain-torch twins).  On CPU tensors every kernel wrapper runs its
-plain-torch twin.
+batch and reads the counters and the depth histogram once.
+:func:`run_waves` is the same loop driven from the host, a wave's launches
+at a time, testing ``live`` after each (the loop of the plain-torch twins,
+and the reference the device loop is held to on the card).  On CPU tensors
+every kernel wrapper runs its plain-torch twin.
 
 :func:`render_batch_diff` is the differentiable wavefront: the forward is
 :func:`render_batch` (K1-K4 on the card), the backward replays each
@@ -53,10 +53,9 @@ from . import adjoint, kernels
 from .shade_tiled import make_tables, shade, shade_plain, spawn_paths
 from .traverse import (_DONE, _unroll, trace_step, trace_step_plain,
                        traversal_init_batched)
-from .types import (C_CTRLS, C_DEPTH_SUM, C_DO_CTRL, C_DONE, C_EXEC_STEPS,
-                    C_N_OCC, C_OCC_SUM, C_RAYS, C_SPAWNED, C_STACK_OVF,
-                    C_TRAV_STEPS, C_WALK_STEPS, C_WAVES, FL_FINISHED,
-                    FL_NONE, FL_RESAMPLE, N_COUNTERS, PH_MAIN, RenderConfig)
+from .types import (C_DEPTH_SUM, C_DO_CTRL, C_DONE, C_N_OCC, C_RAYS,
+                    C_SPAWNED, C_WAVES, FL_FINISHED, FL_NONE, FL_RESAMPLE,
+                    N_COUNTERS, PH_MAIN, RenderConfig, counter_stats)
 
 
 @dataclass
@@ -325,46 +324,21 @@ def spawn(eng: WaveEngine, ws: WaveState) -> None:
 KERNELS = (trace_step, shade, retire, spawn)
 WAVE_NAMES = ("trace_step", "shade", "retire", "spawn")   # one wave, in order
 PLAIN = (trace_step_plain, shade_plain, retire_plain, spawn_plain)
-CHECK_EVERY = 8          # waves between host reads of the counters
 MAX_WAVES = 1_000_000    # a frame that has not drained by then is a bug
 
 
 def run_waves(eng: WaveEngine, ws: WaveState, plain: bool = False) -> int:
-    """Run waves from the host until no work is left; returns the number of
-    host reads.
-
-    On the card the counters are copied to pinned memory every
-    ``CHECK_EVERY`` waves and the copy is read one period later, so the host
-    never waits on the wave it just queued.  Waves queued after the work ran
-    out are no-ops (``trace_step`` leaves ``do_ctrl`` at 0 and counts no
-    wave).
-    """
+    """Run waves from the host, one wave's launches at a time, until no work
+    is left (``eng.live`` of the counters after each wave); returns the
+    host reads of device counters: one a wave on the card, none on the
+    CPU.  ``plain`` runs the plain-torch twins (:data:`PLAIN`), else
+    :data:`KERNELS`."""
     ops = PLAIN if plain else KERNELS
-    on_card = ws.ctr.is_cuda
-    if on_card:
-        pinned = [torch.empty_like(ws.ctr, device="cpu").pin_memory()
-                  for _ in range(2)]
-        events = [None, None]
-    reads = 0
     for wave in range(1, MAX_WAVES + 1):
         for op in ops:
             op(eng, ws)
-        if not on_card:
-            if not eng.live(ws.ctr):
-                return reads
-            continue
-        if wave % CHECK_EVERY:
-            continue
-        slot = (wave // CHECK_EVERY) % 2
-        prev = events[1 - slot]
-        if prev is not None:
-            prev.synchronize()
-            reads += 1
-            if not eng.live(pinned[1 - slot]):
-                return reads
-        pinned[slot].copy_(ws.ctr, non_blocking=True)
-        events[slot] = torch.cuda.Event()
-        events[slot].record()
+        if not eng.live(ws.ctr.cpu()):
+            return wave if ws.ctr.is_cuda else 0
     raise RuntimeError(f"wavefront did not drain within {MAX_WAVES} waves")
 
 
@@ -405,16 +379,16 @@ class WaveLoop:
     histogram, per-pixel path counts; ``wave_reset``) and runs waves until
     K1 finds no work left (``live``) or the frame reaches ``MAX_WAVES``;
     :meth:`load` puts a batch's frame and first sample in before it.
-    ``key`` is :func:`loop_key`'s for a kept loop (:func:`wave_loop`);
-    ``traced`` whether ``torch.profiler`` had recorded in this process
-    before the capture (:func:`wave_loop` recaptures a loop that was not
-    when a profiler records).  The capture is timed by the span
+    ``key`` is :func:`loop_key`'s (:func:`wave_loop` builds and keeps the
+    loop); ``traced`` whether ``torch.profiler`` had recorded in this
+    process before the capture (:func:`wave_loop` recaptures a loop that
+    was not when a profiler records).  The capture is timed by the span
     ``wavefront.graph_build`` (arguments, capture, instantiation),
     :meth:`free` by ``wavefront.graph_free``.  A failed build or capture
     raises.
     """
 
-    def __init__(self, eng: WaveEngine, ws: WaveState, key=None):
+    def __init__(self, eng: WaveEngine, ws: WaveState, key: tuple):
         global CAPTURES
         self.eng, self.ws, self.key = eng, ws, key
         self.traced = _PROFILED
@@ -457,14 +431,16 @@ class WaveLoop:
         self.sample.fill_(self.eng.start_sample)
         self.ws.accum.copy_(accum.reshape(self.eng.npix, 3))
 
-    def run(self) -> None:
-        """Launch the graph on the current stream and copy the counters to
-        the host once (span ``wavefront.wait``: the launch and the read,
-        which waits for the loop to drain).  Counts the launches from that
-        copy: ``wave_reset`` once, each wave kernel ``waves + 1`` (the last
-        wave's K1 finds no work and K3, K4 and K2 after it return at once),
-        ``wave_loop`` none, as the loop has no kernel of its own.  Raises
-        for a frame that has not drained within ``MAX_WAVES``."""
+    def run(self) -> tuple:
+        """Launch the graph on the current stream and copy the counters and
+        the depth histogram to the host, one copy each (span
+        ``wavefront.wait``: the launch and the copies, the first of which
+        waits for the loop to drain) → ``(ctr, depth_hist)`` on the host.
+        Counts the launches from that copy: ``wave_reset`` once, each wave
+        kernel ``waves + 1`` (the last wave's K1 finds no work and K3, K4
+        and K2 after it return at once), ``wave_loop`` none, as the loop
+        has no kernel of its own.  Raises for a frame that has not drained
+        within ``MAX_WAVES``."""
         dev = self.ws.ctr.device
         with span("wavefront.wait"):
             _check(_wave_loop_lib().ptt_wave_loop_launch(
@@ -472,11 +448,13 @@ class WaveLoop:
                 ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
                 "launching the graph")
             host = self.ws.ctr.cpu()             # the one host read
+            hist = self.ws.depth_hist.cpu()
         kernels.count({"wave_reset": 1})
         kernels.count(self.per_wave, int(host[C_WAVES]) + 1)
         if self.eng.live(host):
             raise RuntimeError(f"wavefront did not drain within {MAX_WAVES} "
                                f"waves")
+        return host, hist
 
     def free(self) -> None:
         """Destroy the graph and its stream (once; span
@@ -592,34 +570,10 @@ def clear_wave_loops() -> None:
         kept.free()
 
 
-def run_waves_graph(eng: WaveEngine, ws: WaveState) -> int:
-    """Run waves on the device until no work is left, through a loop graph
-    (:class:`WaveLoop`) captured for this call alone and freed after it;
-    returns the host reads (1).  The graph first resets ``ws``'s slots,
-    counters, depth histogram and per-pixel path counts to
-    :meth:`WaveEngine.init_state`'s values (``accum`` is kept), so ``ws``
-    is a fresh pool.  This is the capture-per-batch form of the loop, a
-    comparison path: :func:`render_batch` keeps one graph per
-    configuration and replays it per batch (:func:`wave_loop`)."""
-    loop = WaveLoop(eng, ws)
-    try:
-        loop.run()
-    finally:
-        loop.free()
-    return 1
-
-
 def _stats(ws: WaveState, eng: WaveEngine) -> dict:
-    ctr = ws.ctr
-    return {"paths": ctr[C_DONE], "rays": ctr[C_RAYS],
-            "depth_sum": ctr[C_DEPTH_SUM], "waves": ctr[C_WAVES],
-            "ctrls": ctr[C_CTRLS], "occ_sum": ctr[C_OCC_SUM],
-            "trav_steps": ctr[C_TRAV_STEPS], "exec_steps": ctr[C_EXEC_STEPS],
-            "walk_steps": ctr[C_WALK_STEPS],
-            "depth_hist": ws.depth_hist, "slots": eng.R,
-            "spawned": torch.clamp(ctr[C_SPAWNED], max=eng.items_total),
-            "total": eng.total, "pixel_paths": ws.pix_paths,
-            "stack_overflows": ctr[C_STACK_OVF]}
+    return dict(counter_stats(ws.ctr, ws.depth_hist), slots=eng.R,
+                spawned=torch.clamp(ws.ctr[C_SPAWNED], max=eng.items_total),
+                total=eng.total, pixel_paths=ws.pix_paths)
 
 
 def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
@@ -640,10 +594,12 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
     twins on whatever device the tensors are on (the comparison path, a
     host loop); the default runs the CUDA kernels in the device wave loop
     for CUDA tensors: the kept :class:`WaveLoop` of this configuration
-    (:func:`wave_loop`), replayed, whose result and stats are copied out of
-    the state it keeps.  With ``with_stats`` the
-    stats dict adds ``pixel_paths`` (finished paths per pixel),
-    ``stack_overflows`` (must be 0) and ``host_reads``.  ``spawn_order``
+    (:func:`wave_loop`), replayed, whose frame is copied out of the state it
+    keeps and whose counters and depth histogram come from its one host
+    read.  With ``with_stats`` the stats dict holds the counters of
+    :data:`.types.STATS` (``stack_overflows`` must be 0), their vector
+    ``ctr``, ``depth_hist``, ``slots``, ``spawned``, ``total``,
+    ``pixel_paths`` (finished paths per pixel) and ``host_reads``.  ``spawn_order``
     (:func:`tile_spawn_order`, one entry per block pixel) permutes the
     order in which work items take pixels; the sample set stays the same.
     """
@@ -652,13 +608,11 @@ def render_batch(scene, flags, bvh, cam, cfg: RenderConfig, accum,
                          n_samples, base_key, queue_size, steps_per_wave,
                          ctrl_den, sample_stride, pix_offset, n_pix,
                          spawn_order)
-        loop.run()
+        ctr, hist = loop.run()
         eng, reads = loop.eng, 1
-        out = {"accum": loop.ws.accum.clone()}
+        out = {"accum": loop.ws.accum.clone(), "ctr": ctr, "depth_hist": hist}
         if with_stats:
-            out.update(ctr=loop.ws.ctr.clone(),
-                       depth_hist=loop.ws.depth_hist.clone(),
-                       pix_paths=loop.ws.pix_paths.clone())
+            out["pix_paths"] = loop.ws.pix_paths.clone()
         ws = dataclasses.replace(loop.ws, **out)
     else:
         with span("wavefront.setup"):

@@ -355,12 +355,14 @@ def render_sharded_wavefront(scene, flags, bvh, cam, cfg: RenderConfig,
     image = assemble(block / spp, mesh.world(), off, npix, cfg)
     if not with_stats:
         return image
-    world = mesh.world()
-    counts = world.psum(torch.cat([st[k].reshape(1) for k in SUMMED_STATS]
-                                  + [st["depth_hist"].to(torch.int64)]))
+    # the engine's counters may be on the host; the collectives take the
+    # block's device
+    world, dev = mesh.world(), zero.device
+    counts = world.psum(torch.cat([torch.stack([st[k] for k in SUMMED_STATS]),
+                                   st["depth_hist"].to(torch.int64)]).to(dev))
     stats = {k: counts[i] for i, k in enumerate(SUMMED_STATS)}
     stats["depth_hist"] = counts[len(SUMMED_STATS):]
-    stats["waves"] = world.pmax(st["waves"].reshape(1))[0]
+    stats["waves"] = world.pmax(st["waves"].reshape(1).to(dev))[0]
     return image, stats
 
 

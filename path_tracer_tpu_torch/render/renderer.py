@@ -34,7 +34,7 @@ from ..models.compile import compile_scene
 from ..ops import integrator, kernels, wavefront
 from ..ops.bvh_build import build_from_scene
 from ..ops.shade import SceneFlags
-from ..ops.types import RenderConfig
+from ..ops.types import STATS, RenderConfig
 from ..utils import rng
 from ..utils.image import write_png, write_ppm
 from ..utils.spans import count, span
@@ -266,22 +266,27 @@ class Renderer:
                 self.save_checkpoint(checkpoint_path)
 
     def _add_stats(self, b: dict) -> None:
-        """Add a batch's counters to ``self.stats``; on the wavefront also
-        to the counters of :mod:`..utils.spans`: ``wavefront.waves``,
+        """Add a batch's stats to ``self.stats``; on the wavefront also to
+        the counters of :mod:`..utils.spans`: ``wavefront.waves``,
         ``wavefront.live_lanes`` (occupied slots at each wave's start,
-        summed) and ``wavefront.slot_waves`` (slots x waves)."""
+        summed) and ``wavefront.slot_waves`` (slots x waves).  The counter
+        vector comes over in one copy and the depth histogram in one more
+        where the engine hands them on the device (the megakernel); the
+        wavefront hands them on the host."""
         s = self.stats
-        occ, waves = int(b["occ_sum"]), int(b["waves"])
-        s.paths += int(b["paths"])
-        s.rays += int(b["rays"])
-        s.depth_sum += int(b["depth_sum"])
+        ctr = b["ctr"].tolist()
+        c = {name: ctr[i] for name, i in STATS.items()}
+        occ, waves = c["occ_sum"], c["waves"]
+        s.paths += c["paths"]
+        s.rays += c["rays"]
+        s.depth_sum += c["depth_sum"]
         s.occ_sum += occ
         s.waves += waves
-        s.ctrls += int(b["ctrls"])
+        s.ctrls += c["ctrls"]
         s.slots = int(b["slots"])
         s.host_reads += int(b["host_reads"])
-        s.walk_steps += int(b["walk_steps"])
-        if int(b["stack_overflows"]):
+        s.walk_steps += c["walk_steps"]
+        if c["stack_overflows"]:
             raise RuntimeError("traversal stack overflowed (pushes dropped)")
         hist = b["depth_hist"].cpu().numpy().astype(np.int64)
         s.depth_hist = hist if s.depth_hist is None else s.depth_hist + hist
@@ -471,13 +476,9 @@ def _render_batch(scene, flags, bvh, cam, cfg, accum, start_sample,
     engine's defaults, as in JAX.  A batch whose pool is the card's adds 1
     to the counter ``wavefront.pool_from_card``."""
     if engine == "megakernel":
-        accum, st = integrator.render_batch(scene, flags, bvh, cam, cfg,
-                                            accum, start_sample, n_samples,
-                                            key, with_stats=True)
-        # ``paths`` is the kernel's count of finished paths.  Wave and
-        # occupancy fields stay 0, as in JAX.
-        return accum, dict(st, waves=0, ctrls=0, occ_sum=0, slots=0,
-                           host_reads=0)
+        return integrator.render_batch(scene, flags, bvh, cam, cfg, accum,
+                                       start_sample, n_samples, key,
+                                       with_stats=True)
     resident = kernels.resident_lanes(accum.device, bvh.branching)
     p_q, p_s, _ = wave_preset(cfg, bvh.nodes.shape[0],
                               n_samples * cfg.width * cfg.height, resident)

@@ -5,8 +5,9 @@
 Renders vol2_final_scene(sphere_cluster=1000) at 800x450, 10 spp, depth 10
 in one batch through ``Renderer(engine="wavefront")`` (K1-K4 in the device
 wave loop) and ``Renderer(engine="megakernel")`` (K5), each twice, and prints
-one JSON line with each frame's sha256 (the float32 sums' bytes), the
-counters, whether the two renders of an engine are equal, and the card's
+one JSON line with each frame's sha256 (the float32 sums' bytes), its
+``RenderStats`` but the times, whether the two renders of an engine are
+equal, and the card's
 ``nvidia-smi`` name and power limit.  The package is imported from
 ``PYTHONPATH``, so running this file with each checkout on the path compares
 them on one card.  It needs a CUDA card.
@@ -39,9 +40,11 @@ def main() -> int:
             r.render(spp=SPP, batch=SPP)
             acc = r.accum.cpu().contiguous().numpy()
             digests.append(hashlib.sha256(acc.tobytes()).hexdigest())
+        stats = {k: v for k, v in vars(r.stats).items()
+                 if k not in ("wall_s", "sample_times")}
+        stats["depth_hist"] = [int(x) for x in stats["depth_hist"]]
         out[engine] = {"sha256": digests[0], "repeat_equal":
-                       digests[0] == digests[1], "paths": r.stats.paths,
-                       "rays": r.stats.rays, "waves": r.stats.waves}
+                       digests[0] == digests[1], "stats": stats}
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

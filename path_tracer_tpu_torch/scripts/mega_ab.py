@@ -244,12 +244,16 @@ def measure_side() -> int:
     def k5_sample(sc, fl, bvh, ca, cf, tag):
         eng = integrator.MegaEngine(sc, fl, bvh, ca, cf, key)
         ms = eng.init_state(torch.zeros((cf.height, cf.width, 3), device=dev))
-        integrator.megakernel(eng, ms, 0)
+        # a checkout from before mega_args keeps the block on the state
+        args = ((integrator.mega_args(eng, ms),)
+                if hasattr(integrator, "mega_args") else ())
+        integrator.megakernel(eng, ms, 0, *args)
         torch.cuda.synchronize()
         # every counter but the scratch of the work fetch (C_FETCH, 20)
         rec["hash"][tag] = _hash(ms.color, ms.iters, ms.depth, ms.accum,
                                  ms.depth_hist, ms.ctr[:20])
-        rec["k5"][tag] = _device_ms(lambda: integrator.megakernel(eng, ms, 0))
+        rec["k5"][tag] = _device_ms(lambda: integrator.megakernel(eng, ms, 0,
+                                                                  *args))
 
     for K in (4, 8):
         bvh = ptt.build_from_scene(scene, K)

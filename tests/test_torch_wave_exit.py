@@ -19,9 +19,10 @@
   ``[0, B)`` are clamped as JAX's clip-mode gather clamps them.
 * ``Renderer(engine="megakernel")`` warns when the config sets a wavefront
   knob, and renders the same image.
-* On a CUDA card (marker ``gpu``): the device wave loop against the host
-  loop, the graphed tiled frame against the eager one, ``gather_rows``
-  against ``index_select``.
+* On a CUDA card (marker ``gpu``): the kept device wave loop
+  (``render_batch``) against the host loop of the CUDA kernels
+  (``run_waves``), the graphed tiled frame against the eager one,
+  ``gather_rows`` against ``index_select``.
 """
 import shutil
 import warnings
@@ -345,23 +346,26 @@ def _card_setup(dev, w=160, h=90, spp=2):
 @pytest.mark.gpu
 def test_device_wave_loop_matches_host_loop_on_card(cuda_device):
     scene, flags, bvh, cam, cfg = _card_setup(cuda_device)
-    out = {}
-    for loop in (twf.run_waves, twf.run_waves_graph):
-        eng = twf.WaveEngine(scene, flags, bvh, cam, cfg, 0, 2,
-                             rng.key(0, cuda_device), queue_size=8192,
-                             steps_per_wave=32, ctrl_den=8)
-        ws = eng.init_state(torch.zeros((cfg.height, cfg.width, 3),
-                                        device=cuda_device))
-        kernels.reset_launches()
-        reads = loop(eng, ws)
-        out[loop] = (ws, eng, reads, dict(kernels.LAUNCHES))
-    (h, eng, _, _), (g, _, reads, launches) = out.values()
-    assert reads == 1
-    assert torch.equal(h.accum, g.accum)
+    key, pool = rng.key(0, cuda_device), dict(queue_size=8192,
+                                              steps_per_wave=32, ctrl_den=8)
+    zero = torch.zeros((cfg.height, cfg.width, 3), device=cuda_device)
+    eng = twf.WaveEngine(scene, flags, bvh, cam, cfg, 0, 2, key, **pool)
+    h = eng.init_state(zero)
+    twf.run_waves(eng, h)
+    h_st = twf._stats(h, eng)
+    kernels.reset_launches()
+    img, st = twf.render_batch(scene, flags, bvh, cam, cfg, zero, 0, 2, key,
+                               with_stats=True, **pool)
+    launches = dict(kernels.LAUNCHES)
+    twf.clear_wave_loops()
+    assert st["host_reads"] == 1
+    assert torch.equal(h.accum.reshape(img.shape), img)
     for k in ("paths", "rays", "waves", "ctrls", "occ_sum", "trav_steps",
               "exec_steps", "walk_steps", "spawned"):
-        assert int(twf._stats(h, eng)[k]) == int(twf._stats(g, eng)[k]), k
-    waves = int(g.ctr[ttr.C_WAVES])
+        assert int(h_st[k]) == int(st[k]), k
+    assert torch.equal(h.depth_hist.cpu(), st["depth_hist"])
+    assert torch.equal(h.pix_paths, st["pixel_paths"])
+    waves = int(st["waves"])
     assert (launches["trace_step"] == launches["shade"] == launches["retire"]
             == launches["spawn"] == waves + 1)
     assert launches["wave_loop"] == 0
